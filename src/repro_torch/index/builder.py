@@ -1,0 +1,75 @@
+"""One-time index preprocessing (DESIGN.md §3.1): corpus → IndexStore, for
+the dense and rotated boxes.
+
+  * dense:   blocked, padded, capacity-padded corpus layout,
+  * rotated: the §IV-B Hadamard rotation is cached — the sign vector and
+    the pre-rotated corpus are stored, so serving only rotates queries,
+  * per-arm block statistics, the warm-start priors for the racing CIs.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import BMOConfig
+from repro_torch.core.datasets import next_pow2
+from repro_torch.device import make_generator, resolve_device
+from repro_torch.index.store import IndexStore
+from repro_torch.kernels import ops as kops
+
+
+def _row_block_stats(x: torch.Tensor, block: int, metric: str):
+    """Per-arm variance across blocks of the row's block values — the
+    query-independent part of the pull-value variance."""
+    n, d_pad = x.shape
+    xb = x.reshape(n, d_pad // block, block)
+    v = torch.mean(torch.abs(xb) if metric == "l1" else xb * xb, dim=-1)
+    return torch.var(v, dim=-1, unbiased=False)
+
+
+def _rademacher(dp: int, generator: torch.Generator,
+                device: torch.device) -> torch.Tensor:
+    """(dp,) fp32 random ±1 signs of the cached rotation."""
+    bits = torch.randint(0, 2, (dp,), generator=generator, device=device)
+    return (2 * bits - 1).to(torch.float32)
+
+
+def build_index(corpus, cfg: BMOConfig, rng=0, *,
+                capacity: Optional[int] = None, impl: str = "auto",
+                device=None) -> IndexStore:
+    """Preprocess a dense (n, d) ``corpus`` (numpy or tensor) into an
+    IndexStore on ``device`` (default: the GPU). ``cfg.rotate`` selects the
+    rotated box; ``rng`` (a seed or a ``torch.Generator`` on the device)
+    draws its signs. ``capacity`` defaults to the next power of two."""
+    if cfg.sparse:
+        raise NotImplementedError("the sparse box is not ported yet")
+    dev = resolve_device(device)
+    x = torch.as_tensor(corpus, dtype=torch.float32, device=dev)
+    n, d = x.shape
+    kind = "rotated" if cfg.rotate else "dense"
+    signs = None
+    if cfg.rotate:
+        if cfg.metric != "l2":
+            raise ValueError("rotation preserves only ℓ2")
+        if cfg.block & (cfg.block - 1):
+            raise ValueError("the rotated box needs a power-of-two block")
+        dp = max(next_pow2(d), cfg.block)
+        x = torch.nn.functional.pad(x, (0, dp - d))
+        signs = _rademacher(dp, make_generator(rng, dev), dev)
+        x = kops.fwht(x * signs[None, :], impl=impl)
+    # blocked layout
+    pad = (-x.shape[1]) % cfg.block
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+        if signs is not None:  # keep signs aligned with d_pad for queries
+            signs = torch.nn.functional.pad(signs, (0, pad), value=1.0)
+    cap = capacity or next_pow2(n)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < corpus rows {n}")
+    if cap > n:
+        x = torch.nn.functional.pad(x, (0, 0, 0, cap - n))
+    alive = torch.arange(cap, device=dev) < n
+    prior_var = _row_block_stats(x, cfg.block, cfg.metric)
+    return IndexStore(kind=kind, cfg=cfg, d=d, alive=alive, x=x,
+                      block=cfg.block, signs=signs, prior_var=prior_var)

@@ -1,0 +1,125 @@
+"""IndexStore: the corpus container behind the batched BMO-NN index, dense
+and rotated kinds (DESIGN.md §3).
+
+One store owns what the paper's Algorithm 2 would recompute per call: the
+padded, blocked corpus layout, the cached Hadamard rotation (sign vector +
+pre-rotated corpus; only queries are rotated at request time), per-arm
+block-statistics priors, and the ``alive`` tombstone mask. Arrays are
+capacity-padded (slots ≥ live points).
+
+``from_arrays`` takes the reference store's ``arrays()`` (as numpy) and
+``meta()`` unchanged, so an index built by either package races in the
+other.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import BMOConfig
+from repro_torch.device import resolve_device
+
+KINDS = ("dense", "rotated")
+SPARSE_FIELDS = ("indices", "values", "nnz")
+
+
+@dataclasses.dataclass
+class IndexStore:
+    kind: str                           # dense | rotated
+    cfg: BMOConfig                      # racing defaults bound at build time
+    d: int                              # true dimension (θ normalizer)
+    alive: torch.Tensor                 # (cap,) bool — tombstone mask
+    x: torch.Tensor                     # (cap, d_pad) fp32, blocked layout
+    block: int = 128
+    signs: Optional[torch.Tensor] = None      # (d_pad,) ±1 — cached rotation
+    prior_var: Optional[torch.Tensor] = None  # (cap,) per-arm block variance
+    prior_weight: float = 4.0                 # pseudo-observations
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    @property
+    def capacity(self) -> int:
+        return int(self.alive.shape[0])
+
+    @property
+    def n_live(self) -> int:
+        # cached per instance: the k guard of every query reads it, and a
+        # device sync per call would serialize host and device
+        if "_n_live" not in self.__dict__:
+            self._n_live = int(torch.sum(self.alive))
+        return self._n_live
+
+    @property
+    def d_pad(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def n_blocks(self) -> int:
+        return self.d_pad // self.block
+
+    # -- query-side preprocessing ------------------------------------------
+
+    def prepare_queries(self, queries, impl: str = "auto") -> torch.Tensor:
+        """Pad (and rotate, with the cached signs) a (Q, d) query batch into
+        the store's (Q, d_pad) layout on the store's device."""
+        from repro_torch.kernels import ops as kops
+        qs = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        pad = self.d_pad - qs.shape[-1]
+        if pad:
+            qs = torch.nn.functional.pad(qs, (0, pad))
+        if self.kind == "rotated":
+            qs = kops.fwht(qs * self.signs[None, :], impl=impl)
+        return qs
+
+    # -- (de)serialization --------------------------------------------------
+
+    def arrays(self) -> dict:
+        """The arrays a checkpoint persists, as tensors."""
+        out = {"alive": self.alive, "x": self.x}
+        for name in ("signs", "prior_var"):
+            arr = getattr(self, name)
+            if arr is not None:
+                out[name] = arr
+        return out
+
+    def meta(self) -> dict:
+        return {
+            "kind": self.kind,
+            "d": self.d,
+            "block": self.block,
+            "prior_weight": float(self.prior_weight),
+            "cfg": dataclasses.asdict(self.cfg),
+        }
+
+    @classmethod
+    def from_arrays(cls, arrays: dict, meta: dict,
+                    device=None) -> "IndexStore":
+        """A store from persisted arrays (numpy or tensors) and metadata —
+        the reference's ``arrays()``/``meta()`` load unchanged. Runs on
+        ``device`` (default: the GPU)."""
+        if meta["kind"] not in KINDS or any(f in arrays for f in SPARSE_FIELDS):
+            raise NotImplementedError(
+                f"{meta['kind']!r} stores are not ported yet; the port "
+                f"serves {KINDS}")
+        dev = resolve_device(device)
+
+        def opt(name, dtype):
+            if name not in arrays:
+                return None
+            a = arrays[name]
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.array(a))   # a writable copy
+            return a.to(device=dev, dtype=dtype)
+
+        return cls(
+            kind=meta["kind"], cfg=BMOConfig(**meta["cfg"]), d=int(meta["d"]),
+            alive=opt("alive", torch.bool), x=opt("x", torch.float32),
+            block=int(meta["block"]), signs=opt("signs", torch.float32),
+            prior_var=opt("prior_var", torch.float32),
+            prior_weight=float(meta.get("prior_weight", 4.0)),
+        )

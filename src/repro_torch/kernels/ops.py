@@ -1,0 +1,50 @@
+"""Dispatch between each ported kernel and its plain PyTorch version.
+
+``impl``:
+  * "auto" — the CUDA kernel for a CUDA tensor, the plain version for a CPU
+             tensor,
+  * "cuda" — the CUDA kernel; raises on a CPU tensor,
+  * "ref"  — the plain version, on any device.
+
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels.fused_race import N_BUF, fused_epoch_pull_cuda
+from repro_torch.kernels.fwht import fwht_cuda
+
+IMPLS = ("auto", "cuda", "ref")
+
+
+def _resolve(impl: str, t: torch.Tensor) -> str:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r} (want one of {IMPLS})")
+    if impl == "auto":
+        return "cuda" if t.is_cuda else "ref"
+    if impl == "cuda" and not t.is_cuda:
+        raise ValueError("impl='cuda' needs a CUDA tensor; this one is on "
+                         f"{t.device}")
+    return impl
+
+
+def fwht(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
+    if _resolve(impl, x) == "ref":
+        return kref.fwht_ref(x)
+    return fwht_cuda(x)
+
+
+def fused_epoch_pull(x, qs, arm_idx, blk_idx, *, block: int,
+                     metric: str = "l2", impl: str = "auto",
+                     n_buf: int = N_BUF):
+    """Round-fused epoch pull: arm_idx (Q, B), blk_idx (Q, B, R·P) →
+    (Q, B, 2) per-arm (mean, M2) Welford batch statistics. ``n_buf`` is the
+    kernel's load-ahead depth (``BMOConfig.kernel_buffers``; the plain
+    version ignores it)."""
+    if _resolve(impl, x) == "ref":
+        return kref.fused_epoch_pull_ref(x, qs, arm_idx, blk_idx, block,
+                                         metric)
+    return fused_epoch_pull_cuda(x, qs, arm_idx, blk_idx, block=block,
+                                 metric=metric, n_buf=n_buf)

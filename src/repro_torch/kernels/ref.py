@@ -1,0 +1,64 @@
+"""Plain PyTorch versions of the ported kernels: what the CPU runs, and what
+the CUDA kernels are held against on the card."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def fwht_ref(x: torch.Tensor) -> torch.Tensor:
+    """Normalized fast Walsh–Hadamard transform along the last axis,
+    Sylvester (natural) order. x (..., d), d a power of two; computed in
+    fp32 and cast back to the input type."""
+    d = x.shape[-1]
+    assert d & (d - 1) == 0, f"d={d} not a power of two"
+    orig_shape = x.shape
+    y = x.to(torch.float32).reshape(-1, d)
+    r = y.shape[0]
+    blocks = 1
+    while blocks < d:
+        y = y.reshape(r, blocks, 2, d // (2 * blocks))
+        a = y[:, :, 0, :]
+        b = y[:, :, 1, :]
+        y = torch.cat([a + b, a - b], dim=-1)
+        blocks *= 2
+    return (y.reshape(orig_shape) / math.sqrt(d)).to(x.dtype)
+
+
+def block_pull_multi_ref(x: torch.Tensor, qs: torch.Tensor,
+                         arm_idx: torch.Tensor, blk_idx: torch.Tensor,
+                         block: int, metric: str = "l2") -> torch.Tensor:
+    """Cross-query batched pull: the mean over ``block`` coordinates of
+    ``(x[arm, blk·block:+block] − qs[q, same])²`` (or ``|·|`` for ℓ1).
+    x (n, d_pad); qs (Q, d_pad); arm_idx (Q, B); blk_idx (Q, B, P).
+    Returns (Q, B, P) fp32."""
+    n, d_pad = x.shape
+    Q = qs.shape[0]
+    nb = d_pad // block
+    xb = x.reshape(n, nb, block)
+    qb = qs.reshape(Q, nb, block)
+    blk = blk_idx.long()
+    rows = xb[arm_idx.long()[:, :, None], blk]                   # (Q, B, P, block)
+    qrows = qb[torch.arange(Q, device=qs.device)[:, None, None], blk]
+    diff = rows.to(torch.float32) - qrows.to(torch.float32)
+    if metric == "l1":
+        v = torch.sum(torch.abs(diff), dim=-1)
+    else:
+        v = torch.sum(diff * diff, dim=-1)
+    return (v / block).to(torch.float32)
+
+
+def fused_epoch_pull_ref(x: torch.Tensor, qs: torch.Tensor,
+                         arm_idx: torch.Tensor, blk_idx: torch.Tensor,
+                         block: int, metric: str = "l2") -> torch.Tensor:
+    """Round-fused epoch pull: T block pulls per (query, arm), reduced to
+    Welford batch statistics. arm_idx (Q, B); blk_idx (Q, B, T). Returns
+    (Q, B, 2) fp32: (mean, M2) of each arm's T pulled values. A negative
+    arm id marks a lane the caller discards: its result is (0, 0)."""
+    skip = arm_idx < 0
+    vals = block_pull_multi_ref(x, qs, torch.where(skip, 0, arm_idx),
+                                blk_idx, block, metric)
+    mean = torch.mean(vals, dim=-1)
+    m2 = torch.sum(torch.square(vals - mean[..., None]), dim=-1)
+    return torch.where(skip[..., None], 0.0, torch.stack([mean, m2], dim=-1))

@@ -1,0 +1,360 @@
+"""The port's k-NN query path as a whole, held against the JAX package on
+the CPU.
+
+* Carrying state across: a store built by ``repro.index.build_index`` loads
+  into the port through ``IndexStore.from_arrays`` and computes what the
+  reference computes; the port's own ``build_index`` reproduces the
+  reference's layout and priors.
+* Decisions: with the reference's block draws replayed through the port's
+  ``block_sampler``, the epoch-fused race makes identical decisions — top-k
+  ids, rounds, exact evaluations, accepted and surviving sets — with
+  frontier compaction on and off. Values and coordinate-ops at fp32
+  tolerance (rtol 2e-4 / atol 1e-5: sums taken in another order).
+* Own draws: ``Index.build`` → ``Index.query`` on the port's generator
+  returns the exact top-k sets of a numpy brute force.
+* Where the port departs from the reference on purpose (d_pad ≠ d: the
+  race compares exact evaluations on the pulls' ρ/d_pad scale; ROADMAP.md
+  Queue 3), it returns the exact top-k on an input where the reference
+  does not.
+"""
+import ast
+import dataclasses
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import BMOConfig as JaxBMOConfig
+from repro.data import synthetic as jsynthetic
+from repro.index.batched_race import fused_race_topk as jax_fused_race_topk
+from repro.index.batched_race import index_knn as jax_index_knn
+from repro.index.builder import build_index as jax_build_index
+from repro.index.store import IndexStore as JaxIndexStore
+from repro_torch.api import Index
+from repro_torch.configs.base import BMOConfig
+from repro_torch.data import synthetic
+from repro_torch.index import builder
+from repro_torch.index.batched_race import fused_race_topk, index_knn
+from repro_torch.index.store import IndexStore
+
+FP32 = dict(rtol=2e-4, atol=1e-5)
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# the datasets of the reference's fused-driver tests (tests/test_index.py)
+CASES = {
+    "n500-dense": ((500, 1024, 5, 21), False),
+    "n500-rotated": ((500, 1024, 5, 21), True),
+    "n300-dense": ((300, 1024, 4, 33), False),
+}
+
+
+def _cfg_kw(rotate):
+    return dict(k=3, delta=0.01, block=64, batch_arms=16, pulls_per_round=2,
+                metric="l2", rotate=rotate)
+
+
+def _data(case):
+    (n, d, Q, seed), rotate = CASES[case]
+    corpus, queries = jsynthetic.make_knn_benchmark_data("dense", n, d, Q,
+                                                         seed=seed)
+    return corpus, queries, rotate
+
+
+def _carry(jstore, **arrays_override):
+    arrays = {k: np.asarray(v) for k, v in jstore.arrays().items()}
+    arrays.update(arrays_override)
+    return arrays, jstore.meta()
+
+
+def _brute_force(corpus, queries, k):
+    d = ((queries[:, None, :].astype(np.float64)
+          - corpus[None].astype(np.float64)) ** 2).sum(-1)
+    return [set(row) for row in np.argsort(d, 1, kind="stable")[:, :k].tolist()]
+
+
+def _sets(idx):
+    return [set(row) for row in np.asarray(idx).tolist()]
+
+
+def replay_sampler(key):
+    """The reference's block draws, in order: one split + randint for the
+    init and one per epoch, exactly as its fused driver takes them."""
+    state = {"key": key}
+
+    def sample(shape, nb):
+        state["key"], sub = jax.random.split(state["key"])
+        return torch.from_numpy(np.array(jax.random.randint(sub, shape, 0,
+                                                            nb)))
+    return sample
+
+
+# ---------------------------------------------------------------------------
+# carrying state across
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["dense", "rotated"])
+def test_from_arrays_carries_reference_store(rotate):
+    corpus, queries = jsynthetic.make_knn_benchmark_data("dense", 60, 200, 3,
+                                                         seed=4)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(rotate)),
+                             jax.random.PRNGKey(3))
+    store = IndexStore.from_arrays(*_carry(jstore), device="cpu")
+    assert store.meta() == jstore.meta()
+    assert store.kind == ("rotated" if rotate else "dense")
+    for name, arr in jstore.arrays().items():
+        np.testing.assert_array_equal(store.arrays()[name].numpy(),
+                                      np.asarray(arr))
+    assert store.n_live == jstore.n_live and store.capacity == jstore.capacity
+    np.testing.assert_allclose(store.prepare_queries(queries).numpy(),
+                               np.asarray(jstore.prepare_queries(queries)),
+                               **FP32)
+
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["dense", "rotated"])
+def test_build_index_matches_reference(monkeypatch, rotate):
+    corpus, _ = jsynthetic.make_knn_benchmark_data("dense", 90, 300, 1,
+                                                   seed=6)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(rotate)),
+                             jax.random.PRNGKey(8))
+    if rotate:   # the reference's signs, in place of the port's own draw
+        monkeypatch.setattr(builder, "_rademacher",
+                            lambda dp, g, dev: torch.from_numpy(
+                                np.array(jstore.signs)))
+    store = builder.build_index(corpus, BMOConfig(**_cfg_kw(rotate)),
+                                device="cpu")
+    assert store.meta() == jstore.meta()
+    np.testing.assert_array_equal(store.alive.numpy(),
+                                  np.asarray(jstore.alive))
+    np.testing.assert_allclose(store.x.numpy(), np.asarray(jstore.x), **FP32)
+    np.testing.assert_allclose(store.prior_var.numpy(),
+                               np.asarray(jstore.prior_var), **FP32)
+
+
+def test_rotated_build_draws_signs_from_the_generator():
+    corpus = np.random.default_rng(0).normal(size=(10, 100)).astype(
+        np.float32)
+    cfg = BMOConfig(**_cfg_kw(True))
+    a = builder.build_index(corpus, cfg, 5, device="cpu")
+    b = builder.build_index(corpus, cfg, 5, device="cpu")
+    c = builder.build_index(corpus, cfg, 6, device="cpu")
+    assert a.signs.shape == (128,) and set(a.signs.tolist()) == {-1.0, 1.0}
+    assert torch.equal(a.signs, b.signs) and not torch.equal(a.signs, c.signs)
+
+
+def test_from_arrays_rejects_sparse_stores():
+    with pytest.raises(NotImplementedError, match="sparse"):
+        IndexStore.from_arrays(
+            {"alive": np.ones(4, bool), "indices": np.zeros((4, 2))},
+            {"kind": "sparse", "d": 8, "block": 1,
+             "cfg": dataclasses.asdict(BMOConfig(sparse=True))},
+            device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# decisions with the reference's draws replayed
+# ---------------------------------------------------------------------------
+
+def _race_both(jstore, store, queries, compaction, cfg_over=None):
+    jcfg = jstore.cfg if cfg_over is None else dataclasses.replace(
+        jstore.cfg, **cfg_over)
+    cfg = store.cfg if cfg_over is None else dataclasses.replace(
+        store.cfg, **cfg_over)
+    key = jax.random.PRNGKey(5)
+    want = jax_fused_race_topk(
+        jstore.x, jstore.prepare_queries(queries), jstore.alive,
+        jstore.prior_var, key, cfg=jcfg, block=jstore.block, d=jstore.d,
+        impl="auto", eliminate=True, prior_weight=jstore.prior_weight,
+        compaction=compaction, _return_state=True)
+    got = fused_race_topk(
+        store.x, store.prepare_queries(queries), store.alive,
+        store.prior_var, cfg=cfg, block=store.block, d=store.d, impl="auto",
+        eliminate=True, prior_weight=store.prior_weight,
+        compaction=compaction, block_sampler=replay_sampler(key),
+        _return_state=True)
+    return want, got
+
+
+def _assert_same_race(want, got):
+    (jres, jst), (res, st) = want, got
+    np.testing.assert_array_equal(res.indices.numpy(), np.asarray(jres.indices))
+    np.testing.assert_array_equal(res.rounds.numpy(), np.asarray(jres.rounds))
+    np.testing.assert_array_equal(res.n_exact.numpy(),
+                                  np.asarray(jres.n_exact))
+    np.testing.assert_allclose(res.values.numpy(), np.asarray(jres.values),
+                               **FP32)
+    np.testing.assert_allclose(res.coord_ops.numpy(),
+                               np.asarray(jres.coord_ops), **FP32)
+    assert st.width == jst.width
+
+    def id_sets(ids, mask):
+        ids, mask = np.asarray(ids), np.asarray(mask)
+        return [set(ids[q][mask[q]].tolist()) for q in range(ids.shape[0])]
+
+    for ours, theirs in (
+            (st.accepted & st.valid, jst.accepted & jst.valid),
+            (st.valid & ~st.rejected & ~st.accepted,
+             jst.valid & ~jst.rejected & ~jst.accepted)):
+        assert id_sets(st.ids, ours) == id_sets(jst.ids, theirs)
+
+
+@pytest.mark.parametrize("compaction", [True, False], ids=["compact", "full"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_replayed_race_makes_the_reference_decisions(case, compaction):
+    corpus, queries, rotate = _data(case)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(rotate)),
+                             jax.random.PRNGKey(0))
+    store = IndexStore.from_arrays(*_carry(jstore), device="cpu")
+    _assert_same_race(*_race_both(jstore, store, queries, compaction))
+
+
+def test_replayed_race_with_tombstones_and_k_override():
+    """Dead slots carried across through ``alive`` are never returned, and
+    a k override races the same in both packages."""
+    corpus, queries, _ = _data("n300-dense")
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(False)),
+                             jax.random.PRNGKey(0))
+    truth = _brute_force(corpus, queries, 3)
+    alive = np.asarray(jstore.alive).copy()
+    kill = sorted(truth[0])[:2] + [7, 11]
+    alive[kill] = False
+    arrays, meta = _carry(jstore, alive=alive)
+    jstore = JaxIndexStore.from_arrays(arrays, meta)
+    store = IndexStore.from_arrays(arrays, meta, device="cpu")
+    want, got = _race_both(jstore, store, queries, True, dict(k=2))
+    _assert_same_race(want, got)
+    assert got[0].indices.shape == (4, 2)
+    for row in _sets(got[0].indices):
+        assert not row & set(kill)
+
+
+def test_exact_evaluation_is_on_the_pulls_scale(rng):
+    """Pulls are block means over the d_pad-wide row, so an exact
+    evaluation that the race compares with them is the mean over all
+    blocks: ρ/d_pad, not ρ/d. Here d = 200 pads to d_pad = 256."""
+    from repro_torch.index.batched_race import _dense_exact_theta
+    from repro_torch.kernels import ref
+    store = builder.build_index(rng.normal(size=(8, 200)).astype(np.float32),
+                                BMOConfig(**_cfg_kw(True)), device="cpu")
+    qs = store.prepare_queries(rng.normal(size=(3, 200)).astype(np.float32))
+    nb = store.n_blocks
+    sel = torch.tensor([[0, 5], [7, 2], [3, 3]])
+    every_block = torch.arange(nb).expand(3, 2, nb)
+    stats = ref.fused_epoch_pull_ref(store.x, qs, sel, every_block,
+                                     store.block)
+    torch.testing.assert_close(
+        _dense_exact_theta(store.x, qs, sel, "l2", store.d_pad),
+        stats[..., 0], rtol=2e-4, atol=1e-5)
+
+
+def test_replayed_race_is_exact_where_the_reference_loses_recall():
+    """With d_pad ≠ d (1100 → 2048) the reference's race returns the wrong
+    top-k for queries 2, 6 and 7 of this input (ROADMAP.md Queue 3). The
+    port, on the reference's own draws, returns the exact top-k, with the
+    values θ = ρ/d."""
+    corpus, queries = jsynthetic.make_knn_benchmark_data("dense", 3000,
+                                                         1100, 8, seed=0)
+    cfg = JaxBMOConfig(k=5, delta=0.01, block=128, batch_arms=32,
+                       metric="l2", rotate=True)
+    jstore = jax_build_index(corpus, cfg, jax.random.PRNGKey(0))
+    store = IndexStore.from_arrays(*_carry(jstore), device="cpu")
+    assert (store.d, store.d_pad) == (1100, 2048)
+    c, q = corpus.astype(np.float64), queries.astype(np.float64)
+    dist = (q * q).sum(1)[:, None] + (c * c).sum(1)[None] - 2.0 * q @ c.T
+    truth = [set(r) for r in np.argsort(dist, 1, kind="stable")[:, :5].tolist()]
+
+    want = jax_index_knn(jstore, queries, jax.random.PRNGKey(1))
+    missed = [i for i, row in enumerate(_sets(want.indices)) if row != truth[i]]
+    assert missed == [2, 6, 7]
+
+    res = index_knn(store, queries,
+                    block_sampler=replay_sampler(jax.random.PRNGKey(1)))
+    assert _sets(res.indices) == truth
+    theta = np.take_along_axis(dist, res.indices.numpy().astype(np.int64),
+                               1) / store.d
+    np.testing.assert_allclose(res.values.numpy(), theta, rtol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the handle, on the port's own draws
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_index_query_finds_the_exact_neighbours(case):
+    corpus, queries, rotate = _data(case)
+    idx = Index.build(corpus, BMOConfig(**_cfg_kw(rotate)), device="cpu")
+    res = idx.query(queries)
+    assert res.indices.shape == (len(queries), 3)
+    assert _sets(res.indices) == _brute_force(corpus, queries, 3)
+    assert (np.diff(res.values, axis=1) >= 0).all()
+    assert (res.coord_ops > 0).all() and (res.rounds > 0).all()
+
+
+def test_index_query_spec_overrides():
+    corpus, queries, _ = _data("n300-dense")
+    idx = Index.build(corpus, BMOConfig(**_cfg_kw(False)), device="cpu")
+    res = idx.query(queries, k=5, delta=0.05, mode="fused", impl="ref")
+    assert res.indices.shape == (4, 5)
+    assert _sets(res.indices) == _brute_force(corpus, queries, 5)
+    with pytest.raises(NotImplementedError, match="rounds"):
+        idx.query(queries, mode="rounds")
+    with pytest.raises(ValueError, match="CUDA"):
+        idx.query(queries, impl="cuda")
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
+    """On a machine without CUDA the entry points raise instead of quietly
+    running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    corpus = np.zeros((4, 64), np.float32)
+    cfg = BMOConfig(**_cfg_kw(False))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Index.build(corpus, cfg)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(False)),
+                             jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IndexStore.from_arrays(*_carry(jstore))
+
+
+# ---------------------------------------------------------------------------
+# data and package guards
+# ---------------------------------------------------------------------------
+
+def test_synthetic_numpy_path_is_the_reference():
+    want = jsynthetic.make_knn_benchmark_data("dense", 50, 96, 4, seed=3)
+    got = synthetic.make_knn_benchmark_data("dense", 50, 96, 4, seed=3)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_synthetic_device_path_is_seeded():
+    a = synthetic.make_knn_benchmark_data("dense", 40, 32, 3, seed=1,
+                                          device="cpu")
+    b = synthetic.make_knn_benchmark_data("dense", 40, 32, 3, seed=1,
+                                          device="cpu")
+    c = synthetic.make_knn_benchmark_data("dense", 40, 32, 3, seed=2,
+                                          device="cpu")
+    assert a[0].shape == (40, 32) and a[1].shape == (3, 32)
+    assert a[0].dtype == torch.float32 and a[1].dtype == torch.float32
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert not torch.equal(a[0], c[0])
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
