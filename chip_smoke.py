@@ -1,33 +1,49 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed S] [--queries Q] [--out FILE.json]
+    python3 chip_smoke.py [--seed S] [--queries Q] [--rounds-queries Q]
+                          [--out FILE.json]
 
 Run from the root of a checkout. In order it:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds the
    port's CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``
-   (into ``build/``), timing the build;
-2. kernel phase: calls each kernel's wrapper at the main path's shapes and
-   holds the result against its plain PyTorch version on the same inputs
-   (fp32 at rtol 2e-4 / atol 1e-5 for the pull statistics, 1e-5 for the
-   fp32 transform, 5e-2 for bf16), timing kernel and plain version with
-   CUDA events, beside the least time the card could take (bytes over
-   3.35 TB/s, operations over 67 TFLOP/s fp32);
-3. checks the whole path on a small input on the card against a brute
+   (into ``build/``, one ``nvcc`` per source, all at once), timing the build;
+2. kernel phase: calls each kernel's wrapper at the shapes its path gives
+   it and holds the result against its plain PyTorch version on the same
+   inputs, timing kernel, plain version and (where one exists) the one
+   PyTorch call that computes the same function, with CUDA events over
+   back-to-back calls, and the kernel alone with torch.profiler, beside
+   the least time the card could take (bytes over 3.35 TB/s, operations
+   over 67 TFLOP/s fp32). Tolerances: pull statistics and pulls at
+   rtol 2e-4 / atol 1e-5; the fp32 transform at 1e-5, bf16 at 5e-2;
+   pairwise ℓ1 at rtol 1e-4 / atol 1e-3, ℓ2 at |got − want| ≤
+   1e-4·|want| + 1e-6·(‖q‖² + ‖x‖²) (the plain version's norm expansion
+   cancels). Where the plain version cannot hold the full shape, it is
+   checked on the first queries or rows, as each row says;
+3. checks the fused path on a small input on the card against a brute
    force;
-4. main-path phase: ``Index.build`` → ``Index.query`` of the repo's
-   ``bmo-nn-dense`` workload at its published size (n = 100,000,
-   d = 12,288, rotated, k = 5, δ = 0.01, block 128, 1,024 queries) on a
-   corpus made on the card from ``--seed``, with the kernels' launch
-   counters set to 0 just before and read just after; recall against a
-   float64 brute force, which must reach 0.99 (the δ = 0.01 guarantee);
-5. a second, traced query for the device-time breakdown.
+4. on the repo's ``bmo-nn-dense`` workload at its published size
+   (n = 100,000, d = 12,288, k = 5, δ = 0.01, block 128, 1,024 queries;
+   corpus made on the card from ``--seed``; ground truth a float64 brute
+   force on the card), one phase per path, each with the launch counters of
+   its kernels set to 0 just before and read just after:
+   * main path: ``Index.build`` → ``Index.query`` (the fused driver, rotated
+     box), recall ≥ 0.99, then a second, traced query for the device-time
+     breakdown;
+   * oracle: ``core.oracle.exact_knn`` of all queries, whose top-k sets
+     must equal the brute force's (a disagreement passes only when a float64
+     distance gap under 1e-4 relative, an fp32 near-tie, explains it);
+   * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
+     driver (``--rounds-queries`` of the queries; the default 256 is a cut:
+     1,024 takes over 150 s), recall ≥ 0.99;
+   * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
+     first 16 queries at full n and d, recall ≥ 0.99.
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any mismatch, a recall under 0.99, or a
-kernel that the main path never launched raises, and the script exits
+kernel that its path never launched raises, and the script exits
 non-zero; so it does without a GPU or without the rest of the repository.
 """
 from __future__ import annotations
@@ -46,6 +62,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tensor cores, the peaks the bounds are taken against
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# queries of the paper phase: one host-driven race each, a few seconds apiece
+PAPER_QUERIES = 16
 
 
 def emit(obj) -> None:
@@ -70,7 +88,32 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(what: str, got, want, *, rtol: float, atol: float) -> dict:
+def device_ms(fn, symbol: str, reps: int = 5) -> float:
+    """Mean device time per call of the CUDA kernels whose name contains
+    ``symbol``, over ``reps`` calls under torch.profiler. Where a call's
+    host work (the wrapper in Python, the launch) outlasts its kernel,
+    ``cuda_ms`` measures the host and this measures the kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA
+             and symbol in ev.key)
+    return us / reps / 1e3
+
+
+def compare(what: str, got, want, *, rtol: float, atol: float,
+            allowance=None) -> dict:
+    """Max errors of ``got`` against ``want``; raises beyond
+    atol + rtol·|want| (+ ``allowance``, a per-element tensor)."""
     import torch
     got = got.to(torch.float32)
     want = want.to(torch.float32)
@@ -82,7 +125,10 @@ def compare(what: str, got, want, *, rtol: float, atol: float) -> dict:
     err = (got - want).abs()
     out = {"max_abs_err": float(err.max()),
            "max_rel_err": float((err / (want.abs() + atol)).max())}
-    if not bool((err <= atol + rtol * want.abs()).all()):
+    limit = atol + rtol * want.abs()
+    if allowance is not None:
+        limit = limit + allowance
+    if not bool((err <= limit).all()):
         raise AssertionError(f"{what}: kernel disagrees with its plain "
                              f"version beyond rtol={rtol}, atol={atol}: {out}")
     return out
@@ -94,9 +140,10 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def pull_bound(x, arm, blk, block: int) -> tuple:
-    """Least time for one fused_epoch_pull: each distinct corpus block and
-    query block it needs read once, the indices read once, the output
+def pull_bound(x, arm, blk, block: int, out_floats: int = 2) -> tuple:
+    """Least time for one pull launch (fused_epoch_pull, block_pull_multi):
+    each distinct corpus block and query block it needs read once, the
+    indices read once, the output (``out_floats`` fp32 per (q, arm))
     written once; 3 flops per pulled element."""
     import torch
     Q, B, T = blk.shape
@@ -107,8 +154,14 @@ def pull_bound(x, arm, blk, block: int) -> tuple:
     qseen[(torch.arange(Q, device=x.device)[:, None, None] * nb
            + blk.long()).reshape(-1)] = True
     nbytes = ((int(seen.sum()) + int(qseen.sum())) * block * 4
-              + arm.numel() * 4 + blk.numel() * 4 + Q * B * 2 * 4)
+              + arm.numel() * 4 + blk.numel() * 4 + Q * B * out_floats * 4)
     return bound_ms(nbytes, 3.0 * Q * B * T * block)
+
+
+def pairwise_bound(Q: int, n: int, d: int) -> tuple:
+    """Least time for pairwise_dist: both operands read once, the (Q, n)
+    output written once; 3 flops (subtract, square or abs, add) per term."""
+    return bound_ms(4.0 * (Q * d + n * d + Q * n), 3.0 * Q * n * d)
 
 
 def fwht_bound(x) -> tuple:
@@ -118,11 +171,15 @@ def fwht_bound(x) -> tuple:
 
 
 def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the shapes its path gives
+    it."""
     import torch
     from repro_torch.kernels import ref
+    from repro_torch.kernels.block_pull import (block_pull_cuda,
+                                                block_pull_multi_cuda)
     from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
     from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -148,6 +205,7 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
         row.update(compare(f"fused_epoch_pull epoch {metric}", run(), plain(),
                            rtol=2e-4, atol=1e-5))
         row["ms"] = cuda_ms(run, reps=20)
+        row["device_ms"] = device_ms(run, "fused_epoch_pull_kernel")
         row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
         row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block)
         row["library_ms"] = None
@@ -169,11 +227,74 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     row.update(compare("fused_epoch_pull init", run()[:Qs], plain(),
                        rtol=2e-4, atol=1e-5))
     row["ms"] = cuda_ms(run, reps=3, warmup=1)
+    row["device_ms"] = device_ms(run, "fused_epoch_pull_kernel", reps=2)
     row["plain_ms_first_queries"] = cuda_ms(plain, reps=2, warmup=1)
     row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block)
     row["library_ms"] = None
     results["fused_epoch_pull"].append(row)
     emit(row)
+
+    # --- block_pull_multi: one round of the per-round driver (B = batch_arms,
+    # P = pulls_per_round), and its wide init (every arm of every query) -----
+    P = 2
+    results["block_pull_multi"] = []
+    for case, Bc, Qs in (("round", B, Q), ("init", cap, 16)):
+        if case == "round":
+            arm = torch.randint(0, cap, (Q, Bc), generator=g, device="cuda",
+                                dtype=torch.int32)
+        else:
+            arm = torch.arange(cap, dtype=torch.int32,
+                               device="cuda")[None].expand(Q, cap)
+        blk = torch.randint(0, nb, (Q, Bc, P), generator=g, device="cuda",
+                            dtype=torch.int32)
+        run = lambda: block_pull_multi_cuda(x, qs, arm, blk, block=block)
+        plain = lambda: ref.block_pull_multi_ref(x, qs[:Qs], arm[:Qs],
+                                                 blk[:Qs], block)
+        row = {"kernel": "block_pull_multi", "case": case, "metric": "l2",
+               "shape": {"Q": Q, "B": Bc, "P": P, "block": block,
+                         "d_pad": d_pad, "n": cap}}
+        if Qs < Q:
+            row["plain_checked_on_queries"] = Qs
+        row.update(compare(f"block_pull_multi {case}", run()[:Qs], plain(),
+                           rtol=2e-4, atol=1e-5))
+        row["ms"] = cuda_ms(run, reps=20 if case == "round" else 3,
+                            warmup=2 if case == "round" else 1)
+        row["device_ms"] = device_ms(run, "block_pull_kernel",
+                                     reps=20 if case == "round" else 2)
+        row["plain_ms" if Qs == Q else "plain_ms_first_queries"] = cuda_ms(
+            plain, reps=3, warmup=1)
+        row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block,
+                                                      out_floats=P)
+        row["library_ms"] = None
+        results["block_pull_multi"].append(row)
+        emit(row)
+
+    # --- block_pull: one query's round (the paper path) and its wide init
+    # over the 100,000 rows of the paper path's corpus -----------------------
+    results["block_pull"] = []
+    for case, Bc in (("round", B), ("init", n_build)):
+        if case == "round":
+            arm = torch.randint(0, n_build, (Bc,), generator=g, device="cuda",
+                                dtype=torch.int32)
+        else:
+            arm = torch.arange(n_build, dtype=torch.int32, device="cuda")
+        blk = torch.randint(0, nb, (Bc, P), generator=g, device="cuda",
+                            dtype=torch.int32)
+        run = lambda: block_pull_cuda(x, qs[0], arm, blk, block=block)
+        plain = lambda: ref.block_pull_ref(x, qs[0], arm, blk, block)
+        row = {"kernel": "block_pull", "case": case, "metric": "l2",
+               "shape": {"B": Bc, "P": P, "block": block, "d_pad": d_pad,
+                         "n": n_build}}
+        row.update(compare(f"block_pull {case}", run(), plain(), rtol=2e-4,
+                           atol=1e-5))
+        row["ms"] = cuda_ms(run, reps=50)
+        row["device_ms"] = device_ms(run, "block_pull_kernel", reps=20)
+        row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = pull_bound(x, arm[None], blk[None],
+                                                      block, out_floats=P)
+        row["library_ms"] = None
+        results["block_pull"].append(row)
+        emit(row)
     del x, arm, blk
     torch.cuda.empty_cache()
 
@@ -191,6 +312,7 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             row.update(compare(f"fwht {rows}x{d_pad} {dtype}", run(), plain(),
                                rtol=tol, atol=tol))
             row["ms"] = cuda_ms(run, reps=10)
+            row["device_ms"] = device_ms(run, "fwht_kernel")
             row["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             row["bound_ms"], row["bound_by"] = fwht_bound(xin)
             row["library_ms"] = None
@@ -208,6 +330,58 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             emit(row)
             del xin
     del hadamard
+    torch.cuda.empty_cache()
+
+    # --- pairwise_dist: one oracle batch (256 queries against the corpus at
+    # d = 12,288), and the paper path's exact evaluation (one query against
+    # the B rows just selected, at d_pad = 16,384) ---------------------------
+    results["pairwise_dist"] = []
+    X = torch.randn((n_build, 12_288), generator=g, device="cuda")
+    Qo = torch.randn((256, 12_288), generator=g, device="cuda")
+    Xe = torch.randn((B, d_pad), generator=g, device="cuda")
+    qe = torch.randn((1, d_pad), generator=g, device="cuda")
+    for case, qq, xx in (("oracle", Qo, X), ("exact_eval", qe, Xe)):
+        for metric in ("l2", "l1"):
+            # ℓ1's plain version holds (Q, n, 2048) at once: at the oracle's
+            # shape it is checked on the first 8 queries × 8,192 rows
+            sub = (8, 8192) if (case, metric) == ("oracle", "l1") else \
+                tuple(qq.shape[:1]) + tuple(xx.shape[:1])
+            run = lambda: pairwise_dist_cuda(qq, xx, metric=metric)
+            plain = lambda: ref.pairwise_dist_ref(qq[:sub[0]], xx[:sub[1]],
+                                                  metric)
+            Q_, n_, d_ = qq.shape[0], xx.shape[0], xx.shape[1]
+            row = {"kernel": "pairwise_dist", "case": case, "metric": metric,
+                   "shape": {"Q": Q_, "n": n_, "d": d_}}
+            allowance = None
+            if metric == "l2":
+                allowance = 1e-6 * ((qq[:sub[0]] ** 2).sum(1)[:, None]
+                                    + (xx[:sub[1]] ** 2).sum(1)[None])
+            if sub != (Q_, n_):
+                row["plain_checked_on"] = {"queries": sub[0], "rows": sub[1]}
+            row.update(compare(f"pairwise_dist {case} {metric}",
+                               run()[:sub[0], :sub[1]], plain(), rtol=1e-4,
+                               atol=1e-3 if metric == "l1" else 0.0,
+                               allowance=allowance))
+            reps = 5 if case == "oracle" else 50
+            row["ms"] = cuda_ms(run, reps=reps)
+            row["device_ms"] = device_ms(run, "pairwise_", reps=min(reps, 20))
+            row["plain_ms" if sub == (Q_, n_) else "plain_ms_subset"] = \
+                cuda_ms(plain, reps=3, warmup=1)
+            row["bound_ms"], row["bound_by"] = pairwise_bound(Q_, n_, d_)
+            # yardstick only: the one PyTorch call computing the same
+            # function (fp32, TF32 off)
+            if metric == "l2":
+                lib = lambda: ((qq * qq).sum(1)[:, None] + (xx * xx).sum(1)[None]
+                               - 2.0 * torch.matmul(qq, xx.T))
+                row["library_call"] = "‖q‖²+‖x‖²−2·torch.matmul(q, xᵀ), fp32"
+            else:
+                lib = lambda: torch.cdist(qq, xx, p=1)
+                row["library_call"] = "torch.cdist(q, x, p=1)"
+            row["library_ms"] = cuda_ms(lib, reps=2 if case == "oracle" else 20,
+                                        warmup=1)
+            results["pairwise_dist"].append(row)
+            emit(row)
+    del X, Qo, Xe, qe
     torch.cuda.empty_cache()
     return results
 
@@ -250,67 +424,193 @@ def brute_force_topk(corpus, queries, k: int, chunk: int = 128):
     return torch.cat(out).cpu().numpy()
 
 
-def main_path_phase(seed: int, Q: int) -> dict:
+def recall_of(what: str, indices, values, truth, n: int, k: int) -> dict:
+    """Recall of the (Q, k) top-k sets ``indices`` (numpy) against the
+    brute force's; raises on a malformed result or a recall under 0.99."""
+    import numpy as np
+    if indices.shape != (len(truth), k) or not np.isfinite(values).all():
+        raise AssertionError(f"{what}: malformed result")
+    if not ((indices >= 0) & (indices < n)).all():
+        raise AssertionError(f"{what}: a returned slot is not a corpus row")
+    hits = [len(set(a) & set(b)) for a, b in zip(indices.tolist(),
+                                                 truth.tolist())]
+    out = {"recall": float(np.mean(hits)) / k,
+           "queries_below_full_recall": int(sum(h < k for h in hits))}
+    if out["recall"] < 0.99:
+        raise AssertionError(f"{what}: recall {out['recall']} < 0.99")
+    return out
+
+
+def counted(path: str, wrappers: dict, run):
+    """Run one path with its kernels' launch counters set to 0 just before
+    and read just after; raises if a kernel of the path never launched.
+    Returns (run's result, {kernel: launches})."""
+    for w in wrappers.values():
+        w.launches = 0
+    result = run()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the {path} path never launched {name}")
+    return result, launches
+
+
+def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
+    """``Index.build`` → ``Index.query`` on the fused driver. Returns the
+    report and the index, which the rounds phase queries again."""
     import numpy as np
     import torch
     from repro_torch.api import Index
     from repro_torch.configs.bmo_nn import DENSE
-    from repro_torch.data.synthetic import make_knn_benchmark_data
     from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
     from repro_torch.kernels.fwht import fwht_cuda
 
     cfg, n, d = DENSE.bmo, DENSE.n_points, DENSE.dim
-    t = time.perf_counter()
-    corpus, queries = make_knn_benchmark_data("dense", n, d, Q, seed=seed,
-                                              device="cuda")
-    torch.cuda.synchronize()
-    data_s = time.perf_counter() - t
-
+    Q = queries.shape[0]
     torch.cuda.reset_peak_memory_stats()
-    fused_epoch_pull_cuda.launches = 0
-    fwht_cuda.launches = 0
-    t = time.perf_counter()
-    idx = Index.build(corpus, cfg, seed)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    t = time.perf_counter()
-    res = idx.query(queries, seed)          # returns host arrays: synced
-    query_s = time.perf_counter() - t
-    launches = {"fused_epoch_pull": fused_epoch_pull_cuda.launches,
-                "fwht": fwht_cuda.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"the main path never launched {name}")
+    times = {}
 
-    k = cfg.k
-    if res.indices.shape != (Q, k) or not np.isfinite(res.values).all():
-        raise AssertionError("main path: malformed result")
-    if not ((res.indices >= 0) & (res.indices < n)).all():
-        raise AssertionError("main path: a returned slot is not a corpus row")
-    truth = brute_force_topk(corpus, queries, k)
-    hits = [len(set(a) & set(b)) for a, b in zip(res.indices.tolist(),
-                                                 truth.tolist())]
-    recall = float(np.mean(hits)) / k
+    def run():
+        t = time.perf_counter()
+        idx = Index.build(corpus, cfg, seed)
+        torch.cuda.synchronize()
+        times["build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        res = idx.query(queries, seed)          # returns host arrays: synced
+        times["query_s"] = time.perf_counter() - t
+        return idx, res
+
+    (idx, res), launches = counted(
+        "main", {"fused_epoch_pull": fused_epoch_pull_cuda, "fwht": fwht_cuda},
+        run)
     out = {
         "phase": "main_path", "workload": DENSE.name, "n": n, "d": d,
-        "queries": Q, "k": k, "delta": cfg.delta, "block": cfg.block,
+        "queries": Q, "k": cfg.k, "delta": cfg.delta, "block": cfg.block,
         "batch_arms": cfg.batch_arms, "rotate": cfg.rotate, "seed": seed,
-        "data_s": data_s, "build_s": build_s, "query_s": query_s,
-        "qps": Q / query_s, "epochs": launches["fused_epoch_pull"] - 1,
-        "recall": recall, "queries_below_full_recall": int(
-            sum(h < k for h in hits)),
+        **times, "qps": Q / times["query_s"],
+        "epochs": launches["fused_epoch_pull"] - 1,
+        **recall_of("main path", res.indices, res.values, truth, n, cfg.k),
         "coord_ops_share_of_nd": float(np.mean(res.coord_ops)) / (n * d),
         "rounds_mean": float(np.mean(res.rounds)),
         "n_exact_mean": float(np.mean(res.n_exact)),
-        "launches": launches, "peak_memory_gb": peak_gb,
-        "ground_truth": "float64 brute force on the card; "
-                        "allow_tf32 False for matmul and cuDNN",
+        "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    if recall < 0.99:
-        raise AssertionError(f"main path recall {recall} < 0.99: {out}")
     out["traced"] = traced_query(idx, queries, seed)
+    return out, idx
+
+
+def oracle_phase(corpus, queries, truth) -> dict:
+    """``core.oracle.exact_knn`` of every query against the float64 brute
+    force. A set that differs passes only when the float64 distances of
+    the swapped rows lie within 1e-4 of each other, relatively (a near-tie
+    at the precision of an fp32 sum of d = 12,288 terms); the values must
+    be the float64 θ to 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.core.oracle import exact_knn
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+
+    k, (n, d) = DENSE.bmo.k, corpus.shape
+    Q = queries.shape[0]
+    t = time.perf_counter()
+
+    def run():
+        ex = exact_knn(corpus, queries, k)
+        torch.cuda.synchronize()
+        return ex
+
+    ex, launches = counted("oracle", {"pairwise_dist": pairwise_dist_cuda},
+                           run)
+    oracle_s = time.perf_counter() - t
+    got = ex.indices.cpu().numpy()
+    rows = corpus[ex.indices.reshape(-1)].to(torch.float64).reshape(Q, k, d)
+    theta = ((rows - queries.to(torch.float64)[:, None]) ** 2).sum(-1) / d
+    value_rel_err = float(((ex.values.to(torch.float64) - theta).abs()
+                           / theta).max())
+    disagreements = []
+    for i in np.nonzero([set(a) != set(b) for a, b in zip(got.tolist(),
+                                                         truth.tolist())])[0]:
+        extra = sorted(set(got[i].tolist()) - set(truth[i].tolist()))
+        missing = sorted(set(truth[i].tolist()) - set(got[i].tolist()))
+        ids = torch.tensor(extra + missing, device=corpus.device)
+        dist = ((corpus[ids].to(torch.float64)
+                 - queries[i].to(torch.float64)) ** 2).sum(1).tolist()
+        far, near = max(dist[:len(extra)]), min(dist[len(extra):])
+        disagreements.append({"query": int(i), "extra": extra,
+                              "missing": missing,
+                              "rel_gap": abs(far - near) / near})
+    out = {"phase": "oracle", "queries": Q, "k": k, "oracle_s": oracle_s,
+           "set_disagreements": disagreements,
+           "max_value_rel_err": value_rel_err, "launches": launches}
+    if any(x["rel_gap"] > 1e-4 for x in disagreements) or value_rel_err > 1e-4:
+        raise AssertionError(f"oracle disagrees with the brute force: {out}")
     return out
+
+
+def rounds_phase(idx, queries, truth, seed: int) -> dict:
+    """``Index.query(mode="rounds")``: the per-round driver on the main
+    path's index."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.kernels.block_pull import block_pull_multi_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+
+    n, d, k = DENSE.n_points, DENSE.dim, DENSE.bmo.k
+    Q = queries.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res, launches = counted(
+        "rounds", {"block_pull_multi": block_pull_multi_cuda,
+                   "fwht": fwht_cuda},
+        lambda: idx.query(queries, seed, mode="rounds"))
+    query_s = time.perf_counter() - t
+    return {"phase": "rounds", "queries": Q, "query_s": query_s,
+            "qps": Q / query_s,
+            **recall_of("rounds", res.indices, res.values, truth, n, k),
+            "rounds_run": launches["block_pull_multi"] - 1,
+            "rounds_mean": float(np.mean(res.rounds)),
+            "coord_ops_share_of_nd": float(np.mean(res.coord_ops)) / (n * d),
+            "n_exact_mean": float(np.mean(res.n_exact)),
+            "launches": launches,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def paper_phase(corpus, queries, truth, seed: int) -> dict:
+    """``core.bmo_nn.knn``: the paper's Algorithm 2, one race per query,
+    with the rotation of corpus and queries done in the call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.core.bmo_nn import knn
+    from repro_torch.kernels.block_pull import block_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+
+    (n, d), k = corpus.shape, DENSE.bmo.k
+    Q = queries.shape[0]
+
+    def run():
+        res = knn(corpus, queries, DENSE.bmo, seed)
+        torch.cuda.synchronize()
+        return res
+
+    t = time.perf_counter()
+    res, launches = counted(
+        "paper", {"block_pull": block_pull_cuda,
+                  "pairwise_dist": pairwise_dist_cuda, "fwht": fwht_cuda},
+        run)
+    seconds = time.perf_counter() - t
+    return {"phase": "paper", "queries": Q, "seconds": seconds,
+            "seconds_per_query": seconds / Q,
+            **recall_of("paper", res.indices.cpu().numpy(),
+                        res.values.cpu().numpy(), truth, n, k),
+            "rounds_mean": float(res.rounds.float().mean()),
+            "coord_ops_share_of_nd": float(res.coord_ops.mean()) / (n * d),
+            "n_exact_mean": float(res.n_exact.float().mean()),
+            "launches": launches}
 
 
 def traced_query(idx, queries, seed: int) -> dict:
@@ -343,11 +643,30 @@ def traced_query(idx, queries, seed: int) -> dict:
             "port_kernels": ours, "top": rows[:15]}
 
 
+# name, source, the TPU kernel it replaces, the paths that launch it; the
+# summary takes each kernel's first kernel-phase row (its path's per-call
+# shape) and the launches of its paths
+KERNELS = (
+    ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
+     "src/repro/kernels/fused_race.py:89", ("main_path",)),
+    ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
+     ("main_path",)),
+    ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
+     "src/repro/kernels/block_pull.py:78", ("rounds",)),
+    ("block_pull", "src/repro_torch/csrc/block_pull.cu",
+     "src/repro/kernels/block_pull.py:41", ("paper",)),
+    ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist.cu",
+     "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper")),
+)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--queries", type=int, default=1024,
-                    help="main-path query batch (the workload's is 1024)")
+                    help="query batch of the workload (its own is 1024)")
+    ap.add_argument("--rounds-queries", type=int, default=256,
+                    help="queries of the rounds phase (a cut from 1024)")
     ap.add_argument("--out", help="write every detail to this JSON file")
     args = ap.parse_args()
 
@@ -360,6 +679,8 @@ def main() -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.data.synthetic import make_knn_benchmark_data
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -371,8 +692,10 @@ def main() -> int:
     emit({"torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "allow_tf32_matmul": False,
           "allow_tf32_cudnn": False})
-    if args.queries != 1024:
-        emit({"cut": f"main-path queries {args.queries} instead of 1024"})
+    for what, got in (("queries", args.queries),
+                      ("rounds-phase queries", args.rounds_queries)):
+        if got != 1024:
+            emit({"cut": f"{what} {got} instead of the workload's 1024"})
 
     t = time.perf_counter()
     _build.build_all()
@@ -381,28 +704,44 @@ def main() -> int:
 
     report = {"nvidia_smi": smi.strip(),
               "build_log": {k: v["log"] for k, v in _build.build_log.items()}}
-    report["kernels"] = kernel_phase(args.seed, args.queries, 100_000)
+    report["kernels"] = kernel_phase(args.seed, args.queries, DENSE.n_points)
     report["small_input"] = small_input_phase()
     emit({"phase": "small_input", **report["small_input"]})
-    report["main_path"] = main_path_phase(args.seed, args.queries)
+
+    t = time.perf_counter()
+    corpus, queries = make_knn_benchmark_data(
+        "dense", DENSE.n_points, DENSE.dim, args.queries, seed=args.seed,
+        device="cuda")
+    truth = brute_force_topk(corpus, queries, DENSE.bmo.k)
+    emit({"phase": "data", "seconds": time.perf_counter() - t,
+          "ground_truth": "float64 brute force on the card; allow_tf32 "
+                          "False for matmul and cuDNN"})
+    report["main_path"], idx = main_path_phase(corpus, queries, truth,
+                                               args.seed)
     emit({k: v for k, v in report["main_path"].items() if k != "traced"})
     emit({"phase": "traced_query", **report["main_path"]["traced"]})
+    report["oracle"] = oracle_phase(corpus, queries, truth)
+    emit(report["oracle"])
+    Qr = args.rounds_queries
+    report["rounds"] = rounds_phase(idx, queries[:Qr], truth[:Qr], args.seed)
+    emit(report["rounds"])
+    del idx
+    torch.cuda.empty_cache()
+    report["paper"] = paper_phase(corpus, queries[:PAPER_QUERIES],
+                                  truth[:PAPER_QUERIES], args.seed)
+    emit(report["paper"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)
 
-    launches = report["main_path"]["launches"]
     summary = []
-    for name, src, replaces in (
-            ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
-             "src/repro/kernels/fused_race.py:89"),
-            ("fwht", "src/repro_torch/csrc/fwht.cu",
-             "src/repro/kernels/fwht.py:30")):
-        row = report["kernels"][name][0]   # the main path's per-query shape
+    for name, src, replaces, paths in KERNELS:
+        row = report["kernels"][name][0]
         summary.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": sum(report[p]["launches"][name] for p in paths),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -29,7 +29,7 @@ class QuerySpec:
     "use the index's build-time default"."""
 
     k: Optional[int] = None            # top-k override (None = store cfg.k)
-    mode: str = "auto"                 # auto | fused driver (rounds: later)
+    mode: str = "auto"                 # auto | fused | rounds driver
     impl: str = "auto"                 # kernel impl (auto/cuda/ref)
     delta: Optional[float] = None      # failure-probability override
     max_rounds: Optional[int] = None   # pull-budget cap (racing rounds)

@@ -1,23 +1,36 @@
-"""Cross-query batched racing: the epoch-fused, survivor-compacted driver
-(DESIGN.md §4) for dense and rotated stores.
+"""Cross-query batched racing for dense and rotated stores: two drivers.
 
-Each epoch pulls T = R·P sampled corpus blocks for the B lowest-LCB
+``batched_race_topk`` (the per-round driver, DESIGN.md §3.2) races one
+(Q, n) arm state with one ``block_pull_multi`` launch per round: the B
+lowest-LCB candidates of every active query take P pulls each, arms past
+MAX_PULLS are evaluated exactly, and the Alg. 1 acceptance step runs every
+round. Its pieces (``RoundsRaceFns``) are generic over ``pull_fn`` /
+``exact_fn`` closures, so other boxes and resumable sessions can drive
+them. The host meets the device once per round: one ``.cpu()`` of the
+all-done flag and the pull slack that gates the next round's exact
+evaluation.
+
+``fused_race_topk`` (the epoch-fused, survivor-compacted driver,
+DESIGN.md §4) pulls T = R·P sampled corpus blocks for the B lowest-LCB
 candidates of every query in ONE ``fused_epoch_pull`` launch, merges the
 on-chip Welford statistics, lazily evaluates exactly any arm past MAX_PULLS,
 and runs the Alg. 1 acceptance step once. Between epochs the host gathers
 the survivors into shrinking power-of-two buckets (``index/frontier.py``),
 so bookkeeping scales with survivors instead of n.
 
-The host and the device meet once per epoch: one ``.cpu()`` of the survivor
-counts, the done flags and the largest pull count among arms still to be
-pulled (the counterpart of the reference's ``host_fetch``). The last of
-these tells the host whether the next epoch can push any arm past MAX_PULLS,
-which is what gates the exact evaluation; the reference gates it with an
-on-device ``lax.cond``.
+The fused driver's host and device meet once per epoch: one ``.cpu()`` of
+the survivor counts, the done flags and the largest pull count among arms
+still to be pulled (the counterpart of the reference's ``host_fetch``). The
+last of these tells the host whether the next epoch can push any arm past
+MAX_PULLS, which is what gates the exact evaluation; the reference gates it
+with an on-device ``lax.cond``.
 
 Block ids come from a replaceable ``block_sampler(shape, nb)`` that returns
 an int32 tensor on the corpus's device; the default draws from the query's
 ``torch.Generator``. The tests replace it to replay the reference's draws.
+
+Priors: the store's build-time per-arm variance priors are (n,); a caller
+may seed per-query (Q, n) priors instead (``index_knn(prior_hint=…)``).
 
 Scale: a pull is a block mean over the d_pad-wide (padded or rotated) row,
 so the pulls estimate ρ/d_pad, and the race compares every arm on that
@@ -33,15 +46,18 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import BMOConfig
 from repro_torch.core import confidence as conf
-from repro_torch.core.bmo_nn import KNNResult
-from repro_torch.core.ucb import (INF, acceptance_step_masked, smallest_k,
+from repro_torch.core.bmo_nn import (BlockSampler, KNNResult,
+                                     default_block_sampler)
+from repro_torch.core.ucb import (INF, acceptance_step,
+                                  acceptance_step_masked, pull_slack,
+                                  smallest_k, topk_from_state,
                                   topk_from_state_masked)
 from repro_torch.device import make_generator
 from repro_torch.index.frontier import (FrontierState, bucket_width,
@@ -49,13 +65,234 @@ from repro_torch.index.frontier import (FrontierState, bucket_width,
                                         pow2_floor, survivors)
 from repro_torch.kernels import ops as kops
 
-BlockSampler = Callable[[tuple, int], torch.Tensor]
+
+class BatchedRaceState(NamedTuple):
+    mean: torch.Tensor        # (Q, n)
+    count: torch.Tensor       # (Q, n)
+    m2: torch.Tensor          # (Q, n)
+    exact: torch.Tensor       # (Q, n) bool
+    accepted: torch.Tensor    # (Q, n) bool
+    rejected: torch.Tensor    # (Q, n) bool
+    coord_ops: torch.Tensor   # (Q,)
+    rounds: torch.Tensor      # (Q,) int32 rounds spent while the query was active
+    done: torch.Tensor        # (Q,) bool
+    round_no: int             # rounds run (host-side)
+    all_done: bool            # every query done (host-side, from the round's sync)
+    slack: float              # pull slack of the next round (host-side, gates
+                              # its exact evaluation; ``ucb.pull_slack``)
+
+
+class RoundsRaceFns(NamedTuple):
+    """The per-round driver's pieces, exposed so callers can drive the race
+    in bounded chunks instead of to certification. All members are closures
+    over the box's pull/exact functions."""
+    init: Callable        # () -> BatchedRaceState
+    body: Callable        # state -> state (one racing round)
+    active: Callable      # state -> bool (queries left AND round cap unhit)
+    ci_radius: Callable   # state -> (Q, n) CI half-widths
+    exact_fn: Callable    # (sel (Q, B)) -> (Q, B) exact θ
+    exact_cost: float     # coordinate-op cost of an exact evaluation
+    max_rounds: int
+
+
+def _prior2(prior_var: torch.Tensor, Q: int, n: int) -> torch.Tensor:
+    """(n,) build-time per-arm priors or (Q, n) per-query seeded priors
+    (near-repeat warm starts), as (Q, n)."""
+    return prior_var[None].expand(Q, n) if prior_var.dim() == 1 else prior_var
+
+
+def make_rounds_race(
+    pull_fn: Callable,          # (sel (Q, B)) -> (Q, B, P) samples
+    exact_fn: Callable,         # (sel (Q, B)) -> (Q, B) exact θ
+    n: int,
+    Q: int,
+    max_pulls: float,           # pulls that constitute an exact evaluation
+    pull_cost: float,
+    exact_cost: float,          # coordinate-ops per exact evaluation (d)
+    cfg: BMOConfig,
+    *,
+    device: torch.device,
+    eliminate: bool = True,
+    dead: Optional[torch.Tensor] = None,       # (n,) bool tombstones
+    prior_var: Optional[torch.Tensor] = None,  # (n,) or (Q, n) variance prior
+    prior_weight: float = 0.0,
+) -> RoundsRaceFns:
+    """The per-round driver (DESIGN.md §3.2) as init/body/active pieces.
+    ``pull_fn`` draws its own block ids (the caller's sampler) and gets arm
+    id −1 for a lane whose result is discarded: dead arms at the init, and
+    selections that are not valid candidates."""
+    k = cfg.k
+    B = min(cfg.batch_arms, n)
+    P = cfg.pulls_per_round
+    max_pulls = float(max_pulls)
+    exact_cost = float(exact_cost)
+    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, int(max_pulls)))
+    max_rounds = cfg.max_rounds or int(
+        2 * math.ceil(n * max_pulls / max(B * P, 1)) + n + 16)
+
+    alive = (torch.ones((n,), dtype=torch.bool, device=device) if dead is None
+             else ~dead)
+    alive_f = alive.to(torch.float32)
+    n_alive = torch.sum(alive_f)
+    if prior_var is None:
+        prior_var = torch.zeros((n,), dtype=torch.float32, device=device)
+        prior_weight = 0.0
+    prior2 = _prior2(prior_var, Q, n)
+    prior_pool = torch.sum(prior2 * alive_f[None], 1) / torch.clamp(
+        n_alive, min=1.0)
+
+    def ci_radius(st: BatchedRaceState) -> torch.Tensor:
+        if cfg.sigma is not None:
+            sig_sq = torch.full((Q, n), float(cfg.sigma) ** 2,
+                                dtype=torch.float32, device=device)
+        else:
+            # per-query pooled variance, warm-started by the prior
+            num = torch.sum(st.m2 * alive_f, 1) + prior_weight * prior_pool
+            den = (torch.sum(torch.clamp(st.count - 1.0, min=0.0) * alive_f, 1)
+                   + prior_weight)
+            global_var = num / torch.clamp(den, min=1.0)          # (Q,)
+            sig_sq = conf.empirical_sigma_sq_prior(
+                st.m2, st.count, 1e-12, global_var[:, None], prior2,
+                prior_weight)
+        c = conf.hoeffding_radius(sig_sq, st.count, log_term)
+        return torch.where(st.exact, 0.0, c)
+
+    def need(st: BatchedRaceState) -> torch.Tensor:
+        """(Q, n) bool — arms the next round may select for pulls."""
+        return (~st.accepted & ~st.rejected & ~st.exact
+                & ~st.done[:, None])
+
+    def sync(st: BatchedRaceState) -> BatchedRaceState:
+        # the round's one host sync: the stop rule and the exact-eval gate
+        host = torch.stack([torch.all(st.done).to(torch.float32),
+                            pull_slack(st.count, max_pulls, need(st))])
+        all_done, slack = host.tolist()
+        return st._replace(all_done=bool(all_done), slack=slack)
+
+    def init_state() -> BatchedRaceState:
+        # wide init (paper App. D-A): every alive arm of every query gets
+        # init_pulls samples, as reps of ONE (Q, n, P) launch
+        reps = max(1, max(cfg.init_pulls, 2) // P)
+        flat = torch.zeros((Q * n,), dtype=torch.float32, device=device)
+        mean, count, m2 = flat, flat, flat
+        all_arms = torch.where(alive, torch.arange(n, device=device),
+                               -1)[None].expand(Q, n)
+        mask = alive_f[None].expand(Q, n).reshape(-1)
+        for _ in range(reps):
+            vals = pull_fn(all_arms)                             # (Q, n, P)
+            mean, count, m2 = conf.welford_batch_update(
+                mean, count, m2, vals.reshape(Q * n, P), mask)
+        no = torch.zeros((Q, n), dtype=torch.bool, device=device)
+        return sync(BatchedRaceState(
+            mean=mean.reshape(Q, n), count=count.reshape(Q, n),
+            m2=m2.reshape(Q, n), exact=no, accepted=no,
+            rejected=(~alive)[None].expand(Q, n),
+            coord_ops=torch.full((Q,), float(reps * P * pull_cost),
+                                 device=device) * n_alive,
+            rounds=torch.zeros((Q,), dtype=torch.int32, device=device),
+            done=torch.zeros((Q,), dtype=torch.bool, device=device),
+            round_no=0, all_done=False, slack=-INF))
+
+    def active(st: BatchedRaceState) -> bool:
+        return not st.all_done and st.round_no < max_rounds
+
+    def body(st: BatchedRaceState) -> BatchedRaceState:
+        ci = ci_radius(st)
+        sel_need = need(st)
+
+        # ---- selection: per query, B lowest-LCB candidates ---------------
+        sel = smallest_k(torch.where(sel_need, st.mean - ci, INF), B)  # (Q, B)
+        sel_valid = torch.gather(sel_need, 1, sel)
+
+        vals = pull_fn(torch.where(sel_valid, sel, -1))          # (Q, B, P)
+        nm, nc, n2 = conf.welford_batch_update(
+            torch.gather(st.mean, 1, sel).reshape(-1),
+            torch.gather(st.count, 1, sel).reshape(-1),
+            torch.gather(st.m2, 1, sel).reshape(-1),
+            vals.reshape(Q * B, P), sel_valid.reshape(-1).to(torch.float32))
+        nm, nc, n2 = nm.reshape(Q, B), nc.reshape(Q, B), n2.reshape(Q, B)
+        coord_ops = st.coord_ops + torch.sum(sel_valid, 1) * P * pull_cost
+
+        # ---- lazy exact evaluation for arms that crossed MAX_PULLS -------
+        sel_exact = torch.gather(st.exact, 1, sel)
+        crossed = (nc >= max_pulls) & sel_valid & ~sel_exact
+        if st.slack + P >= 0:
+            nm = torch.where(crossed, exact_fn(sel), nm)
+        coord_ops = coord_ops + torch.sum(crossed, 1) * exact_cost
+        st2 = st._replace(
+            mean=st.mean.scatter(1, sel, nm), count=st.count.scatter(1, sel, nc),
+            m2=st.m2.scatter(1, sel, n2),
+            exact=st.exact.scatter(1, sel, sel_exact | crossed),
+            coord_ops=coord_ops)
+
+        # ---- per-query acceptance / rejection (shared Alg. 1 step) -------
+        accept_new, rejected = acceptance_step(
+            st2.mean, ci_radius(st2), st2.exact, st2.accepted, st2.rejected,
+            k, epsilon=cfg.epsilon, eliminate=eliminate)
+        # freeze finished queries
+        frozen = st.done[:, None]
+        accepted = torch.where(frozen, st.accepted, st2.accepted | accept_new)
+        rejected = torch.where(frozen, st.rejected, rejected)
+
+        # done at k certified arms — or when no candidate is left at all
+        # (reachable only in a race over fewer than k live slots)
+        no_candidates = torch.sum(~accepted & ~rejected, 1) == 0
+        done = st.done | (torch.sum(accepted, 1) >= k) | no_candidates
+        rounds = torch.where(st.done, st.rounds, st.rounds + 1)
+        return sync(st2._replace(accepted=accepted, rejected=rejected,
+                                 rounds=rounds, done=done,
+                                 round_no=st.round_no + 1))
+
+    return RoundsRaceFns(init=init_state, body=body, active=active,
+                         ci_radius=ci_radius, exact_fn=exact_fn,
+                         exact_cost=exact_cost, max_rounds=max_rounds)
+
+
+def run_to_certification(fns: RoundsRaceFns, k: int) -> KNNResult:
+    """Drive a rounds race to completion, one host round at a time."""
+    st = fns.init()
+    while fns.active(st):
+        st = fns.body(st)
+    topk, topk_vals = topk_from_state(st.mean, fns.ci_radius(st),
+                                      st.accepted, st.rejected, k)
+    return KNNResult(indices=topk, values=topk_vals, coord_ops=st.coord_ops,
+                     rounds=st.rounds,
+                     n_exact=torch.sum(st.exact, 1, dtype=torch.int32))
+
+
+def batched_race_topk(
+    pull_fn: Callable,          # (sel (Q, B)) -> (Q, B, P) samples
+    exact_fn: Callable,         # (sel (Q, B)) -> (Q, B) exact θ
+    n: int,
+    Q: int,
+    max_pulls: float,           # pulls that constitute an exact evaluation
+    pull_cost: float,
+    exact_cost: float,          # coordinate-ops per exact evaluation (d)
+    cfg: BMOConfig,
+    *,
+    device: torch.device,
+    eliminate: bool = True,
+    dead: Optional[torch.Tensor] = None,       # (n,) bool tombstones
+    prior_var: Optional[torch.Tensor] = None,  # (n,) or (Q, n) variance prior
+    prior_weight: float = 0.0,
+) -> KNNResult:
+    fns = make_rounds_race(
+        pull_fn, exact_fn, n, Q, max_pulls, pull_cost, exact_cost, cfg,
+        device=device, eliminate=eliminate, dead=dead, prior_var=prior_var,
+        prior_weight=prior_weight)
+    return run_to_certification(fns, cfg.k)
+
+
+# ---------------------------------------------------------------------------
+# Epoch-fused driver (DESIGN.md §4): R rounds per launch, survivor-compacted
+# bookkeeping. Dense/rotated boxes only — the pulls are corpus-block reads.
+# ---------------------------------------------------------------------------
 
 
 def _dense_exact_theta(x, qs, sel, metric: str, d: int):
     """Exact θ for selected slots: full-row distance / d (Alg. 1's lazy
-    exact evaluation). sel (Q, B) → (Q, B). The race passes d = d_pad, the
-    scale its pulls estimate."""
+    exact evaluation, shared by both dense drivers). sel (Q, B) → (Q, B).
+    The races pass d = d_pad, the scale their pulls estimate."""
     rows = x[sel.long()]                                     # (Q, B, d_pad)
     diff = rows - qs[:, None, :]
     if metric == "l1":
@@ -108,7 +345,7 @@ def _fused_init(x, qs, alive, prior_var, sample_blocks: BlockSampler, *,
 
     alive_f = alive.to(torch.float32)
     n_alive = torch.sum(alive_f)
-    prior2 = prior_var[None].expand(Q, n)
+    prior2 = _prior2(prior_var, Q, n)
     prior_pool = torch.sum(prior2 * alive_f[None], 1) / torch.clamp(
         n_alive, min=1.0)
 
@@ -236,15 +473,6 @@ def _fused_finalize(st: FrontierState, prior_pool, *, cfg: BMOConfig,
     return topk, topk_vals, st.n_exact
 
 
-def default_block_sampler(generator: torch.Generator,
-                          device: torch.device) -> BlockSampler:
-    """Uniform block ids from ``generator``, int32 on ``device``."""
-    def sample(shape, nb):
-        return torch.randint(0, nb, shape, generator=generator,
-                             device=device, dtype=torch.int32)
-    return sample
-
-
 def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
                     cfg: BMOConfig, block: int, d: int, impl: str,
                     eliminate: bool, prior_weight: float,
@@ -320,14 +548,47 @@ def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
     return res
 
 
+def _dense_index_knn(x, qs, alive, prior_var, sample_blocks: BlockSampler, *,
+                     cfg: BMOConfig, block: int, d: int, impl: str,
+                     eliminate: bool, prior_weight: float) -> KNNResult:
+    """The per-round driver on a dense/rotated store: one
+    ``block_pull_multi`` launch per round. Races on the pulls' ρ/d_pad
+    scale and reports θ = ρ/d."""
+    n, d_pad = x.shape
+    nb = d_pad // block
+
+    def pull(sel):
+        blk = sample_blocks(tuple(sel.shape) + (cfg.pulls_per_round,), nb)
+        return kops.block_pull_multi(x, qs, sel, blk, block=block,
+                                     metric=cfg.metric, impl=impl)
+
+    def exact(sel):
+        return _dense_exact_theta(x, qs, sel, cfg.metric, d_pad)
+
+    res = batched_race_topk(
+        pull, exact, n=n, Q=qs.shape[0], max_pulls=float(nb),
+        pull_cost=float(block), exact_cost=float(d), cfg=cfg,
+        device=x.device, eliminate=eliminate, dead=~alive,
+        prior_var=prior_var, prior_weight=prior_weight)
+    # from the race's ρ/d_pad to θ = ρ/d (exactly 1.0 when d_pad = d)
+    return res._replace(values=res.values * (d_pad / d))
+
+
 def index_knn(store, queries, generator=None, *, k=None, impl: str = "auto",
               eliminate: bool = True, warm_start: bool = True,
-              mode: str = "auto",
+              mode: str = "auto", prior_hint=None,
               block_sampler: Optional[BlockSampler] = None) -> KNNResult:
     """Batched k-NN of (Q, d) dense queries against a dense or rotated
-    IndexStore (slot indices; tombstones excluded). ``mode`` "auto" and
-    "fused" both run the epoch-fused driver; the per-round driver is not
-    ported yet."""
+    IndexStore (slot indices; tombstones excluded).
+
+    ``mode``: "fused" — the epoch-fused, survivor-compacted driver; "rounds"
+    — the one-launch-per-round driver; "auto" — fused.
+
+    ``prior_hint``: optional (Q, capacity) per-query CI variance priors in
+    place of the store's build-time per-arm priors (the near-repeat warm
+    start); a seeded prior implies warm start. ``generator`` (a
+    ``torch.Generator`` on the store's device, or a seed) feeds the default
+    block sampler; ``block_sampler`` replaces it."""
     cfg = store.cfg if k is None else dataclasses.replace(store.cfg, k=k)
     n_live = store.n_live
     if cfg.k > n_live:
@@ -336,12 +597,23 @@ def index_knn(store, queries, generator=None, *, k=None, impl: str = "auto",
             "tombstoned slots can never be returned")
     if mode not in ("auto", "fused", "rounds"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "rounds":
-        raise NotImplementedError("the per-round driver (mode='rounds') is "
-                                  "not ported yet")
     w = store.prior_weight if warm_start else 0.0
+    prior = store.prior_var
+    if prior_hint is not None:
+        prior = torch.as_tensor(prior_hint, dtype=torch.float32,
+                                device=store.device)
+        w = store.prior_weight
     qs = store.prepare_queries(queries, impl=impl)
+    if mode == "rounds":
+        if block_sampler is None:
+            block_sampler = default_block_sampler(
+                make_generator(0 if generator is None else generator,
+                               store.device), store.device)
+        return _dense_index_knn(
+            store.x, qs, store.alive, prior, block_sampler, cfg=cfg,
+            block=store.block, d=store.d, impl=impl, eliminate=eliminate,
+            prior_weight=w)
     return fused_race_topk(
-        store.x, qs, store.alive, store.prior_var, generator,
+        store.x, qs, store.alive, prior, generator,
         cfg=cfg, block=store.block, d=store.d, impl=impl,
         eliminate=eliminate, prior_weight=w, block_sampler=block_sampler)

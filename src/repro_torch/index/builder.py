@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.base import BMOConfig
 from repro_torch.core.datasets import next_pow2
+from repro_torch.core.datasets import rademacher as _rademacher
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.index.store import IndexStore
 from repro_torch.kernels import ops as kops
@@ -26,13 +27,6 @@ def _row_block_stats(x: torch.Tensor, block: int, metric: str):
     xb = x.reshape(n, d_pad // block, block)
     v = torch.mean(torch.abs(xb) if metric == "l1" else xb * xb, dim=-1)
     return torch.var(v, dim=-1, unbiased=False)
-
-
-def _rademacher(dp: int, generator: torch.Generator,
-                device: torch.device) -> torch.Tensor:
-    """(dp,) fp32 random ±1 signs of the cached rotation."""
-    bits = torch.randint(0, 2, (dp,), generator=generator, device=device)
-    return (2 * bits - 1).to(torch.float32)
 
 
 def build_index(corpus, cfg: BMOConfig, rng=0, *,

@@ -13,8 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
 from repro_torch.kernels.fused_race import N_BUF, fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
 
 IMPLS = ("auto", "cuda", "ref")
 
@@ -34,6 +36,33 @@ def fwht(x: torch.Tensor, impl: str = "auto") -> torch.Tensor:
     if _resolve(impl, x) == "ref":
         return kref.fwht_ref(x)
     return fwht_cuda(x)
+
+
+def block_pull(x, q, arm_idx, blk_idx, *, block: int, metric: str = "l2",
+               impl: str = "auto"):
+    """Single-query pull: q (d_pad,), arm_idx (B,), blk_idx (B, P) →
+    (B, P)."""
+    if _resolve(impl, x) == "ref":
+        return kref.block_pull_ref(x, q, arm_idx, blk_idx, block, metric)
+    return block_pull_cuda(x, q, arm_idx, blk_idx, block=block, metric=metric)
+
+
+def block_pull_multi(x, qs, arm_idx, blk_idx, *, block: int,
+                     metric: str = "l2", impl: str = "auto"):
+    """Cross-query batched pull: arm_idx (Q, B), blk_idx (Q, B, P) →
+    (Q, B, P)."""
+    if _resolve(impl, x) == "ref":
+        return kref.block_pull_multi_ref(x, qs, arm_idx, blk_idx, block,
+                                         metric)
+    return block_pull_multi_cuda(x, qs, arm_idx, blk_idx, block=block,
+                                 metric=metric)
+
+
+def pairwise_dist(qs, x, *, metric: str = "l2", impl: str = "auto"):
+    """Exact (Q, n) sum-form distances (ℓ2² or ℓ1) of qs (Q, d) to x (n, d)."""
+    if _resolve(impl, qs) == "ref":
+        return kref.pairwise_dist_ref(qs, x, metric)
+    return pairwise_dist_cuda(qs, x, metric=metric)
 
 
 def fused_epoch_pull(x, qs, arm_idx, blk_idx, *, block: int,

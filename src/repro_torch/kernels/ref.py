@@ -32,21 +32,34 @@ def block_pull_multi_ref(x: torch.Tensor, qs: torch.Tensor,
     """Cross-query batched pull: the mean over ``block`` coordinates of
     ``(x[arm, blk·block:+block] − qs[q, same])²`` (or ``|·|`` for ℓ1).
     x (n, d_pad); qs (Q, d_pad); arm_idx (Q, B); blk_idx (Q, B, P).
-    Returns (Q, B, P) fp32."""
+    Returns (Q, B, P) fp32. A negative arm id marks a lane the caller
+    discards: its pulls are 0."""
     n, d_pad = x.shape
     Q = qs.shape[0]
     nb = d_pad // block
     xb = x.reshape(n, nb, block)
     qb = qs.reshape(Q, nb, block)
     blk = blk_idx.long()
-    rows = xb[arm_idx.long()[:, :, None], blk]                   # (Q, B, P, block)
+    skip = arm_idx < 0
+    arm = torch.where(skip, 0, arm_idx).long()
+    rows = xb[arm[:, :, None], blk]                              # (Q, B, P, block)
     qrows = qb[torch.arange(Q, device=qs.device)[:, None, None], blk]
     diff = rows.to(torch.float32) - qrows.to(torch.float32)
     if metric == "l1":
         v = torch.sum(torch.abs(diff), dim=-1)
     else:
         v = torch.sum(diff * diff, dim=-1)
-    return (v / block).to(torch.float32)
+    return torch.where(skip[..., None], 0.0, v / block).to(torch.float32)
+
+
+def block_pull_ref(x: torch.Tensor, q: torch.Tensor, arm_idx: torch.Tensor,
+                   blk_idx: torch.Tensor, block: int,
+                   metric: str = "l2") -> torch.Tensor:
+    """The single-query pull (the paper's Monte-Carlo pull, block form):
+    x (n, d_pad); q (d_pad,); arm_idx (B,); blk_idx (B, P). Returns (B, P)
+    fp32 per-block mean coordinate-wise distances."""
+    return block_pull_multi_ref(x, q[None], arm_idx[None], blk_idx[None],
+                                block, metric)[0]
 
 
 def fused_epoch_pull_ref(x: torch.Tensor, qs: torch.Tensor,
@@ -56,9 +69,28 @@ def fused_epoch_pull_ref(x: torch.Tensor, qs: torch.Tensor,
     Welford batch statistics. arm_idx (Q, B); blk_idx (Q, B, T). Returns
     (Q, B, 2) fp32: (mean, M2) of each arm's T pulled values. A negative
     arm id marks a lane the caller discards: its result is (0, 0)."""
-    skip = arm_idx < 0
-    vals = block_pull_multi_ref(x, qs, torch.where(skip, 0, arm_idx),
-                                blk_idx, block, metric)
+    vals = block_pull_multi_ref(x, qs, arm_idx, blk_idx, block, metric)
     mean = torch.mean(vals, dim=-1)
     m2 = torch.sum(torch.square(vals - mean[..., None]), dim=-1)
-    return torch.where(skip[..., None], 0.0, torch.stack([mean, m2], dim=-1))
+    return torch.stack([mean, m2], dim=-1)
+
+
+def pairwise_dist_ref(qs: torch.Tensor, x: torch.Tensor, metric: str = "l2",
+                      chunk: int = 2048) -> torch.Tensor:
+    """Exact distances. qs (Q, d), x (n, d) → (Q, n) fp32 SUM-form
+    distances (ℓ2² or ℓ1), accumulated in fp32 over d-chunks. ℓ2 takes the
+    reference's ‖q‖² + ‖x‖² − 2 q·xᵀ form per chunk, so that it matches the
+    JAX package on the CPU (on the card, run it with TF32 off)."""
+    Q, d = qs.shape
+    n = x.shape[0]
+    out = torch.zeros((Q, n), dtype=torch.float32, device=qs.device)
+    for start in range(0, d, chunk):
+        qc = qs[:, start:start + chunk].to(torch.float32)
+        xc = x[:, start:start + chunk].to(torch.float32)
+        if metric == "l1":
+            out = out + torch.sum(torch.abs(qc[:, None, :] - xc[None, :, :]),
+                                  dim=-1)
+        else:
+            out = out + (torch.sum(qc * qc, -1)[:, None]
+                         + torch.sum(xc * xc, -1)[None, :] - 2.0 * qc @ xc.T)
+    return out

@@ -12,6 +12,7 @@ the CPU.
   tolerance (rtol 2e-4 / atol 1e-5: sums taken in another order).
 * Own draws: ``Index.build`` → ``Index.query`` on the port's generator
   returns the exact top-k sets of a numpy brute force.
+  (The per-round driver's replayed races are in ``test_torch_rounds.py``.)
 * Where the port departs from the reference on purpose (d_pad ≠ d: the
   race compares exact evaluations on the pulls' ρ/d_pad scale; ROADMAP.md
   Queue 3), it returns the exact top-k on an input where the reference
@@ -39,55 +40,14 @@ from repro_torch.index import builder
 from repro_torch.index.batched_race import fused_race_topk, index_knn
 from repro_torch.index.store import IndexStore
 
-FP32 = dict(rtol=2e-4, atol=1e-5)
+from test_torch_replay import CASES, FP32, replay_sampler
+from test_torch_replay import brute_force as _brute_force
+from test_torch_replay import carry as _carry
+from test_torch_replay import case_data as _data
+from test_torch_replay import cfg_kw as _cfg_kw
+from test_torch_replay import sets as _sets
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-
-# the datasets of the reference's fused-driver tests (tests/test_index.py)
-CASES = {
-    "n500-dense": ((500, 1024, 5, 21), False),
-    "n500-rotated": ((500, 1024, 5, 21), True),
-    "n300-dense": ((300, 1024, 4, 33), False),
-}
-
-
-def _cfg_kw(rotate):
-    return dict(k=3, delta=0.01, block=64, batch_arms=16, pulls_per_round=2,
-                metric="l2", rotate=rotate)
-
-
-def _data(case):
-    (n, d, Q, seed), rotate = CASES[case]
-    corpus, queries = jsynthetic.make_knn_benchmark_data("dense", n, d, Q,
-                                                         seed=seed)
-    return corpus, queries, rotate
-
-
-def _carry(jstore, **arrays_override):
-    arrays = {k: np.asarray(v) for k, v in jstore.arrays().items()}
-    arrays.update(arrays_override)
-    return arrays, jstore.meta()
-
-
-def _brute_force(corpus, queries, k):
-    d = ((queries[:, None, :].astype(np.float64)
-          - corpus[None].astype(np.float64)) ** 2).sum(-1)
-    return [set(row) for row in np.argsort(d, 1, kind="stable")[:, :k].tolist()]
-
-
-def _sets(idx):
-    return [set(row) for row in np.asarray(idx).tolist()]
-
-
-def replay_sampler(key):
-    """The reference's block draws, in order: one split + randint for the
-    init and one per epoch, exactly as its fused driver takes them."""
-    state = {"key": key}
-
-    def sample(shape, nb):
-        state["key"], sub = jax.random.split(state["key"])
-        return torch.from_numpy(np.array(jax.random.randint(sub, shape, 0,
-                                                            nb)))
-    return sample
 
 
 # ---------------------------------------------------------------------------
@@ -297,8 +257,8 @@ def test_index_query_spec_overrides():
     res = idx.query(queries, k=5, delta=0.05, mode="fused", impl="ref")
     assert res.indices.shape == (4, 5)
     assert _sets(res.indices) == _brute_force(corpus, queries, 5)
-    with pytest.raises(NotImplementedError, match="rounds"):
-        idx.query(queries, mode="rounds")
+    res = idx.query(queries, k=5, delta=0.05, mode="rounds", impl="ref")
+    assert _sets(res.indices) == _brute_force(corpus, queries, 5)
     with pytest.raises(ValueError, match="CUDA"):
         idx.query(queries, impl="cuda")
 
@@ -354,7 +314,10 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files[:-1]}
+    assert {"core/oracle.py", "core/bmo_nn.py", "core/ucb.py",
+            "core/datasets.py", "index/batched_race.py",
+            "kernels/block_pull.py", "kernels/pairwise_dist.py"} <= names
     for path in files:
         bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

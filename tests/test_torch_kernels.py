@@ -3,9 +3,10 @@ plain PyTorch versions (what the CPU runs, and what the CUDA kernels are
 checked against on the card) vs the Pallas kernels in interpret mode, on
 the same seeded numpy inputs.
 
-Tolerances: fp32 statistics at rtol 2e-4 / atol 1e-5, as the reference's
-own kernel sweep (sums are taken in another order); bf16 at 5e-2 (one
-bf16 rounding of values of order 1)."""
+Tolerances, as the reference's own kernel sweep (sums are taken in another
+order): fp32 statistics at rtol 2e-4 / atol 1e-5; pulls at rtol 1e-5, and
+2e-2 for bf16 inputs; pairwise distances at rtol 1e-4 / atol 1e-3; the
+bf16 transform at 5e-2 (one bf16 rounding of values of order 1)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +15,12 @@ import torch
 from repro.core import confidence as jconf
 from repro.kernels import ops as jops
 from repro_torch.core import confidence as conf
+from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
+from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
 
 FP32 = dict(rtol=2e-4, atol=1e-5)
 
@@ -50,6 +54,141 @@ def test_fwht_matches_explicit_hadamard(rng):
     x = rng.normal(size=(7, d)).astype(np.float32)
     got = ops.fwht(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, x @ H.T, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# block_pull, block_pull_multi
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,d,block,B,P", [
+    (16, 256, 128, 4, 2),
+    (32, 512, 64, 8, 3),
+    (8, 1024, 256, 8, 1),
+    (64, 384, 128, 16, 5),
+])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_block_pull_matches_jax_kernel(rng, n, d, block, B, P, metric):
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(d,)).astype(np.float32)
+    arm = rng.integers(0, n, B).astype(np.int32)
+    blk = rng.integers(0, d // block, (B, P)).astype(np.int32)
+    want = jops.block_pull(*map(jnp.asarray, (X, q, arm, blk)), block=block,
+                           metric=metric, impl="interpret")
+    got = ops.block_pull(*map(torch.from_numpy, (X, q, arm, blk)),
+                         block=block, metric=metric)
+    assert got.shape == (B, P) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_pull_dtypes_match_jax_kernel(rng, dtype):
+    X = rng.normal(size=(8, 256)).astype(np.float32)
+    q = rng.normal(size=(256,)).astype(np.float32)
+    arm = np.arange(4, dtype=np.int32)
+    blk = np.zeros((4, 2), np.int32)
+    want = jops.block_pull(jnp.asarray(X).astype(dtype),
+                           jnp.asarray(q).astype(dtype), jnp.asarray(arm),
+                           jnp.asarray(blk), block=128, impl="interpret")
+    tdt = getattr(torch, dtype)
+    got = ops.block_pull(torch.from_numpy(X).to(tdt), torch.from_numpy(q).to(
+        tdt), torch.from_numpy(arm), torch.from_numpy(blk), block=128)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.parametrize("Q,n,d,block,B,P", [
+    (3, 16, 256, 128, 4, 2),
+    (5, 32, 512, 64, 8, 3),
+    (2, 8, 1024, 256, 8, 1),
+])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_block_pull_multi_matches_jax_kernel(rng, Q, n, d, block, B, P,
+                                             metric):
+    X, qs, arm, blk = _pull_inputs(rng, Q, n, d, block, B, P)
+    want = jops.block_pull_multi(*map(jnp.asarray, (X, qs, arm, blk)),
+                                 block=block, metric=metric, impl="interpret")
+    tX, tq, ta, tb = map(torch.from_numpy, (X, qs, arm, blk))
+    got = ops.block_pull_multi(tX, tq, ta, tb, block=block, metric=metric)
+    assert got.shape == (Q, B, P) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    # row q of the multi-query pull == the single-query pull for that query
+    for qi in range(Q):
+        single = ops.block_pull(tX, tq[qi], ta[qi], tb[qi], block=block,
+                                metric=metric)
+        np.testing.assert_allclose(got[qi].numpy(), single.numpy(), rtol=1e-5)
+
+
+def test_block_pull_full_coverage_equals_exact(rng):
+    """Pulling every block once averages to the exact θ — in the port, and
+    in agreement with the reference's kernel."""
+    n, d, block = 6, 512, 128
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(d,)).astype(np.float32)
+    nb = d // block
+    blk = np.broadcast_to(np.arange(nb, dtype=np.int32)[None], (n, nb)).copy()
+    arm = np.arange(n, dtype=np.int32)
+    pulls = ops.block_pull(*map(torch.from_numpy, (X, q, arm, blk)),
+                           block=block)
+    theta = ops.pairwise_dist(torch.from_numpy(q)[None],
+                              torch.from_numpy(X))[0] / d
+    np.testing.assert_allclose(pulls.mean(1).numpy(), theta.numpy(), rtol=1e-4)
+    jpulls = jops.block_pull(*map(jnp.asarray, (X, q, arm, blk)), block=block,
+                             impl="interpret")
+    np.testing.assert_allclose(pulls.numpy(), np.asarray(jpulls), rtol=1e-5)
+
+
+def test_block_pull_multi_skips_negative_arms(rng):
+    """A negative arm id marks a discarded lane: its pulls are 0, other
+    lanes unchanged."""
+    X, qs, arm, blk = map(torch.from_numpy,
+                          _pull_inputs(rng, 3, 16, 256, 64, 5, 4))
+    full = ops.block_pull_multi(X, qs, arm, blk, block=64)
+    masked_arm = arm.clone()
+    masked_arm[2, 1] = -1
+    masked = ops.block_pull_multi(X, qs, masked_arm, blk, block=64)
+    assert masked[2, 1].tolist() == [0.0] * 4
+    keep = masked_arm >= 0
+    torch.testing.assert_close(masked[keep], full[keep], rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# pairwise_dist
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("Q,n,d", [(4, 16, 64), (9, 50, 300), (8, 128, 512),
+                                   (1, 7, 1000)])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_pairwise_dist_matches_jax_kernel(rng, Q, n, d, metric):
+    qs = rng.normal(size=(Q, d)).astype(np.float32)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    want = jops.pairwise_dist(jnp.asarray(qs), jnp.asarray(X), metric=metric,
+                              impl="interpret")
+    got = ops.pairwise_dist(torch.from_numpy(qs), torch.from_numpy(X),
+                            metric=metric)
+    assert got.shape == (Q, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+def test_pairwise_dist_ref_is_the_reference_ref(rng, metric):
+    """The plain version keeps the reference's chunked form: with d over
+    one 2048-wide chunk it matches the JAX plain version to fp32 rounding."""
+    qs = rng.normal(size=(3, 2500)).astype(np.float32)
+    X = rng.normal(size=(20, 2500)).astype(np.float32)
+    want = jref.pairwise_dist_ref(jnp.asarray(qs), jnp.asarray(X), metric)
+    got = ref.pairwise_dist_ref(torch.from_numpy(qs), torch.from_numpy(X),
+                                metric)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+
+
+def test_pairwise_zero_distance(rng):
+    X = rng.normal(size=(5, 128)).astype(np.float32)
+    d = ops.pairwise_dist(torch.from_numpy(X), torch.from_numpy(X)).numpy()
+    np.testing.assert_allclose(np.diag(d), 0.0, atol=1e-3)
+    jd = jops.pairwise_dist(jnp.asarray(X), jnp.asarray(X), impl="interpret")
+    np.testing.assert_allclose(d, np.asarray(jd), rtol=1e-4, atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -130,39 +269,57 @@ def test_fused_epoch_pull_skips_negative_arms(rng):
 # dispatch
 # ---------------------------------------------------------------------------
 
+WRAPPERS = {
+    "fwht": (fwht_cuda, ops.fwht,
+             lambda X, qs, arm, blk: ((X,), {})),
+    "fused_epoch_pull": (fused_epoch_pull_cuda, ops.fused_epoch_pull,
+                         lambda X, qs, arm, blk: ((X, qs, arm, blk),
+                                                  dict(block=64))),
+    "block_pull_multi": (block_pull_multi_cuda, ops.block_pull_multi,
+                         lambda X, qs, arm, blk: ((X, qs, arm, blk),
+                                                  dict(block=64))),
+    "block_pull": (block_pull_cuda, ops.block_pull,
+                   lambda X, qs, arm, blk: ((X, qs[0], arm[0], blk[0]),
+                                            dict(block=64))),
+    "pairwise_dist": (pairwise_dist_cuda, ops.pairwise_dist,
+                      lambda X, qs, arm, blk: ((qs, X), {})),
+}
+
+
+PLAIN = {"fwht": ref.fwht_ref, "fused_epoch_pull": ref.fused_epoch_pull_ref,
+         "block_pull_multi": ref.block_pull_multi_ref,
+         "block_pull": ref.block_pull_ref,
+         "pairwise_dist": ref.pairwise_dist_ref}
+
+
 def test_auto_on_cpu_uses_plain_versions(rng):
-    """impl="auto" on a CPU tensor never reaches a kernel wrapper."""
-    X, qs, arm, blk = map(torch.from_numpy,
-                          _pull_inputs(rng, 2, 8, 256, 64, 3, 2))
-    before = (fused_epoch_pull_cuda.launches, fwht_cuda.launches)
-    torch.testing.assert_close(
-        ops.fused_epoch_pull(X, qs, arm, blk, block=64),
-        ref.fused_epoch_pull_ref(X, qs, arm, blk, 64), rtol=0, atol=0)
-    torch.testing.assert_close(ops.fwht(X), ref.fwht_ref(X), rtol=0, atol=0)
-    assert (fused_epoch_pull_cuda.launches, fwht_cuda.launches) == before
+    """impl="auto" on a CPU tensor never reaches a kernel wrapper: it gives
+    exactly what the plain function gives."""
+    operands = tuple(map(torch.from_numpy,
+                         _pull_inputs(rng, 2, 8, 256, 64, 3, 2)))
+    before = [w.launches for w, _, _ in WRAPPERS.values()]
+    for name, (_, op, args) in WRAPPERS.items():
+        a, kw = args(*operands)
+        torch.testing.assert_close(op(*a, **kw), PLAIN[name](*a, **kw),
+                                   rtol=0, atol=0)
+    assert [w.launches for w, _, _ in WRAPPERS.values()] == before
 
 
-@pytest.mark.parametrize("kernel", ["fwht", "fused_epoch_pull"])
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_cuda_impl_on_cpu_tensor_raises(rng, kernel):
-    X, qs, arm, blk = map(torch.from_numpy,
-                          _pull_inputs(rng, 2, 8, 256, 64, 3, 2))
+    _, op, args = WRAPPERS[kernel]
+    a, kw = args(*map(torch.from_numpy, _pull_inputs(rng, 2, 8, 256, 64, 3, 2)))
     with pytest.raises(ValueError, match="CUDA"):
-        if kernel == "fwht":
-            ops.fwht(X, impl="cuda")
-        else:
-            ops.fused_epoch_pull(X, qs, arm, blk, block=64, impl="cuda")
+        op(*a, **kw, impl="cuda")
 
 
-@pytest.mark.parametrize("kernel", ["fwht", "fused_epoch_pull"])
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
 def test_kernel_wrappers_refuse_cpu_tensors(rng, kernel):
     """The wrappers launch or raise; they never compute on the CPU."""
-    X, qs, arm, blk = map(torch.from_numpy,
-                          _pull_inputs(rng, 2, 8, 256, 64, 3, 2))
+    wrapper, _, args = WRAPPERS[kernel]
+    a, kw = args(*map(torch.from_numpy, _pull_inputs(rng, 2, 8, 256, 64, 3, 2)))
     with pytest.raises(ValueError, match="CUDA"):
-        if kernel == "fwht":
-            fwht_cuda(X)
-        else:
-            fused_epoch_pull_cuda(X, qs, arm, blk, block=64)
+        wrapper(*a, **kw)
 
 
 def test_unknown_impl_raises():
