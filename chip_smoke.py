@@ -15,12 +15,14 @@ Run from the root of a checkout. In order it:
    PyTorch call that computes the same function, with CUDA events over
    back-to-back calls, and the kernel alone with torch.profiler, beside
    the least time the card could take (bytes over 3.35 TB/s, operations
-   over 67 TFLOP/s fp32). Tolerances: pull statistics and pulls at
+   over 67 TFLOP/s fp32, or 989 TFLOP/s on the bf16 tensor cores for
+   bf16 attention). Tolerances: pull statistics and pulls at
    rtol 2e-4 / atol 1e-5; the fp32 transform at 1e-5, bf16 at 5e-2;
    pairwise ℓ1 at rtol 1e-4 / atol 1e-3, ℓ2 at |got − want| ≤
    1e-4·|want| + 1e-6·(‖q‖² + ‖x‖²) (the plain version's norm expansion
-   cancels). Where the plain version cannot hold the full shape, it is
-   checked on the first queries or rows, as each row says;
+   cancels); flash attention in bf16 within one bf16 ulp (rtol 8e-3),
+   in fp32 at 3e-5. Where the plain version cannot hold the full shape, it
+   is checked on the first queries or rows, as each row says;
 3. checks the fused path on a small input on the card against a brute
    force;
 4. on the repo's ``bmo-nn-dense`` workload at its published size
@@ -38,7 +40,14 @@ Run from the root of a checkout. In order it:
      driver (``--rounds-queries`` of the queries; the default 256 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
    * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
-     first 16 queries at full n and d, recall ≥ 0.99.
+     first 16 queries at full n and d, recall ≥ 0.99;
+5. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
+   qwen2.5-14b at full width and depth (bf16, random weights from
+   ``--seed``) over 4 sequences of 4,096 tokens, through
+   ``flash_attention`` once per layer; then every layer's attention held
+   against the plain version on its own inputs, and the whole forward of
+   one sequence through the kernel and through the plain version (see
+   ``lm_forward_phase`` for what is held and why).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -58,10 +67,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM (data sheet): device memory rate and fp32 rate outside the
-# tensor cores, the peaks the bounds are taken against
+# NVIDIA H100 SXM (data sheet): device memory rate, fp32 rate outside the
+# tensor cores and the dense bf16 tensor-core rate, the peaks the bounds are
+# taken against
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
+# the LM phase: qwen2.5-14b at full width and depth over the repo's train_4k
+# sequence length
+LM_ARCH = "qwen2.5-14b"
+LM_BATCH = 4
+LM_SEQ = 4096
 # queries of the paper phase: one host-driven race each, a few seconds apiece
 PAPER_QUERIES = 16
 
@@ -134,9 +150,9 @@ def compare(what: str, got, want, *, rtol: float, atol: float,
     return out
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -168,6 +184,86 @@ def fwht_bound(x) -> tuple:
     rows, d = x.numel() // x.shape[-1], x.shape[-1]
     return bound_ms(2.0 * x.numel() * x.element_size(),
                     rows * d * (math.log2(d) + 1.0))
+
+
+def flash_bound(q, k, v, causal: bool, q_offset: int = 0) -> dict:
+    """Least time for one attention call: q, k, v read once and the output
+    written once; 2·D + 2·Dv flops per (query, key) pair that the mask
+    keeps (the softmax's few flops per pair are not counted). The bound is
+    taken at the peak for the inputs' type (the bf16 tensor cores for bf16,
+    the fp32 rate for fp32), and at the fp32 CUDA-core rate beside it."""
+    import torch
+    B, H, Sq, D = q.shape
+    Sk, Dv = k.shape[2], v.shape[-1]
+    if causal:
+        keys = torch.clamp(torch.arange(Sq) + q_offset + 1, 0, Sk)
+        pairs = int(keys.sum())
+    else:
+        pairs = Sq * Sk
+    flops = B * H * pairs * (2.0 * D + 2.0 * Dv)
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()
+                                 + B * H * Sq * Dv)
+    peak = BF16_TC_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t, by = bound_ms(nbytes, flops, peak)
+    return {"bound_ms": t, "bound_by": by, "bound_flops": flops,
+            "bound_bytes": nbytes,
+            "bound_peak": "bf16 tensor cores, 989 TFLOP/s"
+            if peak == BF16_TC_FLOPS else "fp32, 67 TFLOP/s",
+            "bound_ms_fp32_cuda_cores": bound_ms(nbytes, flops)[0],
+            "bound_ms_bf16_tensor_cores": bound_ms(nbytes, flops,
+                                                   BF16_TC_FLOPS)[0]}
+
+
+def flash_rows(g) -> list:
+    """flash_attention at one layer of the LM path (qwen2.5-14b's 40 query
+    and 8 KV heads of 128 over 4 × 4,096 tokens, bf16, causal) and at a GQA
+    case of the reference kernel test's grid in fp32. Tolerances: bf16
+    within one bf16 ulp (rtol 8e-3; both round fp32 values that agree to
+    rounding), fp32 at 3e-5 as the reference test."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+
+    rows = []
+    for case, (B, H, KV, S, D), dtype in (
+            ("lm_layer", (LM_BATCH, 40, 8, LM_SEQ, 128), torch.bfloat16),
+            ("reference_grid", (2, 4, 2, 128, 32), torch.float32)):
+        q = torch.randn((B, H, S, D), generator=g, device="cuda").to(dtype)
+        k = torch.randn((B, KV, S, D), generator=g, device="cuda").to(dtype)
+        v = torch.randn((B, KV, S, D), generator=g, device="cuda").to(dtype)
+        run = lambda: flash_attention_cuda(q, k, v, causal=True)
+        plain = lambda: ref.flash_attention_ref(q, k, v, True, 0)
+        big = case == "lm_layer"
+        row = {"kernel": "flash_attention", "case": case,
+               "dtype": str(dtype).replace("torch.", ""), "causal": True,
+               "shape": {"B": B, "H": H, "KV": KV, "Sq": S, "Sk": S, "D": D}}
+        row.update(compare(f"flash_attention {case}", run(), plain(),
+                           rtol=8e-3 if big else 3e-5,
+                           atol=1e-4 if big else 3e-5))
+        row["ms"] = cuda_ms(run, reps=5 if big else 50)
+        row["device_ms"] = device_ms(run, "flash_attn_kernel",
+                                     reps=3 if big else 20)
+        row["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
+        row.update(flash_bound(q, k, v, causal=True))
+        # yardstick only: the one PyTorch call computing the same function,
+        # and the same call on K/V repeated to H heads (its flash backend)
+        row["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                   enable_gqa=True),
+            reps=2 if big else 20, warmup=1)
+        row["library_call"] = ("torch.nn.functional.scaled_dot_product_"
+                               "attention(q, k, v, is_causal=True, "
+                               "enable_gqa=True)")
+        kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
+        row["library_ms_kv_repeated"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
+            reps=5 if big else 20, warmup=1)
+        rows.append(row)
+        emit(row)
+        del q, k, v, kr, vr
+        torch.cuda.empty_cache()
+    return rows
 
 
 def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
@@ -383,6 +479,7 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             emit(row)
     del X, Qo, Xe, qe
     torch.cuda.empty_cache()
+    results["flash_attention"] = flash_rows(g)
     return results
 
 
@@ -613,17 +710,10 @@ def paper_phase(corpus, queries, truth, seed: int) -> dict:
             "launches": launches}
 
 
-def traced_query(idx, queries, seed: int) -> dict:
-    """One more query under torch.profiler: device time by kernel and the
-    device's idle share of the query's wall time."""
+def kernel_breakdown(prof) -> list:
+    """Device time by kernel name under a torch.profiler run, largest
+    first."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        idx.query(queries, seed)
-        wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
     for ev in prof.key_averages():
         # kernel rows only: an operator's row repeats its kernels' time
@@ -635,6 +725,190 @@ def traced_query(idx, queries, seed: int) -> dict:
             rows.append({"name": ev.key[:90], "device_ms": dev_us / 1e3,
                          "calls": ev.count})
     rows.sort(key=lambda r: -r["device_ms"])
+    return rows
+
+
+def lm_forward_phase(seed: int) -> dict:
+    """qwen2.5-14b's ``CONFIG`` at full width and depth with attn_impl
+    "pallas", its parameters drawn on the card from ``seed`` (bf16, norms
+    fp32): ``lm_loss`` forward under inference mode over LM_BATCH sequences
+    of LM_SEQ tokens drawn from ``seed`` over the whole vocabulary (labels:
+    the tokens shifted by one). Nothing is cut: the peak stays near 37 GB.
+
+    Then, on the first sequence, the whole forward twice, through the
+    kernel and through the plain version. In the kernel's run every layer's
+    attention is also held against the plain version on that layer's own
+    q, k and v (layer 0 included): within one bf16 ulp (rtol 8e-3) plus
+    1e-4·max|v| for the fp32 rounding of scores that spread over hundreds.
+    The two whole forwards are compared layer by layer and at the loss.
+    Their residual streams after layer 0 must agree to 1e-2 relative (L2).
+    From there the gap grows: at this init each attention row is nearly
+    one-hot and its output dominates the residual stream, so rounding-level
+    differences flip near-tied picks. The logits' gap and the loss's are
+    reported, and the loss is held only to 1e-2 relative, several times
+    the spread of two decorrelated forwards (about 2e-3 over 4,096
+    tokens). The loss of a random-init model is also checked to be finite
+    and within 1 of ln(V) + 1/2."""
+    import dataclasses
+    import functools
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.models import build_model
+    from repro_torch.train.loss import cross_entropy, lm_loss
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config, attn_impl="pallas")
+    t = time.perf_counter()
+    model = build_model(cfg, param_dtype=torch.bfloat16, device="cuda",
+                        rng=seed)
+    torch.cuda.synchronize()
+    out = {"phase": "lm_forward", "arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "n_kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
+           "seq_len": LM_SEQ, "seed": seed, "attn_impl": cfg.attn_impl,
+           "init_s": time.perf_counter() - t,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9}
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ + 1),
+                           generator=g, device="cuda")
+
+    def loss_of(batch, impl="auto"):
+        with torch.inference_mode():
+            loss, metrics = lm_loss(model, batch, impl=impl)
+        return float(loss), float(metrics["tokens"])
+
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    (loss, n_tok), launches = counted(
+        "lm_forward", {"flash_attention": flash_attention_cuda},
+        lambda: loss_of(batch))
+    cold_s = time.perf_counter() - t
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"lm_forward launched flash_attention "
+                             f"{launches['flash_attention']} times, not once "
+                             f"per layer ({cfg.n_layers})")
+    if n_tok != LM_BATCH * LM_SEQ:
+        raise AssertionError(f"lm_forward scored {n_tok} tokens")
+    expect = math.log(cfg.vocab_size) + 0.5
+    if not (math.isfinite(loss) and abs(loss - expect) < 1.0):
+        raise AssertionError(f"lm_forward loss {loss}, expected near {expect}")
+    out.update({"batch": LM_BATCH, "tokens": n_tok, "loss": loss,
+                "ln_vocab": math.log(cfg.vocab_size), "launches": launches,
+                "cold_s": cold_s,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # steady state, synced, then one profiled forward for the breakdown
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    loss_of(batch)
+    out["forward_s"] = time.perf_counter() - t
+    out["tokens_per_s"] = n_tok / out["forward_s"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        loss_of(batch)
+        traced_ms = (time.perf_counter() - t) * 1e3
+    rows = kernel_breakdown(prof)
+    busy = sum(r["device_ms"] for r in rows)
+    attn = sum(r["device_ms"] for r in rows if "flash_attn_kernel" in r["name"])
+    gemm = sum(r["device_ms"] for r in rows
+               if any(w in r["name"].lower()
+                      for w in ("gemm", "xmma", "cutlass", "nvjet")))
+    out["traced"] = {"wall_ms": traced_ms, "device_busy_ms": busy,
+                     "device_idle_share": max(0.0, 1.0 - busy / traced_ms),
+                     "attention_ms": attn, "matmul_ms": gemm,
+                     "other_ms": busy - attn - gemm,
+                     "attention_share_of_forward": attn / (out["forward_s"] * 1e3),
+                     "top": rows[:12]}
+    del batch
+    torch.cuda.empty_cache()
+
+    # the first sequence through the kernel and through the plain version
+    one = {"tokens": tokens[:1, :-1], "labels": tokens[:1, 1:]}
+    streams = {"cuda": [], "ref": []}
+    layer_checks = []
+
+    def keep(name, module, args, result):
+        streams[name].append(result)
+
+    def check(i, module, args, kwargs):
+        x, positions = args
+        q, k, v = (t.transpose(1, 2)
+                   for t in module.qkv(x, positions, torch.bfloat16))
+        got = flash_attention_cuda(q, k, v)
+        want = ref.flash_attention_ref(q, k, v, True, 0)
+        vmax = float(v.abs().max())
+        layer_checks.append({"layer": i, "max_abs_v": vmax,
+                             **compare(f"lm_forward layer {i} attention",
+                                       got, want, rtol=8e-3,
+                                       atol=1e-4 * vmax)})
+
+    losses = {}
+    for impl in ("cuda", "ref"):
+        hooks = [layer.register_forward_hook(functools.partial(keep, impl))
+                 for layer in model.layers]
+        if impl == "cuda":
+            hooks += [layer.attn.register_forward_pre_hook(
+                functools.partial(check, i), with_kwargs=True)
+                for i, layer in enumerate(model.layers)]
+        try:
+            with torch.inference_mode():
+                logits, _ = model(one, impl=impl)
+                losses[impl], _ = cross_entropy(logits, one["labels"])
+        finally:
+            for h in hooks:
+                h.remove()
+        streams[impl + "_logits"] = logits.float()
+        del logits
+    gaps = [float((a.float() - b.float()).norm() / b.float().norm())
+            for a, b in zip(streams["cuda"], streams["ref"])]
+    la, lb = (float(losses[k]) for k in ("cuda", "ref"))
+    ga, gb = streams["cuda_logits"], streams["ref_logits"]
+    diff = (ga - gb).abs()
+    out["first_sequence"] = {
+        "layer_checks_max_abs_err": max(c["max_abs_err"] for c in layer_checks),
+        "layer_checks": len(layer_checks),
+        "stream_rel_l2_by_layer": gaps,
+        "loss_cuda": la, "loss_plain": lb,
+        "loss_rel_diff": abs(la - lb) / abs(lb),
+        "logits_rel_l2": float((ga - gb).norm() / gb.norm()),
+        "logits_max_abs_err": float(diff.max()),
+        "logits_share_beyond_3e-2": float(
+            (diff > 3e-2 + 3e-2 * gb.abs()).float().mean())}
+    out["layer_checks"] = layer_checks
+    del streams, ga, gb, diff
+    fs = out["first_sequence"]
+    if len(layer_checks) != cfg.n_layers:
+        raise AssertionError(f"{len(layer_checks)} layer checks, not "
+                             f"{cfg.n_layers}")
+    if gaps[0] > 1e-2:
+        raise AssertionError(f"residual stream after layer 0: kernel and "
+                             f"plain version differ by {gaps[0]} (L2)")
+    if not fs["loss_rel_diff"] <= 1e-2:
+        raise AssertionError(f"whole-forward loss: kernel {la}, plain {lb}")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def traced_query(idx, queries, seed: int) -> dict:
+    """One more query under torch.profiler: device time by kernel and the
+    device's idle share of the query's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        idx.query(queries, seed)
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = kernel_breakdown(prof)
     busy = sum(r["device_ms"] for r in rows)
     ours = [r for r in rows
             if "fused_epoch_pull_kernel" in r["name"] or "fwht_kernel" in r["name"]]
@@ -657,6 +931,8 @@ KERNELS = (
      "src/repro/kernels/block_pull.py:41", ("paper",)),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist.cu",
      "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper")),
+    ("flash_attention", "src/repro_torch/csrc/flash_attn.cu",
+     "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
 )
 
 
@@ -670,6 +946,7 @@ def main() -> int:
     ap.add_argument("--out", help="write every detail to this JSON file")
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -730,6 +1007,12 @@ def main() -> int:
     report["paper"] = paper_phase(corpus, queries[:PAPER_QUERIES],
                                   truth[:PAPER_QUERIES], args.seed)
     emit(report["paper"])
+    del corpus, queries, truth
+    torch.cuda.empty_cache()
+    report["lm_forward"] = lm_forward_phase(args.seed)
+    emit({k: v for k, v in report["lm_forward"].items()
+          if k not in ("traced", "layer_checks")})
+    emit({"phase": "lm_forward_traced", **report["lm_forward"]["traced"]})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -745,6 +1028,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,3 +1,5 @@
-from repro_torch.configs.base import BMOConfig
+from repro_torch.configs.base import BMOConfig, ModelConfig, ParallelPlan
+from repro_torch.configs.registry import ArchEntry, get_arch, list_archs
 
-__all__ = ["BMOConfig"]
+__all__ = ["ArchEntry", "BMOConfig", "ModelConfig", "ParallelPlan",
+           "get_arch", "list_archs"]

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.fused_race import N_BUF, fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
@@ -77,3 +78,14 @@ def fused_epoch_pull(x, qs, arm_idx, blk_idx, *, block: int,
                                          metric)
     return fused_epoch_pull_cuda(x, qs, arm_idx, blk_idx, block=block,
                                  metric=metric, n_buf=n_buf)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                    impl: str = "auto"):
+    """Fused attention: q (B, H, Sq, D), k (B, KV, Sk, D), v (B, KV, Sk, Dv)
+    with H % KV == 0 (query head h reads KV head h // (H / KV)) → (B, H, Sq,
+    Dv) in q's type. The model's one call site is ``GQAAttention`` with
+    ``attn_impl="pallas"`` and no cache."""
+    if _resolve(impl, q) == "ref":
+        return kref.flash_attention_ref(q, k, v, causal, q_offset)
+    return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)

@@ -1,0 +1,312 @@
+"""Shared model layers: norms, RoPE, GQA attention (cache-free), MLP
+flavours, embedding and LM head — the port of ``repro/models/common.py``.
+
+Parameters keep the reference's layouts (``wq`` (d, h, hd), ``wo`` (h, hd,
+d), ``wi_gate`` (d, f), …) and its initialisation rule (``init_leaf``), so a
+reference parameter tree carries across by copying (``models/convert.py``).
+
+Dtype policy, as the reference's code has it: every matmul runs in the
+compute dtype with its weights cast to it; softmax and norms run in fp32 and
+cast back; the residual stream stays in the compute dtype (the reference's
+module docstring says fp32, its code does not).
+
+Not ported yet (see ROADMAP.md): the KV-cache and ``kv_quant`` branches of
+``gqa_attention`` with ``quantize_kv`` / ``dequantize_kv``, its
+bidirectional and non-RoPE uses, ``apply_mrope`` (VLM), ``layernorm`` and
+``sinusoidal_embedding`` (audio).
+"""
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def new_param(shape, dtype: torch.dtype, device, init: str) -> nn.Parameter:
+    """An uninitialised parameter tagged with its reference init rule
+    ("fanin" | "embed" | "ones" | "zeros"); ``init_leaf`` fills it. The port
+    runs the forward only, so no parameter asks for a gradient."""
+    p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
+                     requires_grad=False)
+    p.init = init
+    return p
+
+
+@torch.no_grad()
+def init_leaf(p: torch.Tensor, generator: torch.Generator) -> None:
+    """The reference's ``_init_leaf`` (``sharding/spec.py``): zeros, ones,
+    N(0, 0.02) for "embed", and N(0, 1/fan_in) for "fanin" with fan_in =
+    shape[-2] for every tensor of rank ≥ 2 — so ``wq`` (d, h, hd) draws with
+    std 1/√h, not 1/√d. Draws in fp32 and casts to the parameter's type."""
+    if p.init == "zeros":
+        p.zero_()
+    elif p.init == "ones":
+        p.fill_(1.0)
+    else:
+        if p.init == "fanin":
+            fan_in = p.shape[-2] if p.dim() >= 2 else p.shape[-1]
+            std = 1.0 / math.sqrt(max(fan_in, 1))
+        else:
+            std = 0.02
+        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
+                            dtype=torch.float32).mul_(std))
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.to(torch.float32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def _rope_cos_sin(positions: torch.Tensor, rot_dim: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, rot_dim//2), fp32."""
+    half = rot_dim // 2
+    exps = torch.arange(half, dtype=torch.float32, device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    angles = positions.to(torch.float32)[..., None] * freqs   # (..., S, half)
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (B, S, H, D); positions (B, S). Rotates all D dims in the
+    split-halves form: x[..., :D/2] against x[..., D/2:]."""
+    cos, sin = _rope_cos_sin(positions, x.shape[-1], theta)  # (B, S, D/2)
+    cos = cos[..., None, :]                                   # (B, S, 1, D/2)
+    sin = sin[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA / MQA), chunked for long sequences
+# ---------------------------------------------------------------------------
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int):
+    """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D). fp32 scores and softmax;
+    the probabilities are cast to q's type before the product with v.
+    ``q_offset``: absolute position of q[0] for the causal mask."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32))
+    scores = scores / math.sqrt(D)
+    if causal:
+        Sk = k.shape[1]
+        q_pos = torch.arange(Sq, device=q.device) + q_offset
+        mask = torch.arange(Sk, device=q.device)[None, :] <= q_pos[:, None]
+        scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H, v.shape[-1])
+
+
+# keys above which ``sdpa`` takes the online softmax, and its KV chunk
+FLASH_THRESHOLD = 2048
+KV_CHUNK = 1024
+
+
+def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int):
+    """Online-softmax (flash-style) attention over KV chunks, carrying
+    (running max, normaliser, accumulator) in fp32; the (Sq, Sk) score matrix
+    is never materialised. Each chunk's probabilities are cast to q's type
+    for the product with v, whose result is accumulated in fp32."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    Dv = v.shape[-1]
+    kv_chunk = KV_CHUNK if Sk % KV_CHUNK == 0 else Sk
+    qg = q.reshape(B, Sq, KV, G, D).to(torch.float32)
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=q.device)
+    for start in range(0, Sk, kv_chunk):
+        kc = k[:, start:start + kv_chunk]
+        vc = v[:, start:start + kv_chunk]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                         kc.to(torch.float32)) / math.sqrt(D)
+        if causal:
+            kv_pos = torch.arange(kv_chunk, device=q.device) + start
+            s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, -1e30)
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        scale = torch.exp(m - m_new)
+        l = l * scale + torch.sum(p, dim=-1)
+        acc = acc * scale[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", p.to(q.dtype), vc).to(torch.float32)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def sdpa(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 0):
+    """Scaled dot-product attention, the plain path of ``attn_impl`` "auto"
+    and "xla". More than FLASH_THRESHOLD keys take the online softmax over
+    KV chunks; ``chunk`` > 0 below Sq splits the queries into chunks of that
+    size, each with its own causal offset."""
+    Sq, Sk = q.shape[1], k.shape[1]
+    use_flash = Sk > FLASH_THRESHOLD and Sq > 8
+
+    def one(qc, off):
+        if use_flash:
+            return _sdpa_flash(qc, k, v, causal=causal, q_offset=off)
+        return _sdpa(qc, k, v, causal=causal, q_offset=off)
+
+    if chunk <= 0 or Sq <= chunk:
+        return one(q, q_offset)
+    if Sq % chunk:
+        raise ValueError(f"Sq={Sq} is not a multiple of the q chunk {chunk}")
+    return torch.cat([one(q[:, s:s + chunk], q_offset + s)
+                      for s in range(0, Sq, chunk)], dim=1)
+
+
+class GQAAttention(nn.Module):
+    """Causal grouped-query attention with RoPE, the cache-free branches of
+    the reference's ``gqa_attention``: ``attn_impl="pallas"`` goes through
+    the fused flash-attention op (``ops.flash_attention``, the CUDA kernel
+    on the card), "auto" and "xla" through the plain ``sdpa``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        if cfg.rope_type != "rope":
+            raise NotImplementedError(
+                f"rope_type={cfg.rope_type!r} is not ported yet (see ROADMAP.md)")
+        self.cfg = cfg
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        self.wq = new_param((d, h, hd), dtype, device, "fanin")
+        self.wk = new_param((d, kv, hd), dtype, device, "fanin")
+        self.wv = new_param((d, kv, hd), dtype, device, "fanin")
+        self.wo = new_param((h, hd, d), dtype, device, "fanin")
+        if cfg.qkv_bias:
+            self.bq = new_param((h, hd), dtype, device, "zeros")
+            self.bk = new_param((kv, hd), dtype, device, "zeros")
+            self.bv = new_param((kv, hd), dtype, device, "zeros")
+
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
+            compute_dtype=torch.bfloat16):
+        """The attention's inputs: q (B, S, H, hd), k and v (B, S, KV, hd),
+        biased and rotated, in the compute dtype."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        xc = x.to(compute_dtype)
+
+        def proj(w):                       # "bsd,dhk->bshk"
+            return (xc @ w.to(compute_dtype).reshape(d, -1)).view(
+                B, S, w.shape[1], w.shape[2])
+
+        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
+        if cfg.qkv_bias:
+            q = q + self.bq.to(compute_dtype)
+            k = k + self.bk.to(compute_dtype)
+            v = v + self.bv.to(compute_dtype)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+                compute_dtype=torch.bfloat16,
+                impl: str = "auto") -> torch.Tensor:
+        """x (B, S, d) → (B, S, d) in x's type. ``impl`` picks the fused
+        op's implementation ("auto" | "cuda" | "ref", as ``kernels.ops``)."""
+        cfg = self.cfg
+        B, S, d = x.shape
+        q, k, v = self.qkv(x, positions, compute_dtype)
+        if cfg.attn_impl == "pallas":
+            # the fused kernel reads the KV heads unrepeated: query head h
+            # reads KV head h // G, as the reference's jnp.repeat arranges
+            out = ops.flash_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=True, q_offset=0, impl=impl).transpose(1, 2)
+        else:
+            out = sdpa(q, k, v, causal=True, q_offset=0,
+                       chunk=cfg.attn_chunk if S > cfg.attn_chunk else 0)
+        proj_out = out.to(compute_dtype).reshape(B, S, -1) @ \
+            self.wo.to(compute_dtype).reshape(-1, d)
+        return proj_out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+
+class MLP(nn.Module):
+    """The reference's ``mlp``: swiglu (``wi_gate``, ``wi_up``, ``wo``), or
+    gelu (tanh approximation) / sq_relu (``wi``, ``wo``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        if cfg.mlp_act not in ("swiglu", "gelu", "sq_relu"):
+            raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
+        self.act = cfg.mlp_act
+        d, f = cfg.d_model, cfg.d_ff
+        if self.act == "swiglu":
+            self.wi_gate = new_param((d, f), dtype, device, "fanin")
+            self.wi_up = new_param((d, f), dtype, device, "fanin")
+        else:
+            self.wi = new_param((d, f), dtype, device, "fanin")
+        self.wo = new_param((f, d), dtype, device, "fanin")
+
+    def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16):
+        xc = x.to(compute_dtype)
+        if self.act == "swiglu":
+            g = xc @ self.wi_gate.to(compute_dtype)
+            u = xc @ self.wi_up.to(compute_dtype)
+            h = F.silu(g.to(torch.float32)).to(compute_dtype) * u
+        else:
+            h = xc @ self.wi.to(compute_dtype)
+            if self.act == "sq_relu":
+                h = torch.square(torch.relu(h.to(torch.float32))).to(compute_dtype)
+            else:
+                h = F.gelu(h.to(torch.float32), approximate="tanh").to(compute_dtype)
+        return (h @ self.wo.to(compute_dtype)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+
+
+class Embed(nn.Module):
+    """Token embedding ``tok`` (V, d) and, unless tied, the LM head ``head``
+    (d, V)."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+        super().__init__()
+        self.tok = new_param((cfg.vocab_size, cfg.d_model), dtype, device,
+                             "embed")
+        if not cfg.tie_embeddings:
+            self.head = new_param((cfg.d_model, cfg.vocab_size), dtype, device,
+                                  "fanin")
+
+    def embed(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
+        return self.tok[tokens].to(compute_dtype)
+
+    def lm_head(self, x: torch.Tensor, compute_dtype=torch.bfloat16):
+        w = self.head if hasattr(self, "head") else self.tok.T
+        return x.to(compute_dtype) @ w.to(compute_dtype)

@@ -8,7 +8,11 @@ Tolerances: fp32 statistics and pulls at rtol 2e-4 / atol 1e-5 (sums
 taken in another order), the fp32 transform at 1e-5, bf16 at 5e-2 (the
 transform) and 2e-2 (the pulls, as the reference's kernel sweep). Pairwise
 distances: ℓ1 at rtol 1e-4 / atol 1e-3; ℓ2 at |got − want| ≤ 1e-4·|want| +
-1e-6·(‖q‖² + ‖x‖²), because the plain version's norm expansion cancels."""
+1e-6·(‖q‖² + ‖x‖²), because the plain version's norm expansion cancels.
+Flash attention: fp32 at rtol/atol 3e-5 (the reference kernel test's
+3e-5); bf16 outputs within one bf16 ulp (rtol 8e-3, atol 1e-4), since both
+round the same fp32 values; the LM forward in fp32 at 1e-4, its bf16 loss
+at 1e-3 relative."""
 import numpy as np
 import pytest
 import torch
@@ -18,10 +22,14 @@ from repro_torch.configs.base import BMOConfig
 from repro_torch.core import bmo_nn, oracle
 from repro_torch.data.synthetic import make_knn_benchmark_data
 from repro_torch.kernels import ops
+from repro_torch.configs import get_arch
 from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+from repro_torch.models import build_model
+from repro_torch.train.loss import lm_loss
 
 pytestmark = pytest.mark.cuda
 
@@ -212,3 +220,96 @@ def test_paper_path_and_oracle_on_the_card(gen, rotate):
     assert pairwise_dist_cuda.launches > before[1]
     assert [set(r) for r in res.indices.tolist()] == truth
     assert [set(r) for r in ex.indices.tolist()] == truth
+
+
+FLASH_FP32 = dict(rtol=3e-5, atol=3e-5)
+FLASH_BF16 = dict(rtol=8e-3, atol=1e-4)
+
+
+def _qkv(gen, B, H, KV, Sq, Sk, D, dtype, scale=(1.0, 1.0)):
+    q = torch.randn((B, H, Sq, D), generator=gen, device="cuda") * scale[0]
+    k = torch.randn((B, KV, Sk, D), generator=gen, device="cuda") * scale[1]
+    v = torch.randn((B, KV, Sk, D), generator=gen, device="cuda")
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,off", [
+    (2, 4, 4, 128, 128, 32, True, 0),      # the reference kernel test's grid
+    (1, 2, 2, 64, 256, 16, True, 192),
+    (2, 4, 2, 128, 128, 32, True, 0),
+    (2, 4, 4, 128, 128, 32, False, 0),
+    (1, 1, 1, 64, 64, 128, True, 0),
+    (2, 40, 8, 512, 512, 128, True, 0),    # the LM path's heads, shorter
+    (1, 3, 1, 100, 100, 64, True, 0),      # ragged tiles
+    (1, 2, 1, 77, 200, 24, True, 123),
+    (1, 2, 1, 77, 200, 24, False, 0),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(gen, B, H, KV, Sq, Sk, D, causal,
+                                              off, dtype):
+    q, k, v = _qkv(gen, B, H, KV, Sq, Sk, D, dtype)
+    before = flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (B, H, Sq, D)
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                               impl="ref")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(FLASH_FP32 if dtype == torch.float32
+                                  else FLASH_BF16))
+
+
+def test_flash_attention_kernel_one_hot_rows(gen):
+    """The LM's init spreads: q entries near 11, k near 25, so scores spread
+    over hundreds and the online max jumps between the 8 key tiles."""
+    q, k, v = _qkv(gen, 1, 40, 8, 512, 512, 128, torch.float32,
+                   scale=(11.0, 25.0))
+    got = ops.flash_attention(q, k, v)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, ops.flash_attention(q, k, v, impl="ref"),
+                               **FLASH_FP32)
+
+
+def test_flash_attention_kernel_reads_strided_views(gen):
+    """(B, S, H, D) projections pass as (B, H, S, D) views, uncopied; the
+    result equals the contiguous call's bit for bit."""
+    q, k, v = (torch.randn((2, 256, h, 64), generator=gen, device="cuda")
+               .to(torch.bfloat16) for h in (8, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = ops.flash_attention(*views)
+    want = ops.flash_attention(*(t.contiguous() for t in views))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_flash_attention_kernel_rejects_what_it_does_not_take(gen):
+    q, k, v = _qkv(gen, 1, 2, 1, 64, 64, 32, torch.float32)
+    with pytest.raises(ValueError, match="q_offset"):
+        ops.flash_attention(q, k, v, q_offset=-1)
+    with pytest.raises(ValueError, match="one type"):
+        ops.flash_attention(q, k.to(torch.bfloat16), v)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_dense_lm_on_the_card(gen):
+    """qwen2.5-14b SMOKE (head_dim 32) with attn_impl "pallas": one kernel
+    launch per layer, and the forward and loss of the plain version."""
+    cfg = get_arch("qwen2.5-14b").smoke.scaled(attn_impl="pallas",
+                                               head_dim=32)
+    model = build_model(cfg, rng=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 128), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    with torch.inference_mode():
+        before = flash_attention_cuda.launches
+        got, _ = model(batch, compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == before + cfg.n_layers
+        want, _ = model(batch, compute_dtype=torch.float32, impl="ref")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        loss, _ = lm_loss(model, batch)
+        plain, _ = lm_loss(model, batch, impl="ref")
+    assert abs(float(loss) - float(plain)) <= 1e-3 * abs(float(plain))

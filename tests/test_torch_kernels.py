@@ -7,6 +7,8 @@ Tolerances, as the reference's own kernel sweep (sums are taken in another
 order): fp32 statistics at rtol 2e-4 / atol 1e-5; pulls at rtol 1e-5, and
 2e-2 for bf16 inputs; pairwise distances at rtol 1e-4 / atol 1e-3; the
 bf16 transform at 5e-2 (one bf16 rounding of values of order 1)."""
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,9 @@ from repro.kernels import ops as jops
 from repro_torch.core import confidence as conf
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from repro.kernels.flash_attn import flash_attention_pallas
 from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
@@ -266,6 +270,82 @@ def test_fused_epoch_pull_skips_negative_arms(rng):
 
 
 # ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+def _flash_pair(rng, B, H, KV, Sq, Sk, D, causal, off, bq=64, bk=64,
+                dtype="float32"):
+    """The Pallas kernel (interpret mode) on K/V repeated to H heads, as its
+    caller passes them, and the port's op on the same K/V repeated and, with
+    KV < H, unrepeated (query head h reads KV head h // (H / KV))."""
+    q = rng.normal(size=(B, H, Sq, D)).astype(np.float32)
+    k = rng.normal(size=(B, KV, Sk, D)).astype(np.float32)
+    v = rng.normal(size=(B, KV, Sk, D)).astype(np.float32)
+    G = H // KV
+    want = flash_attention_pallas(
+        jnp.asarray(q).astype(dtype),
+        jnp.repeat(jnp.asarray(k).astype(dtype), G, axis=1),
+        jnp.repeat(jnp.asarray(v).astype(dtype), G, axis=1),
+        causal=causal, q_offset=off, bq=bq, bk=bk, interpret=True)
+    tq, tk, tv = (torch.from_numpy(t).to(getattr(torch, dtype))
+                  for t in (q, k, v))
+    got = [ops.flash_attention(tq, tk.repeat_interleave(G, dim=1),
+                               tv.repeat_interleave(G, dim=1), causal=causal,
+                               q_offset=off)]
+    if G > 1:
+        got.append(ops.flash_attention(tq, tk, tv, causal=causal,
+                                       q_offset=off))
+    for g in got:
+        assert g.dtype == getattr(torch, dtype) and g.shape == (B, H, Sq, D)
+    return np.asarray(want.astype(jnp.float32)), [_np(g) for g in got]
+
+
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,off", [
+    (2, 4, 4, 128, 128, 32, True, 0),
+    (1, 2, 2, 64, 256, 16, True, 192),     # decode-ish: q at the cache tail
+    (2, 4, 2, 128, 128, 32, True, 0),      # GQA
+    (2, 4, 4, 128, 128, 32, False, 0),     # bidirectional
+    (1, 1, 1, 64, 64, 128, True, 0),
+])
+def test_flash_attention_matches_jax_kernel(rng, B, H, KV, Sq, Sk, D, causal,
+                                            off):
+    want, got = _flash_pair(rng, B, H, KV, Sq, Sk, D, causal, off)
+    for g in got:
+        np.testing.assert_allclose(g, want, atol=3e-5)
+
+
+@pytest.mark.parametrize("bq,bk", [(32, 64), (64, 32), (128, 128)])
+def test_flash_attention_matches_jax_kernel_block_shapes(rng, bq, bk):
+    want, got = _flash_pair(rng, 1, 2, 2, 128, 128, 32, True, 0, bq=bq, bk=bk)
+    np.testing.assert_allclose(got[0], want, atol=3e-5)
+
+
+def test_flash_attention_bf16_matches_jax_kernel(rng):
+    want, got = _flash_pair(rng, 1, 2, 2, 64, 64, 32, True, 0,
+                            dtype="bfloat16")
+    np.testing.assert_allclose(got[0], want, atol=3e-2, rtol=3e-2)
+
+
+def test_flash_attention_survives_one_hot_rows(rng):
+    """Score spreads in the hundreds, as the LM's init makes them: the
+    result is finite, and on rows whose softmax is one-hot to 1e-6 it is
+    the largest score's value row (the kernel's tiled version of this is in
+    tests/test_torch_cuda.py)."""
+    q = torch.from_numpy(rng.normal(size=(1, 2, 64, 16)).astype(np.float32)) * 40
+    k = torch.from_numpy(rng.normal(size=(1, 1, 64, 16)).astype(np.float32)) * 40
+    v = torch.from_numpy(rng.normal(size=(1, 1, 64, 16)).astype(np.float32))
+    out = ops.flash_attention(q, k, v)
+    assert bool(torch.isfinite(out).all())
+    s = torch.einsum("bhqd,bksd->bhqs", q, k) / 4.0       # 1/√D
+    s = s.masked_fill(torch.ones(64, 64, dtype=torch.bool).triu(1), -math.inf)
+    top = v[0, 0][s.argmax(-1)[0]]
+    one_hot = (s.softmax(-1).amax(-1)[0] > 1 - 1e-6)
+    assert int(one_hot.sum()) > 64
+    torch.testing.assert_close(out[0][one_hot], top[one_hot], rtol=1e-5,
+                               atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -283,13 +363,19 @@ WRAPPERS = {
                                             dict(block=64))),
     "pairwise_dist": (pairwise_dist_cuda, ops.pairwise_dist,
                       lambda X, qs, arm, blk: ((qs, X), {})),
+    "flash_attention": (flash_attention_cuda, ops.flash_attention,
+                        lambda X, qs, arm, blk: ((X.reshape(1, 4, 4, 128),
+                                                  qs.reshape(1, 1, 4, 128),
+                                                  qs.reshape(1, 1, 4, 128)),
+                                                 {})),
 }
 
 
 PLAIN = {"fwht": ref.fwht_ref, "fused_epoch_pull": ref.fused_epoch_pull_ref,
          "block_pull_multi": ref.block_pull_multi_ref,
          "block_pull": ref.block_pull_ref,
-         "pairwise_dist": ref.pairwise_dist_ref}
+         "pairwise_dist": ref.pairwise_dist_ref,
+         "flash_attention": ref.flash_attention_ref}
 
 
 def test_auto_on_cpu_uses_plain_versions(rng):
