@@ -20,9 +20,15 @@ Run from the root of a checkout. In order it:
    rtol 2e-4 / atol 1e-5; the fp32 transform at 1e-5, bf16 at 5e-2;
    pairwise ℓ1 at rtol 1e-4 / atol 1e-3, ℓ2 at |got − want| ≤
    1e-4·|want| + 1e-6·(‖q‖² + ‖x‖²) (the plain version's norm expansion
-   cancels); flash attention in bf16 within one bf16 ulp (rtol 8e-3),
-   in fp32 at 3e-5. Where the plain version cannot hold the full shape, it
-   is checked on the first queries or rows, as each row says;
+   cancels); flash attention in bf16 on the tensor cores within both
+   bounds of ``ref.flash_attention_tc_bounds`` (p rounds to bf16 for the
+   product with v: against the plain version with p in bf16 at one bf16
+   ulp plus 6·2⁻⁸ times each output's rounding spread, and against the
+   one with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|), its max and
+   RMS errors at most twice the library call's, and in fp32 at 3e-5. The
+   tensor-core kernel's SASS must hold HGMMA.
+   Where the plain version cannot hold the full shape, it is checked on
+   the first queries or rows, as each row says;
 3. checks the fused path on a small input on the card against a brute
    force;
 4. on the repo's ``bmo-nn-dense`` workload at its published size
@@ -44,10 +50,11 @@ Run from the root of a checkout. In order it:
 5. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
    qwen2.5-14b at full width and depth (bf16, random weights from
    ``--seed``) over 4 sequences of 4,096 tokens, through
-   ``flash_attention`` once per layer; then every layer's attention held
-   against the plain version on its own inputs, and the whole forward of
-   one sequence through the kernel and through the plain version (see
-   ``lm_forward_phase`` for what is held and why).
+   ``flash_attention``'s tensor-core kernel once per layer, with a traced
+   forward split by call site (attention, MLP, norms, loss); then every
+   layer's attention held against the plain version on its own inputs,
+   and the whole forward of one sequence through the kernel and through
+   the plain version (see ``lm_forward_phase`` for what is held and why).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -58,6 +65,8 @@ non-zero; so it does without a GPU or without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import math
 import os
@@ -214,16 +223,72 @@ def flash_bound(q, k, v, causal: bool, q_offset: int = 0) -> dict:
                                                    BF16_TC_FLOPS)[0]}
 
 
+def tc_check(what: str, got, bounds) -> dict:
+    """Holds a bf16 output of the tensor-core flash kernel to each bound of
+    ``ref.flash_attention_tc_bounds`` (given as ``bounds``, where each is
+    derived); raises beyond either. Returns the max errors against both
+    plain versions and the largest share of each limit taken."""
+    import torch
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    out = {}
+    for name, want, limit in bounds:
+        err = (got.float() - want.float()).abs()
+        out[f"max_abs_err_{name}"] = float(err.max())
+        out[f"share_of_limit_{name}"] = float((err / limit).max())
+        if out[f"share_of_limit_{name}"] > 1.0:
+            raise AssertionError(f"{what}: kernel beyond its bound against "
+                                 f"the plain version ({name}): {out}")
+    out["max_abs_err"] = out["max_abs_err_p_fp32"]
+    return out
+
+
+def errors_against(got, want) -> tuple:
+    """(max, RMS) of |got − want| in fp32."""
+    err = got.float() - want.float()
+    return float(err.abs().max()), float(err.pow(2).mean().sqrt())
+
+
+def sass_check(stem: str) -> dict:
+    """What the built library holds: its tensor-core instructions (HGMMA) in
+    the SASS, and what ptxas said about spills, setmaxnreg and wgmma
+    serialisation (None where the library was built by an earlier run that
+    kept no log)."""
+    from repro_torch.kernels import _build
+    log = _build.build_log.get(stem, {}).get("log")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(stem))],
+                          check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    out = {"hgmma_in_sass": sass.count("HGMMA"),
+           "local_memory_in_sass": sass.count("LDL") + sass.count("STL"),
+           "ptxas_spill_lines": None, "ptxas_setmaxnreg_ignored": None,
+           "ptxas_wgmma_serialized": None}
+    if log is not None:
+        out.update({
+            "ptxas_spill_lines": [
+                line.strip() for line in log.splitlines() if "spill" in line
+                and "0 bytes spill stores, 0 bytes spill loads" not in line],
+            "ptxas_setmaxnreg_ignored": "setmaxnreg ignored" in log,
+            "ptxas_wgmma_serialized": "serialized" in log})
+    if out["hgmma_in_sass"] == 0:
+        raise AssertionError(f"{stem}: no HGMMA in the built SASS")
+    return out
+
+
 def flash_rows(g) -> list:
     """flash_attention at one layer of the LM path (qwen2.5-14b's 40 query
-    and 8 KV heads of 128 over 4 × 4,096 tokens, bf16, causal) and at a GQA
-    case of the reference kernel test's grid in fp32. Tolerances: bf16
-    within one bf16 ulp (rtol 8e-3; both round fp32 values that agree to
-    rounding), fp32 at 3e-5 as the reference test."""
+    and 8 KV heads of 128 over 4 × 4,096 tokens, bf16, causal: the
+    tensor-core kernel) and at a GQA case of the reference kernel test's
+    grid in fp32 (the CUDA-core kernel). Tolerances: bf16 as ``tc_check``,
+    and the kernel's max and RMS errors against the plain version at most
+    twice those of the library call's on the same inputs; fp32 at 3e-5 as
+    the reference test."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.flash_attn import flash_attention_cuda, variant
 
     rows = []
     for case, (B, H, KV, S, D), dtype in (
@@ -234,31 +299,51 @@ def flash_rows(g) -> list:
         v = torch.randn((B, KV, S, D), generator=g, device="cuda").to(dtype)
         run = lambda: flash_attention_cuda(q, k, v, causal=True)
         plain = lambda: ref.flash_attention_ref(q, k, v, True, 0)
+        library = lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
         big = case == "lm_layer"
         row = {"kernel": "flash_attention", "case": case,
+               "variant": variant(dtype, D, D),
                "dtype": str(dtype).replace("torch.", ""), "causal": True,
                "shape": {"B": B, "H": H, "KV": KV, "Sq": S, "Sk": S, "D": D}}
-        row.update(compare(f"flash_attention {case}", run(), plain(),
-                           rtol=8e-3 if big else 3e-5,
-                           atol=1e-4 if big else 3e-5))
-        row["ms"] = cuda_ms(run, reps=5 if big else 50)
-        row["device_ms"] = device_ms(run, "flash_attn_kernel",
-                                     reps=3 if big else 20)
+        got = run()
+        if big:
+            bounds = ref.flash_attention_tc_bounds(q, k, v, True, 0)
+            row.update(tc_check(f"flash_attention {case}", got, bounds))
+            row["tolerance"] = "ref.flash_attention_tc_bounds"
+            want = bounds[-1][1]               # the plain version, p in fp32
+            del bounds
+            # yardstick only: the library call's own error on the same inputs
+            mine = errors_against(got, want)
+            lib = errors_against(library(), want)
+            row.update({"kernel_max_err": mine[0], "kernel_rms_err": mine[1],
+                        "library_max_err": lib[0], "library_rms_err": lib[1]})
+            if mine[0] > 2 * lib[0] or mine[1] > 2 * lib[1]:
+                raise AssertionError(f"flash_attention {case}: errors (max, "
+                                     f"RMS) {mine} beyond twice the library "
+                                     f"call's {lib}")
+        else:
+            want = plain()
+            tol = {"rtol": 3e-5, "atol": 3e-5}
+            row.update(compare(f"flash_attention {case}", got, want, **tol))
+            row["tolerance"] = tol
+        del got, want
+        row["ms"] = cuda_ms(run, reps=20 if big else 50)
+        row["device_ms"] = device_ms(run, "flash_attn", reps=5 if big else 20)
+        if big:
+            row["sass"] = sass_check("flash_attn_sm90")
         row["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
         row.update(flash_bound(q, k, v, causal=True))
         # yardstick only: the one PyTorch call computing the same function,
         # and the same call on K/V repeated to H heads (its flash backend)
-        row["library_ms"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                   enable_gqa=True),
-            reps=2 if big else 20, warmup=1)
+        row["library_ms"] = cuda_ms(library, reps=20, warmup=1)
         row["library_call"] = ("torch.nn.functional.scaled_dot_product_"
                                "attention(q, k, v, is_causal=True, "
                                "enable_gqa=True)")
         kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (k, v))
         row["library_ms_kv_repeated"] = cuda_ms(
             lambda: F.scaled_dot_product_attention(q, kr, vr, is_causal=True),
-            reps=5 if big else 20, warmup=1)
+            reps=20, warmup=1)
         rows.append(row)
         emit(row)
         del q, k, v, kr, vr
@@ -539,11 +624,13 @@ def recall_of(what: str, indices, values, truth, n: int, k: int) -> dict:
 
 
 def counted(path: str, wrappers: dict, run):
-    """Run one path with its kernels' launch counters set to 0 just before
-    and read just after; raises if a kernel of the path never launched.
+    """Run one path with its kernels' launch counters (each wrapper's total
+    and, for flash_attention, each variant's) set to 0 just before and read
+    just after; raises if a kernel of the path never launched.
     Returns (run's result, {kernel: launches})."""
     for w in wrappers.values():
-        w.launches = 0
+        for attr in [a for a in vars(w) if a.startswith("launches")]:
+            setattr(w, attr, 0)
     result = run()
     launches = {name: w.launches for name, w in wrappers.items()}
     for name, count in launches.items():
@@ -717,7 +804,8 @@ def kernel_breakdown(prof) -> list:
     rows = []
     for ev in prof.key_averages():
         # kernel rows only: an operator's row repeats its kernels' time
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
@@ -728,6 +816,95 @@ def kernel_breakdown(prof) -> list:
     return rows
 
 
+LM_SITES = ("lm.attention", "lm.mlp", "lm.norm", "lm.loss")
+
+
+@contextlib.contextmanager
+def call_site_labels(model):
+    """torch.profiler.record_function ranges named by LM_SITES around each
+    layer's attention and MLP (module hooks), every rmsnorm and the loss's
+    cross entropy (the two functions wrapped while the context lasts)."""
+    import torch
+    from repro_torch.models import common
+    from repro_torch.train import loss as loss_mod
+    open_ranges = []
+
+    def enter(name):
+        def hook(module, args):
+            rf = torch.profiler.record_function(name)
+            rf.__enter__()
+            open_ranges.append(rf)
+        return hook
+
+    def leave(module, args, result):
+        open_ranges.pop().__exit__(None, None, None)
+
+    def wrap(fn, name):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return inner
+
+    hooks = []
+    for layer in model.layers:
+        for module, name in ((layer.attn, "lm.attention"),
+                             (layer.mlp, "lm.mlp")):
+            hooks += [module.register_forward_pre_hook(enter(name)),
+                      module.register_forward_hook(leave)]
+    saved = common.rmsnorm, loss_mod.cross_entropy
+    common.rmsnorm = wrap(saved[0], "lm.norm")
+    loss_mod.cross_entropy = wrap(saved[1], "lm.loss")
+    try:
+        yield
+    finally:
+        common.rmsnorm, loss_mod.cross_entropy = saved
+        for h in hooks:
+            h.remove()
+
+
+def is_copy(kernel_name: str) -> bool:
+    return "copy" in kernel_name.lower() or kernel_name.startswith("Memcpy")
+
+
+def call_site_breakdown(events):
+    """Device time of each LM_SITES call site on the device's own clock:
+    the profiler lays each record_function range on the device timeline
+    too, from its first kernel to its last (``device_ms``, summed over the
+    site's ranges), and a kernel belongs to the range its start falls in
+    (``kernel_ms``, and ``copy_ms`` of the copy kernels among them).
+    "other" is the kernels outside every range: the embedding, the
+    residual adds, the logits' matmul. None (not measured) when the trace
+    holds no device ranges."""
+    import bisect
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    on_device = [ev for ev in events if ev.device_type == cuda]
+    ranges = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                    for ev in on_device if ev.name in LM_SITES)
+    if not ranges:
+        return None
+    sites = {name: {"device_ms": 0.0, "kernel_ms": 0.0, "copy_ms": 0.0,
+                    "ranges": 0} for name in LM_SITES}
+    for t0, t1, name in ranges:
+        sites[name]["device_ms"] += (t1 - t0) / 1e3
+        sites[name]["ranges"] += 1
+    starts = [r[0] for r in ranges]
+    other = {"kernel_ms": 0.0, "copy_ms": 0.0}
+    for ev in on_device:
+        if ev.name in LM_SITES:
+            continue
+        t0, t1 = ev.time_range.start, ev.time_range.end
+        i = bisect.bisect_right(starts, t0) - 1
+        site = sites[ranges[i][2]] if i >= 0 and t0 < ranges[i][1] else other
+        site["kernel_ms"] += (t1 - t0) / 1e3
+        if is_copy(ev.name):
+            site["copy_ms"] += (t1 - t0) / 1e3
+    sites["other"] = other
+    sites["copies_ms"] = sum(v["copy_ms"] for v in sites.values())
+    return sites
+
+
 def lm_forward_phase(seed: int) -> dict:
     """qwen2.5-14b's ``CONFIG`` at full width and depth with attn_impl
     "pallas", its parameters drawn on the card from ``seed`` (bf16, norms
@@ -735,11 +912,13 @@ def lm_forward_phase(seed: int) -> dict:
     of LM_SEQ tokens drawn from ``seed`` over the whole vocabulary (labels:
     the tokens shifted by one). Nothing is cut: the peak stays near 37 GB.
 
+    All 48 launches must take the tensor-core kernel. One traced forward
+    carries record_function labels by call site (``call_site_labels``).
+
     Then, on the first sequence, the whole forward twice, through the
     kernel and through the plain version. In the kernel's run every layer's
     attention is also held against the plain version on that layer's own
-    q, k and v (layer 0 included): within one bf16 ulp (rtol 8e-3) plus
-    1e-4·max|v| for the fp32 rounding of scores that spread over hundreds.
+    q, k and v (layer 0 included), as ``tc_check``.
     The two whole forwards are compared layer by layer and at the loss.
     Their residual streams after layer 0 must agree to 1e-2 relative (L2).
     From there the gap grows: at this init each attention row is nearly
@@ -750,7 +929,6 @@ def lm_forward_phase(seed: int) -> dict:
     tokens). The loss of a random-init model is also checked to be finite
     and within 1 of ln(V) + 1/2."""
     import dataclasses
-    import functools
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_arch
@@ -789,10 +967,13 @@ def lm_forward_phase(seed: int) -> dict:
         "lm_forward", {"flash_attention": flash_attention_cuda},
         lambda: loss_of(batch))
     cold_s = time.perf_counter() - t
-    if launches["flash_attention"] != cfg.n_layers:
+    launches_tc = flash_attention_cuda.launches_tc
+    if launches["flash_attention"] != cfg.n_layers or \
+            launches_tc != cfg.n_layers:
         raise AssertionError(f"lm_forward launched flash_attention "
-                             f"{launches['flash_attention']} times, not once "
-                             f"per layer ({cfg.n_layers})")
+                             f"{launches['flash_attention']} times, "
+                             f"{launches_tc} of them on the tensor cores, not "
+                             f"once per layer ({cfg.n_layers}) there")
     if n_tok != LM_BATCH * LM_SEQ:
         raise AssertionError(f"lm_forward scored {n_tok} tokens")
     expect = math.log(cfg.vocab_size) + 0.5
@@ -800,6 +981,7 @@ def lm_forward_phase(seed: int) -> dict:
         raise AssertionError(f"lm_forward loss {loss}, expected near {expect}")
     out.update({"batch": LM_BATCH, "tokens": n_tok, "loss": loss,
                 "ln_vocab": math.log(cfg.vocab_size), "launches": launches,
+                "launches_tensor_cores": launches_tc,
                 "cold_s": cold_s,
                 "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
 
@@ -809,14 +991,14 @@ def lm_forward_phase(seed: int) -> dict:
     loss_of(batch)
     out["forward_s"] = time.perf_counter() - t
     out["tokens_per_s"] = n_tok / out["forward_s"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with call_site_labels(model), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         loss_of(batch)
         traced_ms = (time.perf_counter() - t) * 1e3
     rows = kernel_breakdown(prof)
     busy = sum(r["device_ms"] for r in rows)
-    attn = sum(r["device_ms"] for r in rows if "flash_attn_kernel" in r["name"])
+    attn = sum(r["device_ms"] for r in rows if "flash_attn" in r["name"])
     gemm = sum(r["device_ms"] for r in rows
                if any(w in r["name"].lower()
                       for w in ("gemm", "xmma", "cutlass", "nvjet")))
@@ -825,6 +1007,7 @@ def lm_forward_phase(seed: int) -> dict:
                      "attention_ms": attn, "matmul_ms": gemm,
                      "other_ms": busy - attn - gemm,
                      "attention_share_of_forward": attn / (out["forward_s"] * 1e3),
+                     "by_call_site": call_site_breakdown(prof.events()),
                      "top": rows[:12]}
     del batch
     torch.cuda.empty_cache()
@@ -842,12 +1025,10 @@ def lm_forward_phase(seed: int) -> dict:
         q, k, v = (t.transpose(1, 2)
                    for t in module.qkv(x, positions, torch.bfloat16))
         got = flash_attention_cuda(q, k, v)
-        want = ref.flash_attention_ref(q, k, v, True, 0)
-        vmax = float(v.abs().max())
-        layer_checks.append({"layer": i, "max_abs_v": vmax,
-                             **compare(f"lm_forward layer {i} attention",
-                                       got, want, rtol=8e-3,
-                                       atol=1e-4 * vmax)})
+        layer_checks.append({"layer": i, "max_abs_v": float(v.abs().max()),
+                             **tc_check(f"lm_forward layer {i} attention",
+                                        got, ref.flash_attention_tc_bounds(
+                                            q, k, v, True, 0))})
 
     losses = {}
     for impl in ("cuda", "ref"):
@@ -873,6 +1054,9 @@ def lm_forward_phase(seed: int) -> dict:
     diff = (ga - gb).abs()
     out["first_sequence"] = {
         "layer_checks_max_abs_err": max(c["max_abs_err"] for c in layer_checks),
+        "layer_checks_max_share_of_limit": {
+            name: max(c[f"share_of_limit_{name}"] for c in layer_checks)
+            for name in ("p_bf16", "p_fp32")},
         "layer_checks": len(layer_checks),
         "stream_rel_l2_by_layer": gaps,
         "loss_cuda": la, "loss_plain": lb,
@@ -931,9 +1115,12 @@ KERNELS = (
      "src/repro/kernels/block_pull.py:41", ("paper",)),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist.cu",
      "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper")),
-    ("flash_attention", "src/repro_torch/csrc/flash_attn.cu",
+    ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
 )
+# flash_attention's other variant (fp32, and bf16 at other head widths),
+# which the LM path does not take
+FLASH_CUDA_CORES_SOURCE = "src/repro_torch/csrc/flash_attn.cu"
 
 
 def main() -> int:
@@ -1028,6 +1215,10 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        if "variant" in row:
+            summary[-1].update({"variant": row["variant"],
+                                "other_variant_source":
+                                    FLASH_CUDA_CORES_SOURCE})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

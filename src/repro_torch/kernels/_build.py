@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-#: per source: seconds spent in nvcc (0.0 when reused) and its output
+#: per source: seconds spent in nvcc (0.0 when reused) and its output (None
+#: when a reused library has none kept beside it)
 build_log: Dict[str, dict] = {}
 
 
@@ -59,7 +60,11 @@ def build_all() -> Dict[str, ctypes.CDLL]:
                 continue
             out = _target(src)
             if out.exists():
-                build_log[src.stem] = {"seconds": 0.0, "log": "reused"}
+                # nvcc's output, kept beside the library when it was built
+                log = out.with_suffix(".log")
+                build_log[src.stem] = {
+                    "seconds": 0.0,
+                    "log": log.read_text() if log.exists() else None}
                 _libs[src.stem] = ctypes.CDLL(str(out))
                 continue
             BUILD.mkdir(parents=True, exist_ok=True)
@@ -75,11 +80,17 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             if proc.returncode != 0:
                 failed.append(f"{stem}.cu (nvcc exit {proc.returncode}):\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
             _libs[stem] = ctypes.CDLL(str(out))
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
         return dict(_libs)
+
+
+def library_path(stem: str) -> Path:
+    """Where ``csrc/<stem>.cu`` is (or will be) built."""
+    return _target(CSRC / f"{stem}.cu")
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -1,12 +1,23 @@
-"""Fused flash attention on the card: wrapper around the CUDA kernel in
-``csrc/flash_attn.cu`` (the port of the TPU kernel
-``repro/kernels/flash_attn.py``; see the source for its design). The plain
-version is ``ref.flash_attention_ref``.
+"""Fused flash attention on the card: the port of the TPU kernel
+``repro/kernels/flash_attn.py`` as two CUDA kernels, picked by a fixed rule
+(``variant``; see each source for its design):
 
-The kernel reads grouped KV heads directly (query head h reads KV head
-h // (H / KV)), so the model passes its KV heads unrepeated, and it takes
+* "tensor_cores" — ``csrc/flash_attn_sm90.cu``, bf16 at D = Dv = 128 (the
+  LM path's heads): wgmma, TMA and warp specialisation. It rounds the
+  probabilities to bf16 for the product with v, which adds at most
+  2⁻⁸·max|v| to an output (the plain version with ``p_dtype=bf16`` is that
+  contract exactly). Its output lives in (B, Sq, H, Dv) storage and is
+  returned as the (B, H, Sq, Dv) view, so the model's transpose back and
+  reshape are free.
+* "cuda_cores" — ``csrc/flash_attn.cu``, every other case (fp32, and bf16
+  at other widths): fp32 FMA, p kept in fp32 as the TPU kernel keeps it.
+
+There is no fallback between them: a kernel that fails to build or launch
+raises. Both read grouped KV heads directly (query head h reads KV head
+h // (H / KV)), so the model passes its KV heads unrepeated, and both take
 q, k and v through their strides, so the (B, S, H, D) projections pass as
-(B, H, S, D) views without a copy. It has no backward: the port runs the
+(B, H, S, D) views without a copy. The plain version is
+``ref.flash_attention_ref``. There is no backward: the port runs the
 forward only.
 """
 from __future__ import annotations
@@ -20,6 +31,10 @@ from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+#: the tensor-core kernel's head width, and the bound on Sq and Sk that keeps
+#: its TMA coordinates in 32 bits
+TC_HEAD_DIM = 128
+TC_MAX_SEQ = 1 << 30
 
 
 def _entry():
@@ -32,20 +47,44 @@ def _entry():
     return fn
 
 
+def _entry_tc():
+    fn = _build.library("flash_attn_sm90").flash_attention_sm90
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
+    """Which kernel takes a call: "tensor_cores" for bf16 at D = Dv = 128,
+    "cuda_cores" for everything else."""
+    if dtype == torch.bfloat16 and D == Dv == TC_HEAD_DIM:
+        return "tensor_cores"
+    return "cuda_cores"
+
+
 def _aligned(t: torch.Tensor) -> bool:
-    """Rows the kernel can read with 16-byte vector loads."""
+    """Rows both kernels can read: 16-byte vector loads, and tensor maps,
+    which take positive strides that are multiples of 16 bytes."""
     step = 16 // t.element_size()
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s % step == 0 for s, n in zip(t.stride()[:-1], t.shape)
-                    if n > 1))
+            and all(s > 0 and s % step == 0
+                    for s, n in zip(t.stride()[:-1], t.shape) if n > 1))
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         q_offset: int = 0) -> torch.Tensor:
-    """q (B, H, Sq, D), k (B, KV, Sk, D), v (B, KV, Sk, Dv), one type (fp32
-    or bf16) on one CUDA device, H % KV == 0, D and Dv multiples of 8 up to
-    128, q_offset ≥ 0. Returns (B, H, Sq, Dv) in q's type."""
+def tc_output(B: int, H: int, Sq: int, Dv: int, dtype=torch.bfloat16,
+              device=None) -> torch.Tensor:
+    """The tensor-core kernel's output: (B, Sq, H, Dv) storage, returned as
+    its (B, H, Sq, Dv) view."""
+    return torch.empty((B, Sq, H, Dv), dtype=dtype,
+                       device=device).transpose(1, 2)
+
+
+def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             q_offset: int) -> tuple:
+    """Raises on what neither kernel takes; returns q, k and v with rows
+    both can read (copied only where they cannot)."""
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k and v on one CUDA "
                          "device")
@@ -77,6 +116,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = (t if _aligned(t) else t.contiguous() for t in (q, k, v))
     if not all(map(_aligned, (q, k, v))):
         raise ValueError("flash_attention_cuda needs 16-byte aligned rows")
+    return q, k, v
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         q_offset: int = 0) -> torch.Tensor:
+    """q (B, H, Sq, D), k (B, KV, Sk, D), v (B, KV, Sk, Dv), one type (fp32
+    or bf16) on one CUDA device, H % KV == 0, D and Dv multiples of 8 up to
+    128, q_offset ≥ 0. Returns (B, H, Sq, Dv) in q's type; from the
+    tensor-core kernel (``variant``), a view of (B, Sq, H, Dv) storage."""
+    q, k, v = _checked(q, k, v, q_offset)
+    B, H, Sq, D = q.shape
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if variant(q.dtype, D, Dv) == "tensor_cores":
+        return _tensor_cores(q, k, v, causal, q_offset)
     out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -90,7 +144,36 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
     _build.check(rc, "flash_attention launch")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_cc += 1
     return out
 
 
+def _tensor_cores(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
+    B, H, Sq, _ = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    if Sq >= TC_MAX_SEQ or Sk >= TC_MAX_SEQ:
+        raise ValueError(f"Sq={Sq}, Sk={Sk}: the tensor-core kernel takes "
+                         f"sequences below {TC_MAX_SEQ}")
+    out = tc_output(B, H, Sq, TC_HEAD_DIM, device=q.device)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = _entry_tc()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         out.data_ptr(),
+                         q.stride(0), q.stride(1), q.stride(2),
+                         k.stride(0), k.stride(1), k.stride(2),
+                         v.stride(0), v.stride(1), v.stride(2),
+                         out.stride(0), out.stride(1), out.stride(2),
+                         B, H, KV, Sq, Sk, q_offset, int(causal),
+                         1.0 / math.sqrt(TC_HEAD_DIM), stream)
+    _build.check(rc, "flash_attention (tensor cores) launch")
+    flash_attention_cuda.launches += 1
+    flash_attention_cuda.launches_tc += 1
+    return out
+
+
+# launches in all, and of each variant
 flash_attention_cuda.launches = 0
+flash_attention_cuda.launches_tc = 0
+flash_attention_cuda.launches_cc = 0

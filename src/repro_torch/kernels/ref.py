@@ -96,23 +96,15 @@ def pairwise_dist_ref(qs: torch.Tensor, x: torch.Tensor, metric: str = "l2",
     return out
 
 
-def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, q_offset: int = 0
-                        ) -> torch.Tensor:
-    """Attention as the fused flash-attention kernel computes it, in one
-    pass. q (B, H, Sq, D); k (B, KV, Sk, D) and v (B, KV, Sk, Dv) with
-    H % KV == 0, query head h reading KV head h // (H / KV) (KV = H is the
-    reference's wrapper, which repeats the KV heads). Scores in fp32 times
-    1/√D; the causal mask keeps keys at ``k_pos ≤ q_pos + q_offset`` and
-    gives the rest −1e30 (not −inf); fp32 softmax with the probabilities
-    kept in fp32 for the product with v; the normaliser floored at 1e-30.
-    Returns (B, H, Sq, Dv) in q's type."""
+def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                 q_offset: int) -> tuple:
+    """The fp32 probabilities p = exp(s − max s), (B, KV, G, Sq, Sk), and
+    their row sums l, (B, KV, G, Sq, 1), of ``flash_attention_ref``."""
     B, H, Sq, D = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     if H % KV:
         raise ValueError(f"{H} query heads over {KV} KV heads")
-    G = H // KV
-    qg = q.to(torch.float32).reshape(B, KV, G, Sq, D)
+    qg = q.to(torch.float32).reshape(B, KV, H // KV, Sq, D)
     kf = k.to(torch.float32)
     # in place from here on: at (1, 40, 4096, 4096) the scores take 2.7 GB
     s = torch.einsum("bkgqd,bksd->bkgqs", qg, kf).mul_(1.0 / math.sqrt(D))
@@ -120,9 +112,70 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_pos = torch.arange(Sq, device=q.device) + q_offset
         k_pos = torch.arange(Sk, device=q.device)
         s.masked_fill_(k_pos[None, :] > q_pos[:, None], -1e30)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = s.sub_(m).exp_()
-    l = torch.sum(p, dim=-1, keepdim=True)
+    p = s.sub_(torch.amax(s, dim=-1, keepdim=True)).exp_()
+    return p, torch.sum(p, dim=-1, keepdim=True)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, q_offset: int = 0,
+                        p_dtype: torch.dtype = torch.float32
+                        ) -> torch.Tensor:
+    """Attention as the fused flash-attention kernel computes it, in one
+    pass. q (B, H, Sq, D); k (B, KV, Sk, D) and v (B, KV, Sk, Dv) with
+    H % KV == 0, query head h reading KV head h // (H / KV) (KV = H is the
+    reference's wrapper, which repeats the KV heads). Scores in fp32 times
+    1/√D; the causal mask keeps keys at ``k_pos ≤ q_pos + q_offset`` and
+    gives the rest −1e30 (not −inf); fp32 softmax with the probabilities
+    kept in fp32 for the product with v (``p_dtype=torch.bfloat16`` rounds
+    them to bf16 there, as the tensor-core kernel does; the normaliser
+    always sums the fp32 values); the normaliser floored at 1e-30.
+    Returns (B, H, Sq, Dv) in q's type."""
+    B, H, Sq, _ = q.shape
+    p, l = _flash_probs(q, k, causal, q_offset)
+    if p_dtype != torch.float32:
+        p.copy_(p.to(p_dtype))
     acc = torch.einsum("bkgqs,bksd->bkgqd", p, v.to(torch.float32))
     out = acc / torch.clamp(l, min=1e-30)
     return out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
+
+
+def flash_attention_tc_bounds(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, causal: bool = True,
+                              q_offset: int = 0) -> list:
+    """What a bf16 output of the tensor-core flash kernel is held to, as
+    [(name, want, limit)]: |got − want| ≤ limit elementwise for each.
+
+    * "p_bf16": the plain version with p rounded to bf16, the kernel's
+      contract. The two round the same p, but the kernel rounds it relative
+      to the running max and rescales by exp(m_t − m) afterwards, so where
+      a key tile came before the row's max the two roundings differ:
+      got − want = Σⱼ δⱼpⱼvⱼ / l with |δⱼ| ≤ 2·2⁻⁸ and δⱼ independent, of
+      mean 0. With R = √(Σⱼ pⱼ²vⱼ²) / l (per output), Cauchy–Schwarz bounds
+      it by 2·2⁻⁸·√n·R over n keys: by 6·2⁻⁸·R outright for rows of up to
+      9 keys. Over more keys its standard deviation is at most
+      2⁻⁸·√(2/3)·R, so 6·2⁻⁸·R is over 7 deviations. Limit: 6·2⁻⁸·R +
+      8e-3·|want| (one bf16 ulp of the output, which both round) +
+      1e-4·max|v| (fp32 rounding of scores that spread over hundreds).
+    * "p_fp32": the plain version itself. Rounding p to bf16 moves an output
+      by at most 2⁻⁸·max|v| (|Σⱼ(p̂ⱼ − pⱼ)vⱼ| / l ≤ 2⁻⁸·Σⱼ pⱼ|vⱼ| / l).
+      Limit: (2⁻⁸ + 1e-4)·max|v| + 8e-3·|want|.
+
+    The rounding spread R is taken one batch element at a time (the
+    scores of (1, 40, 4096, 4096) take 2.7 GB)."""
+    B, H, Sq, _ = q.shape
+    vmax = float(v.abs().max())
+    spread = []
+    for b in range(B):
+        p, l = _flash_probs(q[b:b + 1], k[b:b + 1], causal, q_offset)
+        spread.append(torch.einsum("bkgqs,bksd->bkgqd", p.square_(),
+                                   v[b:b + 1].to(torch.float32).square())
+                      .sqrt_() / torch.clamp(l, min=1e-30))
+        del p
+    spread = torch.cat(spread).reshape(B, H, Sq, v.shape[-1])
+    out = []
+    for name, p_dtype, atol in (
+            ("p_bf16", torch.bfloat16, 1e-4 * vmax + 6 * 2.0 ** -8 * spread),
+            ("p_fp32", torch.float32, (2.0 ** -8 + 1e-4) * vmax)):
+        want = flash_attention_ref(q, k, v, causal, q_offset, p_dtype)
+        out.append((name, want, 8e-3 * want.to(torch.float32).abs() + atol))
+    return out

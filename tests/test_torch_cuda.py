@@ -10,9 +10,14 @@ transform) and 2e-2 (the pulls, as the reference's kernel sweep). Pairwise
 distances: ℓ1 at rtol 1e-4 / atol 1e-3; ℓ2 at |got − want| ≤ 1e-4·|want| +
 1e-6·(‖q‖² + ‖x‖²), because the plain version's norm expansion cancels.
 Flash attention: fp32 at rtol/atol 3e-5 (the reference kernel test's
-3e-5); bf16 outputs within one bf16 ulp (rtol 8e-3, atol 1e-4), since both
-round the same fp32 values; the LM forward in fp32 at 1e-4, its bf16 loss
-at 1e-3 relative."""
+3e-5). The CUDA-core kernel's bf16 outputs within one bf16 ulp (rtol 8e-3,
+atol 1e-4), since both round the same fp32 values. The tensor-core kernel
+(bf16 at head width 128) rounds p to bf16 for the product with v; it is
+held to both bounds of ``ref.flash_attention_tc_bounds``, where each is
+derived: against the plain version with p in bf16 (its contract) at one
+bf16 ulp plus 6·2⁻⁸ times each output's own rounding spread, and against
+the plain version with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|. The
+LM forward in fp32 at 1e-4, its bf16 loss at 1e-3 relative."""
 import numpy as np
 import pytest
 import torch
@@ -21,10 +26,10 @@ from repro_torch.api import Index
 from repro_torch.configs.base import BMOConfig
 from repro_torch.core import bmo_nn, oracle
 from repro_torch.data.synthetic import make_knn_benchmark_data
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.configs import get_arch
 from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.flash_attn import flash_attention_cuda, variant
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
@@ -223,7 +228,17 @@ def test_paper_path_and_oracle_on_the_card(gen, rotate):
 
 
 FLASH_FP32 = dict(rtol=3e-5, atol=3e-5)
-FLASH_BF16 = dict(rtol=8e-3, atol=1e-4)
+FLASH_BF16_CUDA_CORES = dict(rtol=8e-3, atol=1e-4)
+
+
+def _tc_close(got, q, k, v, causal=True, off=0):
+    """The tensor-core kernel's output within both of its bounds (module
+    docstring)."""
+    assert bool(torch.isfinite(got).all())
+    for name, want, limit in ref.flash_attention_tc_bounds(q, k, v, causal,
+                                                           off):
+        err = (got.float() - want.float()).abs()
+        assert bool((err <= limit).all()), (name, float((err - limit).max()))
 
 
 def _qkv(gen, B, H, KV, Sq, Sk, D, dtype, scale=(1.0, 1.0)):
@@ -248,33 +263,101 @@ def _qkv(gen, B, H, KV, Sq, Sk, D, dtype, scale=(1.0, 1.0)):
 def test_flash_attention_kernel_matches_plain(gen, B, H, KV, Sq, Sk, D, causal,
                                               off, dtype):
     q, k, v = _qkv(gen, B, H, KV, Sq, Sk, D, dtype)
-    before = flash_attention_cuda.launches
+    tc = variant(dtype, D, D) == "tensor_cores"
+    before = (flash_attention_cuda.launches, flash_attention_cuda.launches_tc)
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
     torch.cuda.synchronize()
-    assert flash_attention_cuda.launches == before + 1
+    assert (flash_attention_cuda.launches, flash_attention_cuda.launches_tc) \
+        == (before[0] + 1, before[1] + tc)
     assert got.dtype == dtype and got.shape == (B, H, Sq, D)
     want = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
                                impl="ref")
-    torch.testing.assert_close(got.float(), want.float(),
-                               **(FLASH_FP32 if dtype == torch.float32
-                                  else FLASH_BF16))
+    if tc:
+        _tc_close(got, q, k, v, causal, off)
+    else:
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(FLASH_FP32 if dtype == torch.float32
+                                      else FLASH_BF16_CUDA_CORES))
 
 
-def test_flash_attention_kernel_one_hot_rows(gen):
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,causal,off", [
+    (1, 40, 8, 512, 512, True, 0),         # the LM path's heads, G = 5
+    (1, 40, 8, 512, 512, False, 0),
+    (1, 2, 1, 77, 200, True, 123),         # ragged tiles, q at the tail
+    (1, 2, 1, 77, 200, False, 0),
+    (1, 2, 2, 300, 300, True, 0),          # G = 1, ragged
+    (1, 5, 1, 100, 700, True, 600),        # q_offset > 0, Sk > Sq, G = 5
+    (1, 5, 1, 100, 700, False, 0),
+    (2, 10, 2, 256, 384, True, 128),       # offset on a tile edge
+    (1, 5, 5, 129, 129, True, 0),          # one row past a tile
+    (1, 1, 1, 1, 1, True, 0),              # one query, one key
+])
+def test_flash_attention_tensor_core_kernel_matches_plain(
+        gen, B, H, KV, Sq, Sk, causal, off):
+    """bf16 at head width 128 takes the tensor-core kernel, within both of
+    its bounds."""
+    q, k, v = _qkv(gen, B, H, KV, Sq, Sk, 128, torch.bfloat16)
+    before = (flash_attention_cuda.launches_tc,
+              flash_attention_cuda.launches_cc)
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches_tc,
+            flash_attention_cuda.launches_cc) == (before[0] + 1, before[1])
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, Sq, 128)
+    _tc_close(got, q, k, v, causal, off)
+
+
+def test_flash_attention_tensor_core_error_against_sdpa(gen):
+    """At the LM's heads the kernel's max and RMS errors against the plain
+    version are at most twice those of scaled_dot_product_attention on the
+    same inputs (the yardstick only: the port never calls it)."""
+    q, k, v = _qkv(gen, 2, 40, 8, 512, 512, 128, torch.bfloat16)
+    want = ops.flash_attention(q, k, v, impl="ref").float()
+
+    def errors(got):
+        err = got.float() - want
+        return float(err.abs().max()), float(err.pow(2).mean().sqrt())
+
+    mine = errors(ops.flash_attention(q, k, v))
+    lib = errors(torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    assert mine[0] <= 2 * lib[0] and mine[1] <= 2 * lib[1], (mine, lib)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_one_hot_rows(gen, dtype):
     """The LM's init spreads: q entries near 11, k near 25, so scores spread
-    over hundreds and the online max jumps between the 8 key tiles."""
-    q, k, v = _qkv(gen, 1, 40, 8, 512, 512, 128, torch.float32,
-                   scale=(11.0, 25.0))
+    over hundreds and the online max jumps between the key tiles; rescale
+    factors underflow to 0 and every output stays finite (bf16 takes the
+    tensor-core kernel)."""
+    q, k, v = _qkv(gen, 1, 40, 8, 512, 512, 128, dtype, scale=(11.0, 25.0))
     got = ops.flash_attention(q, k, v)
     assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got, ops.flash_attention(q, k, v, impl="ref"),
-                               **FLASH_FP32)
+    want = ops.flash_attention(q, k, v, impl="ref")
+    if dtype == torch.bfloat16:
+        _tc_close(got, q, k, v)
+    else:
+        torch.testing.assert_close(got, want, **FLASH_FP32)
 
 
-def test_flash_attention_kernel_reads_strided_views(gen):
+def test_flash_attention_tensor_core_output_lives_in_bshd_storage(gen):
+    """The tensor-core kernel returns the (B, H, Sq, Dv) view of (B, Sq, H,
+    Dv) storage, so the model's transpose back and reshape copy nothing."""
+    q, k, v = _qkv(gen, 2, 10, 2, 200, 200, 128, torch.bfloat16)
+    got = ops.flash_attention(q, k, v)
+    assert got.shape == (2, 10, 200, 128)
+    assert got.transpose(1, 2).is_contiguous()
+    flat = got.transpose(1, 2).reshape(2, 200, -1)
+    assert flat.data_ptr() == got.data_ptr()
+    _tc_close(got, q, k, v)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_kernel_reads_strided_views(gen, D):
     """(B, S, H, D) projections pass as (B, H, S, D) views, uncopied; the
-    result equals the contiguous call's bit for bit."""
-    q, k, v = (torch.randn((2, 256, h, 64), generator=gen, device="cuda")
+    result equals the contiguous call's bit for bit (D 128 takes the
+    tensor-core kernel)."""
+    q, k, v = (torch.randn((2, 256, h, D), generator=gen, device="cuda")
                .to(torch.bfloat16) for h in (8, 2, 2))
     views = [t.transpose(1, 2) for t in (q, k, v)]
     got = ops.flash_attention(*views)
@@ -292,6 +375,41 @@ def test_flash_attention_kernel_rejects_what_it_does_not_take(gen):
         ops.flash_attention(q[..., :12], k[..., :12], v[..., :12])
     with pytest.raises(ValueError, match="no backward"):
         ops.flash_attention(q.requires_grad_(), k, v)
+
+
+def test_flash_attention_tc_takes_only_bf16_at_width_128(gen):
+    """fp32 at head width 128 and bf16 at 64 take the CUDA-core kernel."""
+    for dtype, D in ((torch.float32, 128), (torch.bfloat16, 64)):
+        q, k, v = _qkv(gen, 1, 2, 1, 64, 64, D, dtype)
+        before = (flash_attention_cuda.launches_tc,
+                  flash_attention_cuda.launches_cc)
+        got = ops.flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        assert (flash_attention_cuda.launches_tc,
+                flash_attention_cuda.launches_cc) == (before[0], before[1] + 1)
+        torch.testing.assert_close(
+            got.float(), ops.flash_attention(q, k, v, impl="ref").float(),
+            **(FLASH_FP32 if dtype == torch.float32
+               else FLASH_BF16_CUDA_CORES))
+
+
+def test_dense_lm_bf16_takes_the_tensor_core_kernel(gen):
+    """qwen2.5-14b SMOKE at its own head width of 128 in bf16: every layer's
+    attention goes through the tensor-core kernel, and the loss stays near
+    the plain version's (the per-layer bound is held above)."""
+    cfg = get_arch("qwen2.5-14b").smoke.scaled(attn_impl="pallas",
+                                               head_dim=128)
+    model = build_model(cfg, param_dtype=torch.bfloat16, rng=0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, dims=1)}
+    with torch.inference_mode():
+        before = flash_attention_cuda.launches_tc
+        loss, _ = lm_loss(model, batch)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches_tc == before + cfg.n_layers
+        plain, _ = lm_loss(model, batch, impl="ref")
+    assert abs(float(loss) - float(plain)) <= 1e-2 * abs(float(plain))
 
 
 def test_dense_lm_on_the_card(gen):

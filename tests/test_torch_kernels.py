@@ -21,7 +21,8 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 from repro.kernels.flash_attn import flash_attention_pallas
 from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cuda
-from repro_torch.kernels.flash_attn import flash_attention_cuda
+from repro_torch.kernels.flash_attn import (flash_attention_cuda, tc_output,
+                                            variant)
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
 from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
@@ -343,6 +344,127 @@ def test_flash_attention_survives_one_hot_rows(rng):
     assert int(one_hot.sum()) > 64
     torch.testing.assert_close(out[0][one_hot], top[one_hot], rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("scale,causal,off", [
+    ((1.0, 1.0), True, 0), ((1.0, 1.0), False, 0), ((1.0, 1.0), True, 37),
+    ((11.0, 25.0), True, 0),               # the LM's init spreads: one-hot
+    ((40.0, 40.0), False, 0)])
+def test_flash_attention_bf16_p_stays_within_its_bound(rng, scale, causal,
+                                                       off):
+    """The bound the tensor-core kernel is held to on the card: rounding p
+    to bf16 for the product with v (the normaliser summing the fp32 p)
+    moves an output by at most 2⁻⁸·max|v|, since |Σⱼ(p̂ⱼ − pⱼ)vⱼ| / l ≤
+    2⁻⁸·Σⱼ pⱼ|vⱼ| / l. fp32 inputs, so no other rounding enters."""
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               * c for shape, c in (((2, 10, 96, 128), scale[0]),
+                                    ((2, 2, 160, 128), scale[1]),
+                                    ((2, 2, 160, 128), 1.0)))
+    exact = ref.flash_attention_ref(q, k, v, causal, off)
+    rounded = ref.flash_attention_ref(q, k, v, causal, off,
+                                      p_dtype=torch.bfloat16)
+    gap = float((rounded - exact).abs().max())
+    assert 0 < gap <= 2.0 ** -8 * float(v.abs().max())
+
+
+def test_flash_attention_ref_keeps_p_in_fp32_by_default(rng):
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 64, 32))
+                                .astype(np.float32)) for _ in range(3))
+    torch.testing.assert_close(
+        ref.flash_attention_ref(q, k, v),
+        ref.flash_attention_ref(q, k, v, p_dtype=torch.float32),
+        rtol=0, atol=0)
+
+
+def _online_bf16_p(q, k, v, causal, off, tile=128):
+    """The tensor-core kernel's arithmetic in plain PyTorch: key tiles of
+    128, p rounded to bf16 relative to the running max, the accumulator
+    rescaled by exp(m_old − m_new), the normaliser summing the fp32 p."""
+    B, H, Sq, D = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, Sq, D)
+    m = torch.full((B, KV, H // KV, Sq, 1), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, KV, H // KV, Sq, v.shape[-1]))
+    for k0 in range(0, Sk, tile):
+        s = torch.einsum("bkgqd,bksd->bkgqs", qf,
+                         k[:, :, k0:k0 + tile].float()) / math.sqrt(D)
+        if causal:
+            kpos = torch.arange(k0, min(k0 + tile, Sk))
+            s = s.masked_fill(kpos[None] > torch.arange(Sq)[:, None] + off,
+                              -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.to(torch.bfloat16).float(),
+            v[:, :, k0:k0 + tile].float())
+        m = m_new
+    return (acc / l.clamp(min=1e-30)).reshape(B, H, Sq, -1).to(q.dtype)
+
+
+@pytest.mark.parametrize("scale,causal,off", [
+    ((1.0, 1.0), True, 0), ((1.0, 1.0), False, 0), ((1.0, 1.0), True, 300),
+    ((11.0, 25.0), True, 0),               # the LM's init spreads: one-hot
+    ((3.0, 3.0), False, 0)])
+def test_flash_attention_tc_bounds_hold_the_kernels_arithmetic(
+        rng, scale, causal, off):
+    """The tensor-core kernel's rounding (``_online_bf16_p``, three key
+    tiles) stays within both bounds it is held to on the card."""
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .mul(c).to(torch.bfloat16)
+               for shape, c in (((1, 10, 200, 128), scale[0]),
+                                ((1, 2, 330, 128), scale[1]),
+                                ((1, 2, 330, 128), 1.0)))
+    got = _online_bf16_p(q, k, v, causal, off).float()
+    for name, want, limit in ref.flash_attention_tc_bounds(q, k, v, causal,
+                                                           off):
+        assert bool(((got - want.float()).abs() <= limit).all()), name
+
+
+def test_flash_attention_tc_bounds_catch_an_off_by_one_diagonal(rng):
+    """A causal mask one key too wide is caught by the bound against the
+    plain version with p in bf16."""
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 4, 512, 128))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    wrong = ref.flash_attention_ref(q, k, v, True, 1,
+                                    p_dtype=torch.bfloat16).float()
+    (name, want, limit), _ = ref.flash_attention_tc_bounds(q, k, v)
+    assert name == "p_bf16"
+    assert not bool(((wrong - want.float()).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("dtype,D,Dv,want", [
+    (torch.bfloat16, 128, 128, "tensor_cores"),
+    (torch.float32, 128, 128, "cuda_cores"),
+    (torch.bfloat16, 64, 64, "cuda_cores"),
+    (torch.bfloat16, 128, 64, "cuda_cores"),
+    (torch.bfloat16, 32, 32, "cuda_cores")])
+def test_flash_attention_variant_rule(dtype, D, Dv, want):
+    """The fixed rule: bf16 at D = Dv = 128 (the LM path's heads) takes the
+    tensor-core kernel, everything else the CUDA-core one."""
+    assert variant(dtype, D, Dv) == want
+
+
+def test_tensor_core_output_is_a_view_of_bshd_storage():
+    """The tensor-core kernel writes (B, Sq, H, Dv) storage and returns its
+    (B, H, Sq, Dv) view, so the model's transpose back and reshape to
+    (B, Sq, H·Dv) copy nothing."""
+    out = tc_output(2, 5, 7, 128)
+    assert out.shape == (2, 5, 7, 128) and out.dtype == torch.bfloat16
+    flat = out.transpose(1, 2).reshape(2, 7, -1)
+    assert flat.data_ptr() == out.data_ptr() and flat._base is not None
+
+
+def test_tensor_core_wrapper_refuses_cpu_tensors():
+    """bf16 at head width 128, the tensor-core variant's inputs, on the CPU:
+    the wrapper raises, it does not run the plain version."""
+    q = torch.zeros((1, 2, 4, 128), dtype=torch.bfloat16)
+    assert variant(q.dtype, 128, 128) == "tensor_cores"
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q, q[:, :1], q[:, :1])
 
 
 # ---------------------------------------------------------------------------
