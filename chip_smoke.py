@@ -16,11 +16,17 @@ Run from the root of a checkout. In order it:
    back-to-back calls, and the kernel alone with torch.profiler, beside
    the least time the card could take (bytes over 3.35 TB/s, operations
    over 67 TFLOP/s fp32, or 989 TFLOP/s on the bf16 tensor cores for
-   bf16 attention). Tolerances: pull statistics and pulls at
-   rtol 2e-4 / atol 1e-5; the fp32 transform at 1e-5, bf16 at 5e-2;
-   pairwise ℓ1 at rtol 1e-4 / atol 1e-3, ℓ2 at |got − want| ≤
+   bf16 attention, or 495 TFLOP/s TF32 for the split-TF32 ℓ2 distances;
+   the difference form of pairwise distances at 2 issue slots a term,
+   33.5e12 slots/s). Host µs per call (CUDA events minus device time) for
+   the short calls of the paper path. Tolerances: pull statistics and
+   pulls at rtol 2e-4 / atol 1e-5; the fp32 transform at 1e-5, bf16 at
+   5e-2; pairwise ℓ1 at rtol 1e-4 / atol 1e-3, ℓ2 at |got − want| ≤
    1e-4·|want| + 1e-6·(‖q‖² + ‖x‖²) (the plain version's norm expansion
-   cancels); flash attention in bf16 on the tensor cores within both
+   cancels), and ℓ2 on the tensor cores also at 1e-4 relative of a float64
+   brute force (its contract), with the unrepaired form's error under
+   gamma(d)·(‖q‖² + ‖x‖²) on adversarial inputs (x against itself,
+   near-duplicates, a common offset of 100); flash attention in bf16 on the tensor cores within both
    bounds of ``ref.flash_attention_tc_bounds`` (p rounds to bf16 for the
    product with v: against the plain version with p in bf16 at one bf16
    ulp plus 6·2⁻⁸ times each output's rounding spread, and against the
@@ -41,7 +47,9 @@ Run from the root of a checkout. In order it:
      breakdown;
    * oracle: ``core.oracle.exact_knn`` of all queries, whose top-k sets
      must equal the brute force's (a disagreement passes only when a float64
-     distance gap under 1e-4 relative, an fp32 near-tie, explains it);
+     distance gap under 1e-4 relative, an fp32 near-tie, explains it); every
+     launch on the tensor-core variant, its flagged pairs counted, and the
+     unrepaired form's error on the clustered corpus under gamma(d);
    * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
      driver (``--rounds-queries`` of the queries; the default 256 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
@@ -82,6 +90,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
+# fp32 instructions a second on the CUDA cores (an FFMA counts 2 flops of
+# the 67 TFLOP/s, a subtraction takes a whole slot)
+FP32_SLOTS = FP32_FLOPS / 2
 # the LM phase: qwen2.5-14b at full width and depth over the repo's train_4k
 # sequence length
 LM_ARCH = "qwen2.5-14b"
@@ -98,18 +110,28 @@ def emit(obj) -> None:
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device time of ``fn()`` over ``reps`` back-to-back calls (CUDA
     events), after ``warmup`` calls. Each result is dropped before the next
-    call, so the caching allocator reuses its memory."""
+    call, so the caching allocator reuses its memory. Python's garbage
+    collector is off while the calls run, as ``timeit`` has it: a collection
+    over this process's objects would land in the window of a host-bound
+    call."""
+    import gc
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        if enabled:
+            gc.enable()
     return start.elapsed_time(end) / reps
 
 
@@ -133,6 +155,22 @@ def device_ms(fn, symbol: str, reps: int = 5) -> float:
              if ev.device_type == torch.autograd.DeviceType.CUDA
              and symbol in ev.key)
     return us / reps / 1e3
+
+
+def kernels_per_call(fn, reps: int = 20) -> float:
+    """CUDA kernels launched per call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)) / reps
 
 
 def compare(what: str, got, want, *, rtol: float, atol: float,
@@ -183,10 +221,18 @@ def pull_bound(x, arm, blk, block: int, out_floats: int = 2) -> tuple:
     return bound_ms(nbytes, 3.0 * Q * B * T * block)
 
 
-def pairwise_bound(Q: int, n: int, d: int) -> tuple:
+def pairwise_bound(Q: int, n: int, d: int, variant: str) -> dict:
     """Least time for pairwise_dist: both operands read once, the (Q, n)
-    output written once; 3 flops (subtract, square or abs, add) per term."""
-    return bound_ms(4.0 * (Q * d + n * d + Q * n), 3.0 * Q * n * d)
+    output written once. Operations: on the tensor cores (split TF32),
+    three TF32 products of 2 flops per (q, r, j) term at 495 TFLOP/s; on
+    the CUDA cores (the difference form, ℓ2 or ℓ1), 2 issue slots per term
+    (subtract, then square-and-add or abs-and-add) at 33.5e12 slots/s."""
+    nbytes = 4.0 * (Q * d + n * d + Q * n)
+    tc = bound_ms(nbytes, 6.0 * Q * n * d, TF32_TC_FLOPS)
+    cc = bound_ms(nbytes, 2.0 * Q * n * d, FP32_SLOTS)
+    t, by = tc if variant == "tensor_cores" else cc
+    return {"bound_ms": t, "bound_by": by, "bound_ms_tensor_cores": tc[0],
+            "bound_ms_cuda_cores_difference_form": cc[0]}
 
 
 def fwht_bound(x) -> tuple:
@@ -351,6 +397,56 @@ def flash_rows(g) -> list:
     return rows
 
 
+def float64_l2(qs, x):
+    """Squared ℓ2 distances in float64 (the expanded form, whose float64
+    rounding is some 1e-16 of ‖q‖² + ‖x‖²), and that scale."""
+    import torch
+    q64, x64 = qs.double(), x.double()
+    scale = (q64 * q64).sum(1)[:, None] + (x64 * x64).sum(1)[None]
+    return (scale - 2.0 * (q64 @ x64.T)).clamp_min_(0.0), scale
+
+
+def pairwise_gamma_rows(g) -> list:
+    """The tensor-core ℓ2 kernel's unrepaired error, |got − exact| over
+    ‖q‖² + ‖x‖², on inputs made to cancel, at the oracle's d = 12,288 and
+    at d = 128: x against itself, near-duplicates (noise 1e-3), a common
+    offset of 100. Raises if it reaches gamma(d), the bound its flagging
+    assumes; then holds the repaired output to the float64 brute force at
+    rtol 1e-5 / atol 1e-4, with exactly 0.0 on the diagonal of x against
+    itself."""
+    import torch
+    from repro_torch.kernels.pairwise_dist import (flagged_pairs, gamma,
+                                                   pairwise_dist_cuda,
+                                                   reset_flagged)
+    rows = []
+    for d in (12_288, 128):
+        x = torch.randn((512, d), generator=g, device="cuda")
+        noise = 1e-3 * torch.randn(x.shape, generator=g, device="cuda")
+        for case, qs, xx in (("x_vs_x", x, x), ("near_duplicates", x + noise, x),
+                             ("offset_100", x[:64] + 100.0, x + 100.0)):
+            exact, scale = float64_l2(qs, xx)
+            raw = pairwise_dist_cuda(qs, xx, repair=False)
+            err = float(((raw.double() - exact).abs() / scale).max())
+            reset_flagged()
+            got = pairwise_dist_cuda(qs, xx)
+            row = {"kernel": "pairwise_dist", "case": f"gamma_{case}", "d": d,
+                   "shape": {"Q": qs.shape[0], "n": xx.shape[0], "d": d},
+                   "unrepaired_err_over_scale": err, "gamma": gamma(d),
+                   "flagged_pairs": flagged_pairs(),
+                   **compare(f"pairwise_dist {case} d={d}", got.double(),
+                             exact, rtol=1e-5, atol=1e-4)}
+            if err >= gamma(d):
+                raise AssertionError(f"pairwise_dist {case} d={d}: unrepaired "
+                                     f"error {err} of the scale reaches "
+                                     f"gamma {gamma(d)}")
+            if qs is xx and float(torch.diagonal(got).abs().max()) != 0.0:
+                raise AssertionError(f"pairwise_dist {case} d={d}: diagonal "
+                                     "not exactly 0")
+            rows.append(row)
+            emit(row)
+    return rows
+
+
 def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     """Each kernel against its plain version at the shapes its path gives
     it."""
@@ -360,7 +456,10 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
                                                 block_pull_multi_cuda)
     from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
     from repro_torch.kernels.fwht import fwht_cuda
-    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.pairwise_dist import (flagged_pairs,
+                                                   pairwise_dist_cuda,
+                                                   reset_flagged)
+    from repro_torch.kernels.pairwise_dist import variant as pairwise_variant
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -454,22 +553,29 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     # over the 100,000 rows of the paper path's corpus -----------------------
     results["block_pull"] = []
     for case, Bc in (("round", B), ("init", n_build)):
+        # int64 arm ids, int32 block ids: what the paper path passes
         if case == "round":
-            arm = torch.randint(0, n_build, (Bc,), generator=g, device="cuda",
-                                dtype=torch.int32)
+            arm = torch.randint(0, n_build, (Bc,), generator=g, device="cuda")
         else:
-            arm = torch.arange(n_build, dtype=torch.int32, device="cuda")
+            arm = torch.arange(n_build, device="cuda")
         blk = torch.randint(0, nb, (Bc, P), generator=g, device="cuda",
                             dtype=torch.int32)
-        run = lambda: block_pull_cuda(x, qs[0], arm, blk, block=block)
-        plain = lambda: ref.block_pull_ref(x, qs[0], arm, blk, block)
+        q0 = qs[0]                  # the paper path holds its query as is
+        run = lambda: block_pull_cuda(x, q0, arm, blk, block=block)
+        plain = lambda: ref.block_pull_ref(x, q0, arm, blk, block)
         row = {"kernel": "block_pull", "case": case, "metric": "l2",
                "shape": {"B": Bc, "P": P, "block": block, "d_pad": d_pad,
-                         "n": n_build}}
+                         "n": n_build},
+               "id_types": {"arm": "int64", "blk": "int32"}}
         row.update(compare(f"block_pull {case}", run(), plain(), rtol=2e-4,
                            atol=1e-5))
-        row["ms"] = cuda_ms(run, reps=50)
+        # a round's call is host-bound: 200 calls bring the host's clock up
+        # (this row follows device-bound ones), many average its jitter
+        row["ms"] = cuda_ms(run, reps=1000, warmup=200) if case == "round" \
+            else cuda_ms(run, reps=50)
         row["device_ms"] = device_ms(run, "block_pull_kernel", reps=20)
+        row["host_us_per_call"] = (row["ms"] - row["device_ms"]) * 1e3
+        row["cuda_kernels_per_call"] = kernels_per_call(run)
         row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
         row["bound_ms"], row["bound_by"] = pull_bound(x, arm[None], blk[None],
                                                       block, out_floats=P)
@@ -514,8 +620,9 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     torch.cuda.empty_cache()
 
     # --- pairwise_dist: one oracle batch (256 queries against the corpus at
-    # d = 12,288), and the paper path's exact evaluation (one query against
-    # the B rows just selected, at d_pad = 16,384) ---------------------------
+    # d = 12,288: the tensor cores), and the paper path's exact evaluation
+    # (one query against the B rows just selected, at d_pad = 16,384: the
+    # CUDA cores) ---------------------------------------------------------
     results["pairwise_dist"] = []
     X = torch.randn((n_build, 12_288), generator=g, device="cuda")
     Qo = torch.randn((256, 12_288), generator=g, device="cuda")
@@ -531,24 +638,49 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             plain = lambda: ref.pairwise_dist_ref(qq[:sub[0]], xx[:sub[1]],
                                                   metric)
             Q_, n_, d_ = qq.shape[0], xx.shape[0], xx.shape[1]
+            which = pairwise_variant(metric, Q_, d_)
             row = {"kernel": "pairwise_dist", "case": case, "metric": metric,
-                   "shape": {"Q": Q_, "n": n_, "d": d_}}
+                   "variant": which, "shape": {"Q": Q_, "n": n_, "d": d_}}
             allowance = None
             if metric == "l2":
                 allowance = 1e-6 * ((qq[:sub[0]] ** 2).sum(1)[:, None]
                                     + (xx[:sub[1]] ** 2).sum(1)[None])
             if sub != (Q_, n_):
                 row["plain_checked_on"] = {"queries": sub[0], "rows": sub[1]}
+            reset_flagged()
+            launches = pairwise_dist_cuda.launches_tc
+            got = run()
+            if which == "tensor_cores":
+                row["flagged_pairs"] = flagged_pairs()
+                if pairwise_dist_cuda.launches_tc != launches + 1:
+                    raise AssertionError(f"pairwise_dist {case}: not on the "
+                                         "tensor cores")
+                # the kernel's contract: 1e-4 of the exact value, relatively
+                row["max_rel_err_float64"] = compare(
+                    f"pairwise_dist {case} {metric} against float64",
+                    got.double(), float64_l2(qq, xx)[0], rtol=1e-4,
+                    atol=0.0)["max_rel_err"]
             row.update(compare(f"pairwise_dist {case} {metric}",
-                               run()[:sub[0], :sub[1]], plain(), rtol=1e-4,
+                               got[:sub[0], :sub[1]], plain(), rtol=1e-4,
                                atol=1e-3 if metric == "l1" else 0.0,
                                allowance=allowance))
-            reps = 5 if case == "oracle" else 50
-            row["ms"] = cuda_ms(run, reps=reps)
+            del got
+            # the exact evaluation is host-bound: warmed up as block_pull's
+            # round
+            reps = 5 if case == "oracle" else 1000
+            row["ms"] = cuda_ms(run, reps=reps,
+                                warmup=2 if case == "oracle" else 200)
             row["device_ms"] = device_ms(run, "pairwise_", reps=min(reps, 20))
+            if which == "tensor_cores":
+                row["repair_ms"] = device_ms(run, "pairwise_repair_flagged",
+                                             reps=5)
+                row["sass"] = sass_check("pairwise_dist_sm90")
+            if case == "exact_eval":
+                row["host_us_per_call"] = (row["ms"] - row["device_ms"]) * 1e3
+                row["cuda_kernels_per_call"] = kernels_per_call(run)
             row["plain_ms" if sub == (Q_, n_) else "plain_ms_subset"] = \
                 cuda_ms(plain, reps=3, warmup=1)
-            row["bound_ms"], row["bound_by"] = pairwise_bound(Q_, n_, d_)
+            row.update(pairwise_bound(Q_, n_, d_, which))
             # yardstick only: the one PyTorch call computing the same
             # function (fp32, TF32 off)
             if metric == "l2":
@@ -563,6 +695,8 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             results["pairwise_dist"].append(row)
             emit(row)
     del X, Qo, Xe, qe
+    torch.cuda.empty_cache()
+    results["pairwise_gamma"] = pairwise_gamma_rows(g)
     torch.cuda.empty_cache()
     results["flash_attention"] = flash_rows(g)
     return results
@@ -694,10 +828,15 @@ def oracle_phase(corpus, queries, truth) -> dict:
     import torch
     from repro_torch.configs.bmo_nn import DENSE
     from repro_torch.core.oracle import exact_knn
-    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.pairwise_dist import (flagged_pairs, gamma,
+                                                   pairwise_dist_cuda,
+                                                   reset_flagged)
+    from repro_torch.kernels.pairwise_dist import \
+        flag_ratio as pairwise_flag_ratio
 
     k, (n, d) = DENSE.bmo.k, corpus.shape
     Q = queries.shape[0]
+    reset_flagged()
     t = time.perf_counter()
 
     def run():
@@ -708,6 +847,26 @@ def oracle_phase(corpus, queries, truth) -> dict:
     ex, launches = counted("oracle", {"pairwise_dist": pairwise_dist_cuda},
                            run)
     oracle_s = time.perf_counter() - t
+    flagged = flagged_pairs()
+    launches_tc = pairwise_dist_cuda.launches_tc
+    if launches_tc != launches["pairwise_dist"]:
+        raise AssertionError(f"oracle: {launches_tc} of "
+                             f"{launches['pairwise_dist']} pairwise_dist "
+                             "launches on the tensor cores")
+    # one batch again: device time of the call and of its repair pass, and
+    # the unrepaired form's error on the clustered corpus
+    batch = lambda: pairwise_dist_cuda(queries[:256], corpus)
+    batch_ms = device_ms(batch, "pairwise_", reps=3)
+    repair_ms = device_ms(batch, "pairwise_repair_flagged", reps=3)
+    raw = pairwise_dist_cuda(queries[:256], corpus, repair=False)
+    exact, scale = float64_l2(queries[:256], corpus)
+    unrepaired = float(((raw.double() - exact).abs() / scale).max())
+    near = float((exact / scale < pairwise_flag_ratio(d)).double().mean())
+    del raw, exact, scale
+    torch.cuda.empty_cache()
+    if unrepaired >= gamma(d):
+        raise AssertionError(f"oracle: unrepaired error {unrepaired} of the "
+                             f"scale reaches gamma {gamma(d)}")
     got = ex.indices.cpu().numpy()
     rows = corpus[ex.indices.reshape(-1)].to(torch.float64).reshape(Q, k, d)
     theta = ((rows - queries.to(torch.float64)[:, None]) ** 2).sum(-1) / d
@@ -727,7 +886,14 @@ def oracle_phase(corpus, queries, truth) -> dict:
                               "rel_gap": abs(far - near) / near})
     out = {"phase": "oracle", "queries": Q, "k": k, "oracle_s": oracle_s,
            "set_disagreements": disagreements,
-           "max_value_rel_err": value_rel_err, "launches": launches}
+           "max_value_rel_err": value_rel_err, "launches": launches,
+           "launches_tensor_cores": launches_tc,
+           "flagged_pairs": flagged,
+           "pairwise_device_ms_first_batch": batch_ms,
+           "repair_device_ms_first_batch": repair_ms,
+           "flagged_share_first_batch_float64": near,
+           "unrepaired_err_over_scale_first_batch": unrepaired,
+           "gamma": gamma(d)}
     if any(x["rel_gap"] > 1e-4 for x in disagreements) or value_rel_err > 1e-4:
         raise AssertionError(f"oracle disagrees with the brute force: {out}")
     return out
@@ -1113,14 +1279,18 @@ KERNELS = (
      "src/repro/kernels/block_pull.py:78", ("rounds",)),
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:41", ("paper",)),
-    ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist.cu",
+    ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist_sm90.cu",
      "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
 )
-# flash_attention's other variant (fp32, and bf16 at other head widths),
-# which the LM path does not take
-FLASH_CUDA_CORES_SOURCE = "src/repro_torch/csrc/flash_attn.cu"
+# the other variant of a kernel with two: flash_attention's on the CUDA
+# cores (fp32, and bf16 at other head widths), which the LM path does not
+# take; pairwise_dist's on the CUDA cores (ℓ1, ℓ2 with Q ≤ 4 as the paper
+# path's exact evaluation, d % 4 ≠ 0)
+OTHER_VARIANT_SOURCE = {
+    "flash_attention": "src/repro_torch/csrc/flash_attn.cu",
+    "pairwise_dist": "src/repro_torch/csrc/pairwise_dist.cu"}
 
 
 def main() -> int:
@@ -1218,7 +1388,7 @@ def main() -> int:
         if "variant" in row:
             summary[-1].update({"variant": row["variant"],
                                 "other_variant_source":
-                                    FLASH_CUDA_CORES_SOURCE})
+                                    OTHER_VARIANT_SOURCE[name]})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

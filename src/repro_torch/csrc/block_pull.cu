@@ -26,6 +26,11 @@
 // warps in flight per SM keep enough loads outstanding to cover the
 // device-memory latency.
 //
+// The arm and block ids come in as the caller holds them, int32 or int64
+// (the paper path's arm ids are int64, its block ids int32): the kernel is
+// instantiated for each pair, so a call launches this one kernel and no
+// conversion.
+//
 // Offsets are 64-bit: arm * d_pad reaches 131,071 * 16,384 > INT32_MAX.
 // A negative arm id marks a lane whose result the caller discards: the warp
 // reads nothing and writes 0. An arm or block id out of range writes NaN
@@ -78,11 +83,11 @@ __device__ __forceinline__ float slice_partial(const T* __restrict__ xr,
   return s;
 }
 
-template <typename T, int BLOCK, bool L1>
+template <typename T, int BLOCK, bool L1, typename IA, typename IB>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 block_pull_kernel(const T* __restrict__ x, const T* __restrict__ qs,
-                  const int32_t* __restrict__ arm_idx,
-                  const int32_t* __restrict__ blk_idx,
+                  const IA* __restrict__ arm_idx,
+                  const IB* __restrict__ blk_idx,
                   float* __restrict__ out, int64_t n, int64_t d_pad,
                   int64_t B, int64_t P, int64_t pulls) {
   const int lane = threadIdx.x & 31;
@@ -110,61 +115,81 @@ block_pull_kernel(const T* __restrict__ x, const T* __restrict__ qs,
   if (lane == 0) out[pull] = s / (float)BLOCK;
 }
 
-template <typename T, int BLOCK>
-void launch(bool l1, const void* x, const void* qs, const int32_t* arm,
-            const int32_t* blk, float* out, int64_t n, int64_t d_pad,
+template <typename T, int BLOCK, typename IA, typename IB>
+void launch(bool l1, const void* x, const void* qs, const void* arm,
+            const void* blk, float* out, int64_t n, int64_t d_pad,
             int64_t B, int64_t P, int64_t pulls, cudaStream_t stream) {
   const unsigned grid = (unsigned)((pulls + kWarpsPerBlock - 1) / kWarpsPerBlock);
   const auto* xp = static_cast<const T*>(x);
   const auto* qp = static_cast<const T*>(qs);
+  const auto* ap = static_cast<const IA*>(arm);
+  const auto* bp = static_cast<const IB*>(blk);
   if (l1) {
-    block_pull_kernel<T, BLOCK, true><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        xp, qp, arm, blk, out, n, d_pad, B, P, pulls);
+    block_pull_kernel<T, BLOCK, true, IA, IB>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(xp, qp, ap, bp, out, n,
+                                                   d_pad, B, P, pulls);
   } else {
-    block_pull_kernel<T, BLOCK, false><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        xp, qp, arm, blk, out, n, d_pad, B, P, pulls);
+    block_pull_kernel<T, BLOCK, false, IA, IB>
+        <<<grid, kWarpsPerBlock * 32, 0, stream>>>(xp, qp, ap, bp, out, n,
+                                                   d_pad, B, P, pulls);
   }
 }
 
-template <typename T>
+template <typename T, typename IA, typename IB>
 int dispatch(int block, bool l1, const void* x, const void* qs,
-             const int32_t* arm, const int32_t* blk, float* out, int64_t n,
+             const void* arm, const void* blk, float* out, int64_t n,
              int64_t d_pad, int64_t B, int64_t P, int64_t pulls,
              cudaStream_t s) {
   switch (block) {
-    case 32:  launch<T, 32>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
-    case 64:  launch<T, 64>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
-    case 128: launch<T, 128>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
-    case 256: launch<T, 256>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
+    case 32:  launch<T, 32, IA, IB>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
+    case 64:  launch<T, 64, IA, IB>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
+    case 128: launch<T, 128, IA, IB>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
+    case 256: launch<T, 256, IA, IB>(l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+// the id types: 0 = int32, 1 = int64
+template <typename T>
+int dispatch_ids(int arm_type, int blk_type, int block, bool l1, const void* x,
+                 const void* qs, const void* arm, const void* blk, float* out,
+                 int64_t n, int64_t d_pad, int64_t B, int64_t P, int64_t pulls,
+                 cudaStream_t s) {
+  if (arm_type == 0 && blk_type == 0)
+    return dispatch<T, int32_t, int32_t>(block, l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s);
+  if (arm_type == 1 && blk_type == 0)
+    return dispatch<T, int64_t, int32_t>(block, l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s);
+  if (arm_type == 0 && blk_type == 1)
+    return dispatch<T, int32_t, int64_t>(block, l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s);
+  if (arm_type == 1 && blk_type == 1)
+    return dispatch<T, int64_t, int64_t>(block, l1, x, qs, arm, blk, out, n, d_pad, B, P, pulls, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // x (n, d_pad); qs (Q, d_pad), both fp32 (dtype 0) or both bf16 (dtype 1);
-// arm (Q, B) int32; blk (Q, B, P) int32; out (Q, B, P) fp32. All contiguous
-// and 16-byte aligned. metric: 0 = l2, 1 = l1. Returns cudaGetLastError()
-// after the launch; an unsupported block width or type returns
-// cudaErrorInvalidValue without launching. The grid needs
-// ceil(Q*B*P / 8) < 2^31 blocks.
+// arm (Q, B) and blk (Q, B, P), each int32 (type 0) or int64 (type 1);
+// out (Q, B, P) fp32. All contiguous, x and qs 16-byte aligned. metric:
+// 0 = l2, 1 = l1. Returns cudaGetLastError() after the launch; an
+// unsupported block width or type returns cudaErrorInvalidValue without
+// launching. The grid needs ceil(Q*B*P / 8) < 2^31 blocks.
 extern "C" int block_pull_multi(const void* x, const void* qs, const void* arm,
                                 const void* blk, void* out, int64_t n,
                                 int64_t d_pad, int64_t Q, int64_t B, int64_t P,
-                                int block, int metric, int dtype,
-                                void* stream) {
+                                int block, int metric, int dtype, int arm_type,
+                                int blk_type, void* stream) {
   const int64_t pulls = Q * B * P;
   if (pulls <= 0) return (int)cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   const bool l1 = metric == 1;
-  const auto* ap = static_cast<const int32_t*>(arm);
-  const auto* bp = static_cast<const int32_t*>(blk);
   auto* op = static_cast<float*>(out);
   if (dtype == 0)
-    return dispatch<float>(block, l1, x, qs, ap, bp, op, n, d_pad, B, P, pulls, s);
+    return dispatch_ids<float>(arm_type, blk_type, block, l1, x, qs, arm, blk,
+                               op, n, d_pad, B, P, pulls, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(block, l1, x, qs, ap, bp, op, n, d_pad, B, P,
-                                   pulls, s);
+    return dispatch_ids<__nv_bfloat16>(arm_type, blk_type, block, l1, x, qs,
+                                       arm, blk, op, n, d_pad, B, P, pulls, s);
   return (int)cudaErrorInvalidValue;
 }

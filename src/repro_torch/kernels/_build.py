@@ -7,6 +7,12 @@ source and the flags, so an edit rebuilds and an unchanged source is
 reused. All sources compile in parallel, one ``nvcc`` each, on the first
 call that needs any of them. Nothing here runs at import time: a machine
 without ``nvcc`` imports the package and runs the plain versions on the CPU.
+
+``Entry`` and ``launch`` are every wrapper's call path, kept short because
+the paper path's kernels (``block_pull``, ``pairwise_dist``) take a few µs
+on the device: the C function is resolved once, the stream is read as a
+raw pointer, and the device guard is entered only when the operands'
+device is not the current one.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
@@ -99,7 +107,42 @@ def library(stem: str) -> ctypes.CDLL:
     return lib if lib is not None else build_all()[stem]
 
 
-def check(rc: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+class Entry:
+    """A C entry point of ``csrc/<stem>.cu``, resolved (and the library built)
+    on its first call and kept. Its last argument is the stream; it returns
+    a CUDA error code."""
+    __slots__ = ("stem", "symbol", "argtypes", "fn")
+
+    def __init__(self, stem: str, symbol: str, argtypes: list):
+        self.stem, self.symbol, self.argtypes = stem, symbol, argtypes
+        self.fn = None
+
+    def resolve(self):
+        fn = getattr(library(self.stem), self.symbol)
+        fn.argtypes = self.argtypes
+        fn.restype = ctypes.c_int
+        self.fn = fn
+        return fn
+
+
+# the current stream of a device as a raw pointer, without making a Stream,
+# and the current device without the lazy-init check (an operand on the card
+# means CUDA is up)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or \
+    torch.cuda.current_device
+
+
+def launch(entry: Entry, index: int, what: str, *args) -> None:
+    """Calls ``entry(*args, stream)`` on the current stream of CUDA device
+    ``index``, under a device guard only when that is not the current
+    device; raises when it returns a CUDA error code, naming ``what``."""
+    fn = entry.fn or entry.resolve()
+    if index == _current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc}")
+        raise RuntimeError(f"{what} launch: CUDA error {rc}")

@@ -18,33 +18,38 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_race import BLOCKS, METRICS
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the id types the kernel reads as they are; others are converted to int32
+IDS = {torch.int32: 0, torch.int64: 1}
+
+_ENTRY = _build.Entry("block_pull", "block_pull_multi",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
+                      + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
-def _entry():
-    fn = _build.library("block_pull").block_pull_multi
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(x, qs, arm_idx, blk_idx, *, block: int, metric: str,
-            name: str) -> torch.Tensor:
-    n, d_pad = x.shape
-    Q, B, P = blk_idx.shape
-    if not (x.is_cuda and qs.device == x.device and arm_idx.device == x.device
-            and blk_idx.device == x.device):
+def _launch(x, qs, arm_idx, blk_idx, out_shape, Q: int, B: int, P: int, *,
+            block: int, metric: str, name: str) -> torch.Tensor:
+    """Checks what the kernel takes, from the tensors' attributes alone (a
+    message is built only to raise), and launches it into a new
+    ``out_shape`` fp32 tensor, (Q, B, P) or, for one query, (B, P). int32
+    and int64 ids go in as they are."""
+    index = x.get_device()                   # -1 on the CPU
+    if index < 0 or qs.get_device() != index \
+            or arm_idx.get_device() != index or blk_idx.get_device() != index:
         raise ValueError(f"{name} needs every operand on one CUDA device")
-    if x.dtype not in DTYPES or qs.dtype != x.dtype:
+    dtype = DTYPES.get(x.dtype)
+    if dtype is None or qs.dtype != x.dtype:
         raise ValueError(f"{name} takes a corpus and queries of one type, "
                          f"fp32 or bf16; got {x.dtype} and {qs.dtype}")
+    n, d_pad = x.shape
     if block not in BLOCKS or d_pad % block:
         raise ValueError(f"block={block} with d_pad={d_pad}: the kernel takes "
                          f"a block in {BLOCKS} that divides d_pad")
-    if metric not in METRICS:
+    code = METRICS.get(metric)
+    if code is None:
         raise ValueError(f"unknown metric {metric!r}")
-    if qs.shape != (Q, d_pad) or arm_idx.shape != (Q, B):
+    # multi: qs (Q, d_pad), arm (Q, B); single: q (d_pad,), arm (B,)
+    if qs.shape != out_shape[:-2] + (d_pad,) \
+            or arm_idx.shape != out_shape[:-1]:
         raise ValueError(f"shapes x {tuple(x.shape)}, qs {tuple(qs.shape)}, "
                          f"arm {tuple(arm_idx.shape)}, blk {tuple(blk_idx.shape)}"
                          " do not agree")
@@ -52,19 +57,21 @@ def _launch(x, qs, arm_idx, blk_idx, *, block: int, metric: str,
         raise ValueError(f"Q·B·P={Q * B * P} pulls exceed the kernel's grid")
     x = x.contiguous()
     qs = qs.contiguous()
-    arm = arm_idx.to(torch.int32).contiguous()
-    blk = blk_idx.to(torch.int32).contiguous()
-    if x.data_ptr() % 16 or qs.data_ptr() % 16:
+    if arm_idx.dtype not in IDS:
+        arm_idx = arm_idx.to(torch.int32)
+    if blk_idx.dtype not in IDS:
+        blk_idx = blk_idx.to(torch.int32)
+    arm = arm_idx.contiguous()
+    blk = blk_idx.contiguous()
+    xp, qp = x.data_ptr(), qs.data_ptr()
+    if (xp | qp) % 16:
         raise ValueError(f"{name} needs 16-byte aligned rows")
-    out = torch.empty((Q, B, P), dtype=torch.float32, device=x.device)
-    if out.numel() == 0:
-        return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = _entry()(x.data_ptr(), qs.data_ptr(), arm.data_ptr(),
-                      blk.data_ptr(), out.data_ptr(), n, d_pad, Q, B, P,
-                      block, METRICS[metric], DTYPES[x.dtype], stream)
-    _build.check(rc, f"{name} launch")
+    out = x.new_empty(out_shape, dtype=torch.float32)
+    if Q * B * P:
+        _build.launch(_ENTRY, index, name, xp, qp,
+                      arm.data_ptr(), blk.data_ptr(), out.data_ptr(), n,
+                      d_pad, Q, B, P, block, code, dtype, IDS[arm.dtype],
+                      IDS[blk.dtype])
     return out
 
 
@@ -72,12 +79,18 @@ def block_pull_multi_cuda(x: torch.Tensor, qs: torch.Tensor,
                           arm_idx: torch.Tensor, blk_idx: torch.Tensor, *,
                           block: int, metric: str = "l2") -> torch.Tensor:
     """x (n, d_pad) and qs (Q, d_pad), both fp32 or both bf16; arm_idx
-    (Q, B) int; blk_idx (Q, B, P) int; all on one CUDA device. Returns
+    (Q, B) and blk_idx (Q, B, P) int (int32 and int64 are read as they are,
+    other types converted); all on one CUDA device. Returns
     (Q, B, P) fp32 block-mean distances. A negative arm id gives 0 without
     reading; an out-of-range arm or block id gives NaN."""
-    out = _launch(x, qs, arm_idx, blk_idx, block=block, metric=metric,
-                  name="block_pull_multi_cuda")
-    block_pull_multi_cuda.launches += 1
+    if blk_idx.dim() != 3:
+        raise ValueError(f"block_pull_multi_cuda takes blk (Q, B, P); got "
+                         f"{tuple(blk_idx.shape)}")
+    Q, B, P = blk_idx.shape
+    out = _launch(x, qs, arm_idx, blk_idx, (Q, B, P), Q, B, P, block=block,
+                  metric=metric, name="block_pull_multi_cuda")
+    if Q * B * P:
+        block_pull_multi_cuda.launches += 1
     return out
 
 
@@ -90,10 +103,12 @@ def block_pull_cuda(x: torch.Tensor, q: torch.Tensor, arm_idx: torch.Tensor,
         raise ValueError(f"block_pull_cuda takes q (d_pad,), arm (B,) and "
                          f"blk (B, P); got {tuple(q.shape)}, "
                          f"{tuple(arm_idx.shape)}, {tuple(blk_idx.shape)}")
-    out = _launch(x, q[None], arm_idx[None], blk_idx[None], block=block,
+    B, P = blk_idx.shape
+    out = _launch(x, q, arm_idx, blk_idx, (B, P), 1, B, P, block=block,
                   metric=metric, name="block_pull_cuda")
-    block_pull_cuda.launches += 1
-    return out[0]
+    if B * P:
+        block_pull_cuda.launches += 1
+    return out
 
 
 block_pull_multi_cuda.launches = 0

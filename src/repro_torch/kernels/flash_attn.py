@@ -37,23 +37,13 @@ TC_HEAD_DIM = 128
 TC_MAX_SEQ = 1 << 30
 
 
-def _entry():
-    fn = _build.library("flash_attn").flash_attention
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _entry_tc():
-    fn = _build.library("flash_attn_sm90").flash_attention_sm90
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ENTRY = _build.Entry("flash_attn", "flash_attention",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 17
+                      + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                         ctypes.c_void_p])
+_ENTRY_TC = _build.Entry("flash_attn_sm90", "flash_attention_sm90",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 18
+                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
 
 
 def variant(dtype: torch.dtype, D: int, Dv: int) -> str:
@@ -134,15 +124,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, H, Sq, Dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                      q.stride(0), q.stride(1), q.stride(2),
-                      k.stride(0), k.stride(1), k.stride(2),
-                      v.stride(0), v.stride(1), v.stride(2),
-                      B, H, KV, Sq, Sk, D, Dv, q_offset, int(causal),
-                      DTYPES[q.dtype], 1.0 / math.sqrt(D), stream)
-    _build.check(rc, "flash_attention launch")
+    _build.launch(_ENTRY, q.get_device(), "flash_attention",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  q.stride(0), q.stride(1), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2),
+                  v.stride(0), v.stride(1), v.stride(2),
+                  B, H, KV, Sq, Sk, D, Dv, q_offset, int(causal),
+                  DTYPES[q.dtype], 1.0 / math.sqrt(D))
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_cc += 1
     return out
@@ -157,17 +145,15 @@ def _tensor_cores(q, k, v, causal: bool, q_offset: int) -> torch.Tensor:
     out = tc_output(B, H, Sq, TC_HEAD_DIM, device=q.device)
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = _entry_tc()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(),
-                         q.stride(0), q.stride(1), q.stride(2),
-                         k.stride(0), k.stride(1), k.stride(2),
-                         v.stride(0), v.stride(1), v.stride(2),
-                         out.stride(0), out.stride(1), out.stride(2),
-                         B, H, KV, Sq, Sk, q_offset, int(causal),
-                         1.0 / math.sqrt(TC_HEAD_DIM), stream)
-    _build.check(rc, "flash_attention (tensor cores) launch")
+    _build.launch(_ENTRY_TC, q.get_device(),
+                  "flash_attention (tensor cores)",
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  q.stride(0), q.stride(1), q.stride(2),
+                  k.stride(0), k.stride(1), k.stride(2),
+                  v.stride(0), v.stride(1), v.stride(2),
+                  out.stride(0), out.stride(1), out.stride(2),
+                  B, H, KV, Sq, Sk, q_offset, int(causal),
+                  1.0 / math.sqrt(TC_HEAD_DIM))
     flash_attention_cuda.launches += 1
     flash_attention_cuda.launches_tc += 1
     return out

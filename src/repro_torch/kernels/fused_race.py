@@ -19,13 +19,9 @@ BLOCKS = (32, 64, 128, 256)
 METRICS = {"l2": 0, "l1": 1}
 
 
-def _entry():
-    fn = _build.library("fused_epoch_pull").fused_epoch_pull_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+_ENTRY = _build.Entry("fused_epoch_pull", "fused_epoch_pull_f32",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 5
+                      + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def fused_epoch_pull_cuda(x: torch.Tensor, qs: torch.Tensor,
@@ -67,12 +63,10 @@ def fused_epoch_pull_cuda(x: torch.Tensor, qs: torch.Tensor,
     out = torch.empty((Q, B, 2), dtype=torch.float32, device=x.device)
     if Q * B == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = _entry()(x.data_ptr(), qs.data_ptr(), arm.data_ptr(),
-                      blk.data_ptr(), out.data_ptr(), n, d_pad, Q, B, T,
-                      block, METRICS[metric], n_buf, stream)
-    _build.check(rc, "fused_epoch_pull launch")
+    _build.launch(_ENTRY, x.get_device(), "fused_epoch_pull",
+                  x.data_ptr(), qs.data_ptr(), arm.data_ptr(), blk.data_ptr(),
+                  out.data_ptr(), n, d_pad, Q, B, T, block, METRICS[metric],
+                  n_buf)
     fused_epoch_pull_cuda.launches += 1
     return out
 

@@ -14,13 +14,9 @@ MAX_D = 32768
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _entry():
-    fn = _build.library("fwht").fwht_rows
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ENTRY = _build.Entry("fwht", "fwht_rows",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
@@ -39,11 +35,8 @@ def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
     rows = src.numel() // d
     if rows == 0:
         return out
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        rc = _entry()(src.data_ptr(), out.data_ptr(), rows, d,
-                      DTYPES[x.dtype], stream)
-    _build.check(rc, "fwht launch")
+    _build.launch(_ENTRY, x.get_device(), "fwht", src.data_ptr(),
+                  out.data_ptr(), rows, d, DTYPES[x.dtype])
     fwht_cuda.launches += 1
     return out
 

@@ -3,6 +3,7 @@ the CUDA kernels are held against on the card."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -94,6 +95,58 @@ def pairwise_dist_ref(qs: torch.Tensor, x: torch.Tensor, metric: str = "l2",
             out = out + (torch.sum(qc * qc, -1)[:, None]
                          + torch.sum(xc * xc, -1)[None, :] - 2.0 * qc @ xc.T)
     return out
+
+
+def tf32_round(a: torch.Tensor) -> torch.Tensor:
+    """fp32 → TF32 (10 mantissa bits) rounded to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32``: on the int32 view, add half of the 13
+    dropped bits' unit and clear them. Finite inputs."""
+    i = a.to(torch.float32).contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncate(a: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an fp32 operand of a TF32 product: its
+    13 low mantissa bits cleared."""
+    i = a.to(torch.float32).contiguous().view(torch.int32)
+    return (i & -0x2000).view(torch.float32)
+
+
+def pairwise_l2_split_tf32(qs: torch.Tensor, x: torch.Tensor,
+                           flag_ratio: Optional[float] = None,
+                           slice_cols: int = 32) -> tuple:
+    """A plain replay of the tensor-core ℓ2 kernel's arithmetic
+    (``csrc/pairwise_dist_sm90.cu``), for the tests: (Q, n) fp32 values and
+    the (Q, n) mask of the pairs it repaired.
+
+    Each operand splits as a_hi = tf32_round(a), a_lo = a − a_hi (exact),
+    and the products read a_lo as TF32 (``tf32_truncate``). Each
+    ``slice_cols``-wide slice of the cross term sums q_hi·x_lo + q_lo·x_hi
+    + q_hi·x_hi into a fresh fp32 sum (the products of two TF32 values are
+    exact in fp32), added to a master sum; then ‖q‖² + ‖x‖² − 2·master.
+    With ``flag_ratio`` (the kernel's ``flag_ratio(d)``), every entry at
+    most flag_ratio·(‖q‖² + ‖x‖²) is recomputed as Σ(q − x)² in fp32, as the
+    repair pass does; without it nothing is repaired. What it does not
+    replay is the tensor cores' truncating accumulation inside a slice:
+    here that sum rounds to nearest."""
+    qs = qs.to(torch.float32)
+    x = x.to(torch.float32)
+    (Q, d), n = qs.shape, x.shape[0]
+    qh, xh = tf32_round(qs), tf32_round(x)
+    ql, xl = tf32_truncate(qs - qh), tf32_truncate(x - xh)
+    master = torch.zeros((Q, n), dtype=torch.float32, device=qs.device)
+    for s in range(0, d, slice_cols):
+        c = slice(s, s + slice_cols)
+        master += (qh[:, c] @ xl[:, c].T + ql[:, c] @ xh[:, c].T
+                   + qh[:, c] @ xh[:, c].T)
+    scale = torch.sum(qs * qs, -1)[:, None] + torch.sum(x * x, -1)[None, :]
+    out = scale - 2.0 * master
+    if flag_ratio is None:
+        return out, torch.zeros_like(out, dtype=torch.bool)
+    flagged = out <= flag_ratio * scale
+    qi, ri = torch.nonzero(flagged, as_tuple=True)
+    out[qi, ri] = torch.sum(torch.square(qs[qi] - x[ri]), -1)
+    return out, flagged
 
 
 def _flash_probs(q: torch.Tensor, k: torch.Tensor, causal: bool,

@@ -8,7 +8,9 @@ Tolerances: fp32 statistics and pulls at rtol 2e-4 / atol 1e-5 (sums
 taken in another order), the fp32 transform at 1e-5, bf16 at 5e-2 (the
 transform) and 2e-2 (the pulls, as the reference's kernel sweep). Pairwise
 distances: ℓ1 at rtol 1e-4 / atol 1e-3; ℓ2 at |got − want| ≤ 1e-4·|want| +
-1e-6·(‖q‖² + ‖x‖²), because the plain version's norm expansion cancels.
+1e-6·(‖q‖² + ‖x‖²), because the plain version's norm expansion cancels;
+both, and ℓ2 on inputs made to cancel (which the tensor-core variant
+repairs), also against a float64 brute force at rtol 1e-5 / atol 1e-4.
 Flash attention: fp32 at rtol/atol 3e-5 (the reference kernel test's
 3e-5). The CUDA-core kernel's bf16 outputs within one bf16 ulp (rtol 8e-3,
 atol 1e-4), since both round the same fp32 values. The tensor-core kernel
@@ -32,7 +34,9 @@ from repro_torch.kernels.block_pull import block_pull_cuda, block_pull_multi_cud
 from repro_torch.kernels.flash_attn import flash_attention_cuda, variant
 from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
 from repro_torch.kernels.fwht import fwht_cuda
-from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+from repro_torch.kernels.pairwise_dist import (flagged_pairs,
+                                               pairwise_dist_cuda,
+                                               reset_flagged)
 from repro_torch.models import build_model
 from repro_torch.train.loss import lm_loss
 
@@ -143,7 +147,8 @@ def _pairwise_close(got, want, qs, x, metric):
 
 @pytest.mark.parametrize("Q,n,d", [(4, 16, 64), (9, 50, 300), (8, 128, 512),
                                    (1, 7, 1000), (1, 32, 16384),
-                                   (70, 130, 77), (3, 1000, 33)])
+                                   (70, 130, 77), (3, 1000, 33),
+                                   (256, 1001, 256)])
 @pytest.mark.parametrize("metric", ["l2", "l1"])
 def test_pairwise_dist_kernel_matches_plain(gen, Q, n, d, metric):
     qs = torch.randn((Q, d), generator=gen, device="cuda")
@@ -163,6 +168,107 @@ def test_pairwise_dist_kernel_matches_plain(gen, Q, n, d, metric):
 def test_pairwise_dist_zero_distance(gen):
     x = torch.randn((70, 128), generator=gen, device="cuda")
     assert float(torch.diagonal(ops.pairwise_dist(x, x)).abs().max()) == 0.0
+
+
+def _cancelling(kind: str, gen) -> tuple:
+    """(queries, corpus, the corpus row of each query where the two share
+    rows, else None): inputs on which ‖q‖² + ‖x‖² − 2·q·x cancels, as the
+    CPU tests of the kernel's replay (``tests/test_torch_pairwise.py``)."""
+    if kind == "wide":                       # d = 12,288, few rows
+        x = torch.randn((6, 12288), generator=gen, device="cuda")
+        return x, x, torch.arange(6)
+    x = 3.0 * torch.randn((48, 512), generator=gen, device="cuda")
+    if kind == "duplicates":                 # some corpus rows twice
+        return x[:12], torch.cat([x, x[:4]]), torch.arange(12)
+    if kind == "near_duplicates":
+        noise = torch.randn((12, 512), generator=gen, device="cuda")
+        return x[:12] + 1e-3 * noise, x, None
+    return x[:12] + 100.0, x + 100.0, torch.arange(12)     # "offset"
+
+
+@pytest.mark.parametrize("kind", ["duplicates", "near_duplicates", "offset",
+                                  "wide"])
+def test_pairwise_dist_tensor_cores_repair_cancellation(gen, kind):
+    """The tensor-core variant on inputs made to cancel: its repair pass
+    flags pairs, and the result holds to float64 as the CUDA-core kernel's
+    does, with exactly 0.0 where a query is a corpus row."""
+    qs, x, same = _cancelling(kind, gen)
+    before = (pairwise_dist_cuda.launches_tc, pairwise_dist_cuda.launches_cc)
+    reset_flagged()
+    got = ops.pairwise_dist(qs, x)
+    torch.cuda.synchronize()
+    assert (pairwise_dist_cuda.launches_tc, pairwise_dist_cuda.launches_cc) \
+        == (before[0] + 1, before[1])
+    assert flagged_pairs() >= (1 if same is None else len(same))
+    exact = ((qs.double()[:, None] - x.double()[None]) ** 2).sum(-1)
+    torch.testing.assert_close(got.double(), exact, rtol=1e-5, atol=1e-4)
+    if same is not None:
+        assert got[torch.arange(len(same)), same].tolist() == [0.0] * len(same)
+
+
+def test_pairwise_dist_variants_by_shape(gen):
+    """The oracle's shape (256 queries against 100,000 rows at d = 12,288)
+    takes the tensor cores; d = 77 (rows TMA cannot describe) and ℓ1 the
+    CUDA cores."""
+    x = torch.randn((100_000, 12_288), generator=gen, device="cuda")
+    qs = torch.randn((256, 12_288), generator=gen, device="cuda")
+    counters = lambda: (pairwise_dist_cuda.launches_tc,
+                        pairwise_dist_cuda.launches_cc)
+    before = counters()
+    got = ops.pairwise_dist(qs, x)
+    torch.cuda.synchronize()
+    assert counters() == (before[0] + 1, before[1])
+    exact = ((qs[:8].double()[:, None] - x[:1000].double()[None]) ** 2).sum(-1)
+    torch.testing.assert_close(got[:8, :1000].double(), exact, rtol=1e-5,
+                               atol=1e-4)
+    del x, got
+    for metric, (Q, n, d) in (("l2", (70, 130, 77)), ("l1", (70, 130, 128))):
+        before = counters()
+        ops.pairwise_dist(torch.randn((Q, d), generator=gen, device="cuda"),
+                          torch.randn((n, d), generator=gen, device="cuda"),
+                          metric=metric)
+        assert counters() == (before[0], before[1] + 1)
+
+
+def _cuda_kernels_per_call(fn, calls: int = 10) -> float:
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.count for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(ev, "is_user_annotation", False)) / calls
+
+
+@pytest.mark.parametrize("arm_type", [torch.int64, torch.int32])
+@pytest.mark.parametrize("blk_type", [torch.int32, torch.int64])
+def test_block_pull_takes_its_ids_as_they_are(gen, arm_type, blk_type):
+    """One CUDA kernel a call (no conversion of the ids), whichever of int32
+    and int64 they are, and the same pulls as the plain version."""
+    x = torch.randn((1000, 1024), generator=gen, device="cuda")
+    q = torch.randn((1024,), generator=gen, device="cuda")
+    arm = torch.randint(0, 1000, (32,), generator=gen, device="cuda",
+                        dtype=arm_type)
+    blk = torch.randint(0, 8, (32, 2), generator=gen, device="cuda",
+                        dtype=blk_type)
+    run = lambda: block_pull_cuda(x, q, arm, blk, block=128)
+    assert _cuda_kernels_per_call(run) == 1.0
+    torch.testing.assert_close(run(), ref.block_pull_ref(x, q, arm, blk, 128),
+                               rtol=2e-4, atol=1e-5)
+
+
+def test_exact_evaluation_is_one_cuda_kernel(gen):
+    """The paper path's exact evaluation: one query against the rows its
+    int64 arm ids select, one CUDA kernel a call."""
+    x = torch.randn((1000, 16384), generator=gen, device="cuda")
+    q = torch.randn((16384,), generator=gen, device="cuda")
+    rows = x[torch.randint(0, 1000, (32,), generator=gen, device="cuda")]
+    assert _cuda_kernels_per_call(lambda: pairwise_dist_cuda(q[None], rows)) \
+        == 1.0
 
 
 def test_kernels_reject_unsupported_shapes(gen):
