@@ -33,6 +33,14 @@ Run from the root of a checkout. In order it:
    one with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|), its max and
    RMS errors at most twice the library call's, and in fp32 at 3e-5. The
    tensor-core kernel's SASS must hold HGMMA.
+   The two pull kernels are checked and timed on each of their schedules
+   (``kernels/pull_schedule.py``): an epoch or a round (the pair
+   schedule), the wide init with its arms one expanded vector (the rows
+   schedule, as the drivers pass them) and with a general (Q, n) arm
+   tensor (the pair schedule). Their rows also carry an L2 floor: the
+   bytes their schedule sends through L2 at the card's L2 read rate,
+   measured with ``csrc/l2_read.cu`` at buffers of 8 to 32 MB (five sets
+   each, all printed; the floor takes the fastest size's median).
    Where the plain version cannot hold the full shape, it is checked on
    the first queries or rows, as each row says;
 3. checks the fused path on a small input on the card against a brute
@@ -43,8 +51,9 @@ Run from the root of a checkout. In order it:
    force on the card), one phase per path, each with the launch counters of
    its kernels set to 0 just before and read just after:
    * main path: ``Index.build`` → ``Index.query`` (the fused driver, rotated
-     box), recall ≥ 0.99, then a second, traced query for the device-time
-     breakdown;
+     box), recall ≥ 0.99, the (Q, B, T) shapes of its pull launches, then
+     a second, traced query for the device-time breakdown, with the pull's
+     init launch apart from its epochs;
    * oracle: ``core.oracle.exact_knn`` of all queries, whose top-k sets
      must equal the brute force's (a disagreement passes only when a float64
      distance gap under 1e-4 relative, an fp32 near-tie, explains it); every
@@ -73,6 +82,7 @@ non-zero; so it does without a GPU or without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import functools
 import json
@@ -205,20 +215,93 @@ def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
 
 def pull_bound(x, arm, blk, block: int, out_floats: int = 2) -> tuple:
     """Least time for one pull launch (fused_epoch_pull, block_pull_multi):
-    each distinct corpus block and query block it needs read once, the
-    indices read once, the output (``out_floats`` fp32 per (q, arm))
-    written once; 3 flops per pulled element."""
+    each distinct corpus block and query block it needs read once (a
+    negative arm reads nothing), the indices read once, the output
+    (``out_floats`` fp32 per (q, arm)) written once; 3 flops per pulled
+    element."""
     import torch
     Q, B, T = blk.shape
     nb = x.shape[1] // block
+    live = (arm >= 0)[:, :, None].expand(Q, B, T)
     seen = torch.zeros(x.shape[0] * nb, dtype=torch.bool, device=x.device)
-    seen[(arm.long()[:, :, None] * nb + blk.long()).reshape(-1)] = True
+    seen[(arm.long()[:, :, None] * nb + blk.long())[live]] = True
     qseen = torch.zeros(Q * nb, dtype=torch.bool, device=x.device)
     qseen[(torch.arange(Q, device=x.device)[:, None, None] * nb
-           + blk.long()).reshape(-1)] = True
-    nbytes = ((int(seen.sum()) + int(qseen.sum())) * block * 4
+           + blk.long())[live]] = True
+    item = x.element_size()
+    nbytes = ((int(seen.sum()) + int(qseen.sum())) * block * item
               + arm.numel() * 4 + blk.numel() * 4 + Q * B * out_floats * 4)
-    return bound_ms(nbytes, 3.0 * Q * B * T * block)
+    return bound_ms(nbytes, 3.0 * int(live.sum()) * block)
+
+
+#: buffer sizes the L2 read rate is measured at: from inside one of the
+#: H100's two 25 MB L2 partitions to past it
+L2_BUFFERS_MB = (8, 16, 24, 32)
+#: bytes one launch of the L2 read reads, whatever the buffer: some 1 ms,
+#: so a launch's fixed cost does not lower the rate (at 20 reads of the
+#: buffer a launch, the rate rose with the buffer's size, 6.0 to 7.3 TB/s)
+L2_BYTES_A_LAUNCH = 8 * 2 ** 30
+
+
+def l2_read_rates(sets: int = 5) -> dict:
+    """Bytes a second the card reads out of its L2: ``csrc/l2_read.cu``
+    reading one buffer over and over, ``L2_BYTES_A_LAUNCH`` a launch
+    (16-byte loads past L1, four blocks of 512 threads an SM), for each
+    size in ``L2_BUFFERS_MB``: ``sets`` sets of 10 launches, each timed by
+    CUDA events after a warm-up. Returns every set's rate by size and, as
+    ``rate``, the largest of the sizes' medians: a floor is priced at the
+    fastest rate the card showed."""
+    import ctypes
+    import statistics
+    import torch
+    from repro_torch.kernels import _build
+    entry = _build.Entry("l2_read", "l2_read",
+                         [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.empty(blocks * 512, dtype=torch.int32, device="cuda")
+    by_mb = {}
+    for mb in L2_BUFFERS_MB:
+        buf = torch.randn(mb * 2 ** 20 // 4, device="cuda")
+        reps = L2_BYTES_A_LAUNCH // (mb * 2 ** 20)
+        run = lambda: _build.launch(entry, buf.get_device(), "l2_read",
+                                    buf.data_ptr(), buf.numel() // 4, reps,
+                                    blocks, out.data_ptr())
+        by_mb[mb] = [buf.numel() * 4 * reps / (cuda_ms(run, reps=10,
+                                                       warmup=3) / 1e3)
+                     for _ in range(sets)]
+        del buf
+    return {"rate": max(map(statistics.median, by_mb.values())),
+            "by_buffer_mb": by_mb}
+
+
+def pull_l2_floor(x, arm, blk, block: int, schedule: str, kernel: str,
+                  rate: float, out_floats: int = 2) -> float:
+    """Least time for the bytes a pull launch's schedule moves between L2
+    and the SMs, at the card's L2 read rate ``rate`` (``l2_read_rates``),
+    for the arms that read (0 ≤ arm < n): rows, each query slice the pulls
+    need and each arm's row once; fused_epoch_pull's pair schedule, each
+    pair's distinct corpus blocks and each query row once, its block ids
+    twice (marked, then folded); block_pull_multi's pair schedule, both
+    slices of every pull. Ids and outputs once besides."""
+    import torch
+    Q, B, T = blk.shape
+    item = x.element_size()
+    reads = (arm >= 0) & (arm < x.shape[0])
+    pulls = int(reads.sum()) * T
+    ids = arm.numel() * 4 + blk.numel() * 4
+    nbytes = ids + Q * B * out_floats * 4
+    if schedule == "rows":
+        nbytes += pulls * block * item + int(reads[0].sum()) * x.shape[1] * item
+    elif kernel == "fused_epoch_pull":
+        srt = torch.sort(blk, dim=-1).values
+        distinct = 1 + (srt[..., 1:] != srt[..., :-1]).sum(-1)
+        nbytes += int(distinct[reads].sum()) * block * item \
+            + Q * x.shape[1] * item + blk.numel() * 4
+        del srt, distinct
+    else:
+        nbytes += 2 * pulls * block * item
+    return nbytes / rate * 1e3
 
 
 def pairwise_bound(Q: int, n: int, d: int, variant: str) -> dict:
@@ -469,85 +552,85 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     qs = torch.randn((Q, d_pad), generator=g, device="cuda")
     results = {"fused_epoch_pull": [], "fwht": []}
 
-    # --- fused_epoch_pull: one epoch (B = batch_arms, T = R_cap·P) ----------
-    arm = torch.randint(0, cap, (Q, B), generator=g, device="cuda",
-                        dtype=torch.int32)
-    blk = torch.randint(0, nb, (Q, B, T), generator=g, device="cuda",
-                        dtype=torch.int32)
-    for metric in ("l2", "l1"):
-        run = lambda: fused_epoch_pull_cuda(x, qs, arm, blk, block=block,
-                                            metric=metric)
-        plain = lambda: ref.fused_epoch_pull_ref(x, qs, arm, blk, block,
-                                                 metric)
-        row = {"kernel": "fused_epoch_pull", "case": "epoch", "metric": metric,
-               "shape": {"Q": Q, "B": B, "T": T, "block": block,
-                         "d_pad": d_pad, "n": cap}}
-        row.update(compare(f"fused_epoch_pull epoch {metric}", run(), plain(),
-                           rtol=2e-4, atol=1e-5))
-        row["ms"] = cuda_ms(run, reps=20)
-        row["device_ms"] = device_ms(run, "fused_epoch_pull_kernel")
-        row["plain_ms"] = cuda_ms(plain, reps=3, warmup=1)
-        row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block)
-        row["library_ms"] = None
-        results["fused_epoch_pull"].append(row)
-        emit(row)
-
-    # --- fused_epoch_pull: the wide init (every arm of every query) ---------
-    T0, Qs = 2, 16
-    arm = torch.arange(cap, dtype=torch.int32, device="cuda")[None].expand(Q, cap)
-    blk = torch.randint(0, nb, (Q, cap, T0), generator=g, device="cuda",
-                        dtype=torch.int32)
-    run = lambda: fused_epoch_pull_cuda(x, qs, arm, blk, block=block)
-    plain = lambda: ref.fused_epoch_pull_ref(x, qs[:Qs], arm[:Qs], blk[:Qs],
-                                             block)
-    row = {"kernel": "fused_epoch_pull", "case": "init", "metric": "l2",
-           "shape": {"Q": Q, "B": cap, "T": T0, "block": block,
-                     "d_pad": d_pad, "n": cap},
-           "plain_checked_on_queries": Qs}
-    row.update(compare("fused_epoch_pull init", run()[:Qs], plain(),
-                       rtol=2e-4, atol=1e-5))
-    row["ms"] = cuda_ms(run, reps=3, warmup=1)
-    row["device_ms"] = device_ms(run, "fused_epoch_pull_kernel", reps=2)
-    row["plain_ms_first_queries"] = cuda_ms(plain, reps=2, warmup=1)
-    row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block)
-    row["library_ms"] = None
-    results["fused_epoch_pull"].append(row)
-    emit(row)
-
-    # --- block_pull_multi: one round of the per-round driver (B = batch_arms,
-    # P = pulls_per_round), and its wide init (every arm of every query) -----
-    P = 2
+    # --- the two pull kernels, each schedule: an epoch or a round (random
+    # arms a query: the pair schedule), and the wide init with every query's
+    # arms one expanded vector (the rows schedule, as the drivers pass it)
+    # and as a general (Q, n) tensor (the pair schedule) -------------------
+    l2 = l2_read_rates()
+    rate = l2["rate"]
+    results["l2_read_bytes_per_s"] = rate
+    results["l2_read_bytes_per_s_by_buffer_mb"] = l2["by_buffer_mb"]
+    emit({"l2_read_bytes_per_s": rate,
+          "l2_read_bytes_per_s_by_buffer_mb": l2["by_buffer_mb"],
+          "how": f"csrc/l2_read.cu: each buffer read over and over, "
+                 f"{L2_BYTES_A_LAUNCH} bytes a launch, 5 sets of 10 "
+                 f"launches; the rate is the largest size's median"})
+    P, T0, Qs = 2, 2, 16
     results["block_pull_multi"] = []
-    for case, Bc, Qs in (("round", B, Q), ("init", cap, 16)):
-        if case == "round":
+    expanded = torch.arange(cap, dtype=torch.int32, device="cuda")[None].expand(
+        Q, cap)
+    for kernel, case, Bc, Tc in (
+            ("fused_epoch_pull", "epoch", B, T),
+            ("fused_epoch_pull", "init", cap, T0),
+            ("fused_epoch_pull", "init_general_arms", cap, T0),
+            ("block_pull_multi", "round", B, P),
+            ("block_pull_multi", "init", cap, P),
+            ("block_pull_multi", "init_general_arms", cap, P)):
+        if case in ("epoch", "round"):
             arm = torch.randint(0, cap, (Q, Bc), generator=g, device="cuda",
                                 dtype=torch.int32)
+        elif case == "init":
+            arm = expanded
         else:
-            arm = torch.arange(cap, dtype=torch.int32,
-                               device="cuda")[None].expand(Q, cap)
-        blk = torch.randint(0, nb, (Q, Bc, P), generator=g, device="cuda",
+            arm = expanded.contiguous()
+        blk = torch.randint(0, nb, (Q, Bc, Tc), generator=g, device="cuda",
                             dtype=torch.int32)
-        run = lambda: block_pull_multi_cuda(x, qs, arm, blk, block=block)
-        plain = lambda: ref.block_pull_multi_ref(x, qs[:Qs], arm[:Qs],
-                                                 blk[:Qs], block)
-        row = {"kernel": "block_pull_multi", "case": case, "metric": "l2",
-               "shape": {"Q": Q, "B": Bc, "P": P, "block": block,
-                         "d_pad": d_pad, "n": cap}}
-        if Qs < Q:
-            row["plain_checked_on_queries"] = Qs
-        row.update(compare(f"block_pull_multi {case}", run()[:Qs], plain(),
-                           rtol=2e-4, atol=1e-5))
-        row["ms"] = cuda_ms(run, reps=20 if case == "round" else 3,
-                            warmup=2 if case == "round" else 1)
-        row["device_ms"] = device_ms(run, "block_pull_kernel",
-                                     reps=20 if case == "round" else 2)
-        row["plain_ms" if Qs == Q else "plain_ms_first_queries"] = cuda_ms(
-            plain, reps=3, warmup=1)
-        row["bound_ms"], row["bound_by"] = pull_bound(x, arm, blk, block,
-                                                      out_floats=P)
-        row["library_ms"] = None
-        results["block_pull_multi"].append(row)
-        emit(row)
+        wide = Bc == cap
+        sub = Qs if wide else Q      # the plain version's share of queries
+        if kernel == "fused_epoch_pull":
+            wrapper, symbol, out_floats = fused_epoch_pull_cuda, kernel, 2
+            plain_fn = ref.fused_epoch_pull_ref
+        else:
+            wrapper, symbol, out_floats = block_pull_multi_cuda, "block_pull", Tc
+            plain_fn = ref.block_pull_multi_ref
+        metrics = ("l2", "l1") if case == "epoch" else ("l2",)
+        for metric in metrics:
+            run = lambda: wrapper(x, qs, arm, blk, block=block, metric=metric)
+            plain = lambda: plain_fn(x, qs[:sub], arm[:sub], blk[:sub], block,
+                                     metric)
+            before = (wrapper.launches_rows, wrapper.launches_pair)
+            got = run()
+            schedule = "rows" if wrapper.launches_rows > before[0] else "pair"
+            row = {"kernel": kernel, "case": case, "metric": metric,
+                   "schedule": schedule,
+                   "shape": {"Q": Q, "B": Bc,
+                             ("T" if kernel == "fused_epoch_pull" else "P"): Tc,
+                             "block": block, "d_pad": d_pad, "n": cap},
+                   "arms": {"epoch": "random", "round": "random",
+                            "init": "one vector expanded to (Q, n)"}.get(
+                                case, "a contiguous (Q, n) tensor")}
+            if wide:
+                row["plain_checked_on_queries"] = sub
+            row.update(compare(f"{kernel} {case} {metric}", got[:sub], plain(),
+                               rtol=2e-4, atol=1e-5))
+            del got
+            # a round's call is host-bound: warmed up as block_pull's round
+            row["ms"] = cuda_ms(run, reps=3 if wide else 200 if case == "round"
+                                else 20, warmup=1 if wide else 50)
+            row["device_ms"] = device_ms(run, symbol, reps=2 if wide else 20)
+            row["plain_ms" if sub == Q else "plain_ms_first_queries"] = \
+                cuda_ms(plain, reps=2 if wide else 3, warmup=1)
+            row["bound_ms"], row["bound_by"] = pull_bound(
+                x, arm, blk, block, out_floats=out_floats)
+            row["l2_floor_ms"] = pull_l2_floor(x, arm, blk, block, schedule,
+                                               kernel, rate, out_floats)
+            row["library_ms"] = None
+            results[kernel].append(row)
+            emit(row)
+        del arm, blk
+        torch.cuda.empty_cache()
+    del expanded
+    torch.cuda.empty_cache()
 
     # --- block_pull: one query's round (the paper path) and its wide init
     # over the 100,000 rows of the paper path's corpus -----------------------
@@ -780,6 +863,7 @@ def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
     import torch
     from repro_torch.api import Index
     from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
     from repro_torch.kernels.fwht import fwht_cuda
 
@@ -788,19 +872,32 @@ def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     times = {}
 
+    shapes = collections.Counter()    # (Q, B, T) of each pull launch
+    pull = kops.fused_epoch_pull
+
+    def recorded(x, qs, arm_idx, blk_idx, **kw):
+        shapes[tuple(blk_idx.shape)] += 1
+        return pull(x, qs, arm_idx, blk_idx, **kw)
+
     def run():
         t = time.perf_counter()
         idx = Index.build(corpus, cfg, seed)
         torch.cuda.synchronize()
         times["build_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        res = idx.query(queries, seed)          # returns host arrays: synced
-        times["query_s"] = time.perf_counter() - t
+        kops.fused_epoch_pull = recorded
+        try:
+            t = time.perf_counter()
+            res = idx.query(queries, seed)      # returns host arrays: synced
+            times["query_s"] = time.perf_counter() - t
+        finally:
+            kops.fused_epoch_pull = pull
         return idx, res
 
     (idx, res), launches = counted(
         "main", {"fused_epoch_pull": fused_epoch_pull_cuda, "fwht": fwht_cuda},
         run)
+    by_schedule = {"rows": fused_epoch_pull_cuda.launches_rows,
+                   "pair": fused_epoch_pull_cuda.launches_pair}
     out = {
         "phase": "main_path", "workload": DENSE.name, "n": n, "d": d,
         "queries": Q, "k": cfg.k, "delta": cfg.delta, "block": cfg.block,
@@ -812,6 +909,10 @@ def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
         "rounds_mean": float(np.mean(res.rounds)),
         "n_exact_mean": float(np.mean(res.n_exact)),
         "launches": launches,
+        "fused_epoch_pull_by_schedule": by_schedule,
+        "fused_epoch_pull_shapes_QBT": [
+            {"Q": q, "B": b, "T": t_, "launches": c}
+            for (q, b, t_), c in sorted(shapes.items())],
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     out["traced"] = traced_query(idx, queries, seed)
@@ -925,6 +1026,9 @@ def rounds_phase(idx, queries, truth, seed: int) -> dict:
             "coord_ops_share_of_nd": float(np.mean(res.coord_ops)) / (n * d),
             "n_exact_mean": float(np.mean(res.n_exact)),
             "launches": launches,
+            "block_pull_multi_by_schedule": {
+                "rows": block_pull_multi_cuda.launches_rows,
+                "pair": block_pull_multi_cuda.launches_pair},
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -1261,10 +1365,23 @@ def traced_query(idx, queries, seed: int) -> dict:
     rows = kernel_breakdown(prof)
     busy = sum(r["device_ms"] for r in rows)
     ours = [r for r in rows
-            if "fused_epoch_pull_kernel" in r["name"] or "fwht_kernel" in r["name"]]
+            if "fused_epoch_pull" in r["name"] or "fwht_kernel" in r["name"]]
+    # fused_epoch_pull's launches in the order they ran: the first is the
+    # wide init, the rest the epochs
+    pulls = sorted((ev.time_range.start, ev.time_range.end, ev.name)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "fused_epoch_pull" in ev.name)
+    init = pulls[0] if pulls else None
+    epochs = [(t1 - t0) / 1e3 for t0, t1, _ in pulls[1:]]
+    split = {"init_device_ms": (init[1] - init[0]) / 1e3 if init else None,
+             "init_kernel": init[2] if init else None,
+             "epochs": len(epochs), "epochs_device_ms": sum(epochs),
+             "epoch_device_ms_max": max(epochs, default=None)}
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "port_kernels": ours, "top": rows[:15]}
+            "fused_epoch_pull": split, "port_kernels": ours,
+            "top": rows[:15]}
 
 
 # name, source, the TPU kernel it replaces, the paths that launch it; the

@@ -350,8 +350,11 @@ def _fused_init(x, qs, alive, prior_var, sample_blocks: BlockSampler, *,
         n_alive, min=1.0)
 
     all_arms = torch.arange(n, dtype=torch.int32, device=dev)[None].expand(Q, n)
+    # the draw keeps the reference's (Q, n, T0) shape; a padding or dead row
+    # pulls nothing (arm id −1), and the masked merge below drops its result
+    live_arms = torch.where(alive, all_arms[0], -1)[None].expand(Q, n)
     blk = sample_blocks((Q, n, T0), nb)
-    stats = kops.fused_epoch_pull(x, qs, all_arms, blk, block=block,
+    stats = kops.fused_epoch_pull(x, qs, live_arms, blk, block=block,
                                   metric=cfg.metric, impl=impl,
                                   n_buf=cfg.kernel_buffers)
     zeros = torch.zeros((Q, n), dtype=torch.float32, device=dev)

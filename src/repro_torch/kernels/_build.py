@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, ``build/<name>-<hash>.so`` at the
 root of the checkout, and loaded with ``ctypes``. The hash covers the
-source and the flags, so an edit rebuilds and an unchanged source is
-reused. All sources compile in parallel, one ``nvcc`` each, on the first
-call that needs any of them. Nothing here runs at import time: a machine
-without ``nvcc`` imports the package and runs the plain versions on the CPU.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edit
+rebuilds and an unchanged source is reused. All sources compile in
+parallel, one ``nvcc`` each, on the first call that needs any of them.
+Nothing here runs at import time: a machine without ``nvcc`` imports the
+package and runs the plain versions on the CPU.
 
 ``Entry`` and ``launch`` are every wrapper's call path, kept short because
 the paper path's kernels (``block_pull``, ``pairwise_dist``) take a few µs
@@ -54,6 +55,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared headers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

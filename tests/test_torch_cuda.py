@@ -137,6 +137,165 @@ def test_block_pull_flags_out_of_range_ids(gen):
     assert torch.isfinite(out[0, 0]).all() and torch.isfinite(out[1, 1]).all()
 
 
+# --- the pull kernels' two schedules (kernels/pull_schedule.py) ------------
+
+def _pull_case(gen, Q, n, d, block, B, T, dtype=torch.float32, shared=True):
+    """Operands with a negative arm (0 or (0, 0)), an arm past the corpus
+    (NaN) and a block past the row (NaN for its pull); the arms either one
+    vector every query shares (expanded) or one row per query. Returns the
+    operands and what the plain version is given in the bad lanes' place."""
+    x = torch.randn((n, d), generator=gen, device="cuda").to(dtype)
+    qs = torch.randn((Q, d), generator=gen, device="cuda").to(dtype)
+    nb = d // block
+    if shared:
+        vec = torch.randint(0, n, (B,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        vec[1], vec[3] = -1, n
+        arm = vec[None].expand(Q, B)
+    else:
+        arm = torch.randint(0, n, (Q, B), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        arm[:, 1], arm[:, 3] = -1, n
+    blk = torch.randint(0, nb, (Q, B, T), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    blk[Q - 1, B - 1, T - 1] = nb
+    plain_arm = torch.where(arm >= n, -1, arm)
+    plain_blk = torch.clamp(blk, max=nb - 1)
+    return x, qs, arm, blk, plain_arm, plain_blk
+
+
+def _hold_to_plain(got, want, arm, n, blk, nb, per_pull):
+    """Negative arms give 0, bad lanes NaN, the rest the plain version's
+    values at rtol 2e-4 / atol 1e-5."""
+    bad_blk = blk >= nb
+    nan = (arm >= n)[..., None] | (bad_blk if per_pull
+                                   else bad_blk.any(-1, keepdim=True))
+    nan = nan.expand_as(got)
+    assert torch.isnan(got[nan]).all()
+    assert (got[(arm < 0)[..., None].expand_as(got)] == 0).all()
+    torch.testing.assert_close(got[~nan], want[~nan], rtol=2e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("schedule", ["rows", "pair"])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("T", [1, 7])
+def test_fused_epoch_pull_schedules_match_plain(gen, schedule, block, metric,
+                                                T):
+    n, d = 40, 1024
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 5, n, d, block, 9, T)
+    counter = f"launches_{schedule}"
+    before = getattr(fused_epoch_pull_cuda, counter)
+    got = fused_epoch_pull_cuda(x, qs, arm, blk, block=block, metric=metric,
+                                _schedule=schedule)
+    torch.cuda.synchronize()
+    assert getattr(fused_epoch_pull_cuda, counter) == before + 1
+    want = ref.fused_epoch_pull_ref(x, qs, parm, pblk, block, metric)
+    _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=False)
+
+
+@pytest.mark.parametrize("n_buf", [2, 3, 8])
+@pytest.mark.parametrize("shared", [False, True], ids=["general", "expanded"])
+@pytest.mark.parametrize("B,T", [(37, 128), (5, 2), (64, 33)])
+def test_fused_epoch_pull_pair_streaming_depth(gen, n_buf, shared, B, T):
+    """The pair schedule at n_buf slots an arm, over arm sets that fill and
+    do not fill a block's warps, with T above and below the blocks a row
+    holds (128 at d_pad 16,384, block 128): its distinct blocks read once."""
+    n, d, block = 300, 16384, 128
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 3, n, d, block, B, T,
+                                             shared=shared)
+    got = fused_epoch_pull_cuda(x, qs, arm, blk, block=block, n_buf=n_buf,
+                                _schedule="pair")
+    want = ref.fused_epoch_pull_ref(x, qs, parm, pblk, block)
+    _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=False)
+
+
+@pytest.mark.parametrize("schedule", ["rows", "pair"])
+@pytest.mark.parametrize("block", [32, 64, 128, 256])
+@pytest.mark.parametrize("metric", ["l2", "l1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P", [1, 3])
+def test_block_pull_multi_schedules_match_plain(gen, schedule, block, metric,
+                                                dtype, P):
+    n, d = 40, 1024
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 5, n, d, block, 9, P,
+                                             dtype=dtype)
+    counter = f"launches_{schedule}"
+    before = getattr(block_pull_multi_cuda, counter)
+    got = block_pull_multi_cuda(x, qs, arm, blk, block=block, metric=metric,
+                                _schedule=schedule)
+    torch.cuda.synchronize()
+    assert getattr(block_pull_multi_cuda, counter) == before + 1
+    want = ref.block_pull_multi_ref(x, qs, parm, pblk, block, metric)
+    _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=True)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 16384),
+                                     (torch.bfloat16, 16384),
+                                     (torch.bfloat16, 32768)])
+def test_pull_rows_schedule_stages_wide_rows(gen, dtype, d):
+    """One staged row a block takes d·itemsize of dynamic shared memory: 64
+    KB at fp32 and d_pad 16,384 or at bf16 and 32,768, above the 48 KB
+    default (32 KB at bf16 and 16,384, below it)."""
+    n, block = 50, 128
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 4, n, d, block, 11, 2,
+                                             dtype=dtype)
+    got = block_pull_multi_cuda(x, qs, arm, blk, block=block,
+                                _schedule="rows")
+    want = ref.block_pull_multi_ref(x, qs, parm, pblk, block)
+    _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=True)
+    if dtype == torch.float32:
+        got = fused_epoch_pull_cuda(x, qs, arm, blk, block=block,
+                                    _schedule="rows")
+        want = ref.fused_epoch_pull_ref(x, qs, parm, pblk, block)
+        _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=False)
+
+
+@pytest.mark.parametrize("n_buf", [2, 8])
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("T", [1, 7, 300])
+def test_fused_epoch_pull_pair_reads_unstaged_query_slices(gen, n_buf, block,
+                                                           T):
+    """A 256 KB fp32 row does not fit in shared memory: the pair schedule
+    streams the corpus slices through its ring and reads the query slices
+    from device memory."""
+    n, d = 8, 65536
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 2, n, d, block, 6, T,
+                                             shared=False)
+    got = fused_epoch_pull_cuda(x, qs, arm, blk, block=block, n_buf=n_buf)
+    want = ref.fused_epoch_pull_ref(x, qs, parm, pblk, block)
+    _hold_to_plain(got, want, arm, n, blk, d // block, per_pull=False)
+
+
+def test_pull_schedules_follow_the_operands(gen):
+    """An expanded arm tensor at a wide init's proportions takes the rows
+    schedule, a general one the pair schedule; a row too wide for shared
+    memory takes the pair schedule with the query slices read from device
+    memory, and cannot be forced onto rows."""
+    n, d, block = 64, 1024, 32
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 64, n, d, block, 16, 2)
+    counts = lambda w: (w.launches_rows, w.launches_pair)
+    for wrapper, plain, per_pull in (
+            (fused_epoch_pull_cuda, ref.fused_epoch_pull_ref, False),
+            (block_pull_multi_cuda, ref.block_pull_multi_ref, True)):
+        for a, pa, which in ((arm, parm, 0), (arm.contiguous(),
+                                              parm.contiguous(), 1)):
+            before = counts(wrapper)
+            got = wrapper(x, qs, a, blk, block=block)
+            after = counts(wrapper)
+            assert after[which] == before[which] + 1
+            assert after[1 - which] == before[1 - which]
+            _hold_to_plain(got, plain(x, qs, pa, pblk, block), a, n, blk,
+                           d // block, per_pull)
+    wide = 65536                                  # a 256 KB fp32 row
+    x, qs, arm, blk, parm, pblk = _pull_case(gen, 2, 8, wide, 128, 6, 3)
+    got = fused_epoch_pull_cuda(x, qs, arm, blk, block=128)
+    _hold_to_plain(got, ref.fused_epoch_pull_ref(x, qs, parm, pblk, 128),
+                   arm, 8, blk, wide // 128, per_pull=False)
+    with pytest.raises(ValueError, match="rows schedule"):
+        fused_epoch_pull_cuda(x, qs, arm, blk, block=128, _schedule="rows")
+
+
 def _pairwise_close(got, want, qs, x, metric):
     if metric == "l1":
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)

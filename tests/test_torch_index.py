@@ -169,6 +169,54 @@ def test_replayed_race_makes_the_reference_decisions(case, compaction):
     _assert_same_race(*_race_both(jstore, store, queries, compaction))
 
 
+def test_fused_init_pulls_no_padding_rows(monkeypatch):
+    """At capacity > n (3,000 rows pad to 4,096) the wide init gives the
+    pull arm id −1 for every padding row, so it reads none of them, while
+    the (Q, n, T0) draw keeps the reference's shape. The replayed race
+    still makes the reference's decisions, and its state is bit for bit
+    the one of an init that pulls the padding rows too."""
+    from repro_torch.index import batched_race
+    corpus, queries = jsynthetic.make_knn_benchmark_data("dense", 3000, 256,
+                                                         4, seed=3)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**_cfg_kw(False)),
+                             jax.random.PRNGKey(0))
+    store = IndexStore.from_arrays(*_carry(jstore), device="cpu")
+    assert (store.n_live, store.capacity) == (3000, 4096)
+    pull = batched_race.kops.fused_epoch_pull
+    seen = []
+
+    def spy(x, qs, arm_idx, blk_idx, **kw):
+        if not seen:                                 # the init's launch
+            seen.append((arm_idx.clone(), tuple(blk_idx.shape),
+                         arm_idx.stride()))
+        return pull(x, qs, arm_idx, blk_idx, **kw)
+
+    monkeypatch.setattr(batched_race.kops, "fused_epoch_pull", spy)
+    want, got = _race_both(jstore, store, queries, True)
+    _assert_same_race(want, got)
+    arm, blk_shape, stride = seen[0]
+    Q, cap = arm.shape
+    assert blk_shape[:2] == (Q, cap) and stride[0] == 0
+    assert (arm[:, 3000:] == -1).all()
+    assert torch.equal(arm[:, :3000],
+                       torch.arange(3000, dtype=arm.dtype).expand(Q, 3000))
+
+    def padded(x, qs, arm_idx, blk_idx, **kw):      # every row pulled
+        if blk_idx.shape[1] == cap:                  # the init's launch
+            arm_idx = torch.arange(arm_idx.shape[1], dtype=arm_idx.dtype
+                                   )[None].expand_as(arm_idx)
+        return pull(x, qs, arm_idx, blk_idx, **kw)
+
+    monkeypatch.setattr(batched_race.kops, "fused_epoch_pull", padded)
+    _, again = _race_both(jstore, store, queries, True)
+    (res, st), (res2, st2) = got, again
+    for a, b in ((res.indices, res2.indices), (res.values, res2.values),
+                 (res.rounds, res2.rounds), (res.coord_ops, res2.coord_ops),
+                 (st.mean, st2.mean), (st.m2, st2.m2), (st.count, st2.count),
+                 (st.accepted, st2.accepted), (st.ids, st2.ids)):
+        assert torch.equal(a, b)
+
+
 def test_replayed_race_with_tombstones_and_k_override():
     """Dead slots carried across through ``alive`` are never returned, and
     a k override races the same in both packages."""

@@ -117,9 +117,15 @@ def block_pull_parts(x, q, arm, blk, block: int) -> dict:
     fn = _ENTRY.fn or _ENTRY.resolve()
     out = torch.empty(blk.shape, device=x.device)
     B, P = blk.shape
-    args = [x.data_ptr(), q.data_ptr(), arm.data_ptr(), blk.data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1], 1, B, P, block, 0, 0, 1,
-            0, _build._raw_stream(x.get_device())]
+    ptrs = [x.data_ptr(), q.data_ptr(), arm.data_ptr(), blk.data_ptr(),
+            out.data_ptr(), x.shape[0], x.shape[1], 1, B, P]
+    # block, metric, dtype and id types; a tree with the rows schedule also
+    # takes the arm stride (after P) and the schedule (0: pair)
+    if len(_ENTRY.argtypes) == 17:
+        args = ptrs + [block, 0, 0, 1, 0]
+    else:
+        args = ptrs + [0, block, 0, 0, 1, 0, 0]
+    args.append(_build._raw_stream(x.get_device()))
     nothing = list(args)
     nothing[7] = 0                       # Q = 0: returns before launching
     return {"call": "block_pull_cuda parts (host clock, µs a call)",
