@@ -32,7 +32,10 @@ Run from the root of a checkout. In order it:
    ulp plus 6·2⁻⁸ times each output's rounding spread, and against the
    one with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|), its max and
    RMS errors at most twice the library call's, and in fp32 at 3e-5. The
-   tensor-core kernel's SASS must hold HGMMA.
+   tensor-core kernel's SASS must hold HGMMA. The transform's rows also
+   carry its achieved bytes/s and share of the bound, its plan as the
+   kernel reports it (blocks an SM by the occupancy calculator), and
+   ptxas's registers and spills (a spill fails the run).
    The two pull kernels are checked and timed on each of their schedules
    (``kernels/pull_schedule.py``): an epoch or a round (the pair
    schedule), the wide init with its arms one expanded vector (the rows
@@ -53,7 +56,8 @@ Run from the root of a checkout. In order it:
    * main path: ``Index.build`` → ``Index.query`` (the fused driver, rotated
      box), recall ≥ 0.99, the (Q, B, T) shapes of its pull launches, then
      a second, traced query for the device-time breakdown, with the pull's
-     init launch apart from its epochs;
+     init launch apart from its epochs, and a second, traced build (device
+     time by kernel, the five largest);
    * oracle: ``core.oracle.exact_knn`` of all queries, whose top-k sets
      must equal the brute force's (a disagreement passes only when a float64
      distance gap under 1e-4 relative, an fp32 near-tie, explains it); every
@@ -406,6 +410,57 @@ def sass_check(stem: str) -> dict:
     return out
 
 
+def ptxas_functions(stem: str) -> dict:
+    """What ptxas said (``-v``) about each kernel of ``csrc/<stem>.cu``:
+    {mangled name: registers, static shared bytes, stack, spill stores and
+    loads}; empty where the library was built by an earlier run that kept
+    no log."""
+    import re
+    from repro_torch.kernels import _build
+    log = _build.build_log.get(stem, {}).get("log") or ""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": None, "smem_static_bytes": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[name]["smem_static_bytes"] = int(m.group(1))
+    return out
+
+
+def fwht_kernel_report(d: int, dtype) -> dict:
+    """The fwht kernel that (d, dtype) launches: its plan as the kernel
+    reports it (E, threads, rows a block, dynamic shared bytes, blocks an
+    SM by the occupancy calculator) and ptxas's registers and spills for
+    its instantiation (``fwht_kernel_{wide,narrow}<type, log2 d>``)."""
+    import torch
+    from repro_torch.kernels.fwht import kernel_plan
+    plan = kernel_plan(d, dtype)
+    marker = ("If" if dtype == torch.float32 else "I13__nv_bfloat16") + \
+        f"Li{d.bit_length() - 1}E"
+    found = {name: info for name, info in ptxas_functions("fwht").items()
+             if "fwht_kernel" in name and marker in name}
+    out = {"plan": plan, "ptxas": found or None}
+    if any(info.get("spill_store_bytes") or info.get("spill_load_bytes")
+           for info in found.values()):
+        raise AssertionError(f"fwht d={d} {dtype}: ptxas spills: {found}")
+    return out
+
+
 def flash_rows(g) -> list:
     """flash_attention at one layer of the LM path (qwen2.5-14b's 40 query
     and 8 KV heads of 128 over 4 × 4,096 tokens, bf16, causal: the
@@ -685,6 +740,10 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             row["device_ms"] = device_ms(run, "fwht_kernel")
             row["plain_ms"] = cuda_ms(plain, reps=2, warmup=1)
             row["bound_ms"], row["bound_by"] = fwht_bound(xin)
+            nbytes = 2.0 * xin.numel() * xin.element_size()
+            row["achieved_bytes_per_s"] = nbytes / (row["device_ms"] * 1e-3)
+            row["share_of_bound"] = row["bound_ms"] / row["device_ms"]
+            row["compiled"] = fwht_kernel_report(d_pad, dtype)
             row["library_ms"] = None
             if rows == Q and dtype == torch.float32:
                 # yardstick only: one dense matmul against H/√d, full fp32
@@ -916,6 +975,7 @@ def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     out["traced"] = traced_query(idx, queries, seed)
+    out["traced_build"] = traced_build(corpus, cfg, seed)
     return out, idx
 
 
@@ -1384,6 +1444,30 @@ def traced_query(idx, queries, seed: int) -> dict:
             "top": rows[:15]}
 
 
+def traced_build(corpus, cfg, seed: int) -> dict:
+    """``Index.build`` once more under torch.profiler (the timed build is
+    not traced): device time by kernel name, the five largest, and the
+    device's idle share of its wall time. The allocator keeps the build's
+    freed blocks cached, as it does after the timed build, so the oracle
+    phase that follows allocates as it did before this trace was added."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import Index
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        idx = Index.build(corpus, cfg, seed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    del idx
+    rows = kernel_breakdown(prof)
+    busy = sum(r["device_ms"] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "top": rows[:5]}
+
+
 # name, source, the TPU kernel it replaces, the paths that launch it; the
 # summary takes each kernel's first kernel-phase row (its path's per-call
 # shape) and the launches of its paths
@@ -1469,8 +1553,10 @@ def main() -> int:
                           "False for matmul and cuDNN"})
     report["main_path"], idx = main_path_phase(corpus, queries, truth,
                                                args.seed)
-    emit({k: v for k, v in report["main_path"].items() if k != "traced"})
+    emit({k: v for k, v in report["main_path"].items()
+          if k not in ("traced", "traced_build")})
     emit({"phase": "traced_query", **report["main_path"]["traced"]})
+    emit({"phase": "traced_build", **report["main_path"]["traced_build"]})
     report["oracle"] = oracle_phase(corpus, queries, truth)
     emit(report["oracle"])
     Qr = args.rounds_queries

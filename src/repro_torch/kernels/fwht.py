@@ -1,7 +1,8 @@
 """The normalized fast Walsh–Hadamard transform on the card: wrapper around
 the CUDA kernel in ``csrc/fwht.cu`` (the port of the TPU kernel
-``repro/kernels/fwht.py``; see the source for its design). The plain
-version is ``ref.fwht_ref``."""
+``repro/kernels/fwht.py``; see the source for its design, and
+``kernels/fwht_plan.py`` for the plan it launches with). The plain version
+is ``ref.fwht_ref``."""
 from __future__ import annotations
 
 import ctypes
@@ -9,8 +10,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.fwht_plan import plan
 
-MAX_D = 32768
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -22,15 +23,13 @@ _ENTRY = _build.Entry("fwht", "fwht_rows",
 def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
     """x (..., d) fp32 or bf16 on a CUDA device, d a power of two ≤ 32768
     → FWHT(x)/√d along the last axis, in x's type."""
-    d = x.shape[-1]
     if not x.is_cuda:
         raise ValueError("fwht_cuda needs a CUDA tensor")
-    if x.dtype not in DTYPES:
-        raise ValueError(f"fwht_cuda takes fp32 or bf16, got {x.dtype}")
-    if d < 2 or d > MAX_D or d & (d - 1):
-        raise ValueError(f"d={d}: the kernel takes a power of two in "
-                         f"[2, {MAX_D}]")
+    d = x.shape[-1]
+    plan(d, x.dtype)                      # raises on a d or type it lacks
     src = x.contiguous()
+    if src.data_ptr() % 16:               # a view that starts mid-vector
+        src = src.clone()
     out = torch.empty_like(src)
     rows = src.numel() // d
     if rows == 0:
@@ -42,3 +41,19 @@ def fwht_cuda(x: torch.Tensor) -> torch.Tensor:
 
 
 fwht_cuda.launches = 0
+
+
+def kernel_plan(d: int, dtype: torch.dtype) -> dict:
+    """The plan ``csrc/fwht.cu`` launches with for (d, dtype) on the current
+    device, as the kernel reports it, with the blocks an SM holds at once
+    (the occupancy calculator, from ptxas's registers and the shared
+    memory)."""
+    out = (ctypes.c_int * 5)()
+    fn = _build.library("fwht").fwht_plan_of
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(d, DTYPES[dtype], ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"fwht_plan_of: CUDA error {rc}")
+    return dict(zip(("E", "threads", "rows_per_block", "smem",
+                     "blocks_per_sm"), out))

@@ -27,6 +27,81 @@ def fwht_ref(x: torch.Tensor) -> torch.Tensor:
     return (y.reshape(orig_shape) / math.sqrt(d)).to(x.dtype)
 
 
+def _butterfly(t: torch.Tensor, dim: int, bit: int) -> torch.Tensor:
+    """(a, b) → (a + b, a − b) over bit ``bit`` of axis ``dim``."""
+    t = t.movedim(dim, -1)
+    shape = t.shape
+    t = t.reshape(*shape[:-1], shape[-1] >> (bit + 1), 2, 1 << bit)
+    t = torch.stack([t[..., 0, :] + t[..., 1, :],
+                     t[..., 0, :] - t[..., 1, :]], dim=-2)
+    return t.reshape(shape).movedim(-1, dim)
+
+
+def _layout_order(layout, n: int) -> list:
+    """Axes of a (blocks, 2, …, 2) tile (axis 1 + n − 1 − b holds bit b)
+    in the order warp, lane, register bits, most significant first."""
+    bits = (*layout.warp[::-1], *layout.lane[::-1], *layout.reg[::-1])
+    if sorted(bits) != list(range(n)):
+        raise ValueError(f"layout {layout} does not cover the {n} tile bits "
+                         "once each")
+    return [0] + [1 + n - 1 - b for b in bits]
+
+
+def _to_threads(tile: torch.Tensor, layout, n: int) -> torch.Tensor:
+    """A (blocks, 2**n) tile → (blocks, warps, 32, E) registers."""
+    blocks = tile.shape[0]
+    t = tile.reshape(blocks, *([2] * n)).permute(_layout_order(layout, n))
+    return t.reshape(blocks, -1, 32, 1 << len(layout.reg))
+
+
+def _to_tile(regs: torch.Tensor, layout, n: int) -> torch.Tensor:
+    """Inverse of ``_to_threads``."""
+    blocks = regs.shape[0]
+    order = _layout_order(layout, n)
+    t = regs.reshape(blocks, *([2] * n)).permute(
+        [order.index(a) for a in range(n + 1)])
+    return t.reshape(blocks, 1 << n)
+
+
+def _stage(regs: torch.Tensor, layout, bit: int) -> torch.Tensor:
+    if bit in layout.reg:
+        return _butterfly(regs, 3, layout.reg.index(bit))
+    return _butterfly(regs, 2, layout.lane.index(bit))
+
+
+def fwht_staged(x: torch.Tensor, plan) -> torch.Tensor:
+    """``fwht_ref`` computed as ``csrc/fwht.cu`` computes it under ``plan``
+    (``kernels/fwht_plan.py``): rows padded with zeros to whole blocks (the
+    masked ones), each tile spread over (warps, lanes, registers) by the
+    load layout, the register stages, the lane stages (the shuffles), then
+    (wide) each value written to its shared-memory slot and read back into
+    the store layout, the last register stages, and the tile gathered from
+    the store layout. Same stages in the same order, so on the same values
+    it is the kernel's arithmetic."""
+    d = x.shape[-1]
+    if plan.d != d:
+        raise ValueError(f"plan for d={plan.d}, input d={d}")
+    y = x.to(torch.float32).reshape(-1, d)
+    rows = y.shape[0]
+    per = plan.rows_per_block
+    blocks = -(-rows // per)
+    n = plan.tile_log
+    tile = torch.nn.functional.pad(y, (0, 0, 0, blocks * per - rows))
+    regs = _to_threads(tile.reshape(blocks, 1 << n), plan.load, n)
+    for bit in plan.reg_stages_load + plan.lane_stages:
+        regs = _stage(regs, plan.load, bit)
+    if plan.wide:
+        slot = torch.tensor([plan.smem_addr(i) for i in range(1 << n)],
+                            device=y.device)
+        smem = torch.full((blocks, 1 << n), float("nan"), device=y.device)
+        smem[:, slot] = _to_tile(regs, plan.load, n)
+        regs = _to_threads(smem[:, slot], plan.store, n)
+        for bit in plan.reg_stages_store:
+            regs = _stage(regs, plan.store, bit)
+    out = _to_tile(regs, plan.store, n).reshape(blocks * per, d)[:rows]
+    return (out / math.sqrt(d)).to(x.dtype).reshape(x.shape)
+
+
 def block_pull_multi_ref(x: torch.Tensor, qs: torch.Tensor,
                          arm_idx: torch.Tensor, blk_idx: torch.Tensor,
                          block: int, metric: str = "l2") -> torch.Tensor:

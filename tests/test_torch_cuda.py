@@ -52,17 +52,85 @@ def gen():
     return g
 
 
-@pytest.mark.parametrize("d", [2, 8, 64, 1024, 16384, 32768])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fwht_kernel_matches_plain(gen, d, dtype):
-    x = torch.randn((37, d), generator=gen, device="cuda").to(dtype)
+FWHT_DS = [2 ** k for k in range(1, 16)]
+
+
+def _fwht_checked(x):
+    """The kernel on x, launched once, against the plain version."""
     before = fwht_cuda.launches
     got = ops.fwht(x)
     torch.cuda.synchronize()
     assert fwht_cuda.launches == before + 1
-    tol = 1e-5 if dtype == torch.float32 else 5e-2
+    assert got.dtype == x.dtype and got.shape == x.shape
+    tol = 1e-5 if x.dtype == torch.float32 else 5e-2
     torch.testing.assert_close(got.float(), ops.fwht(x, impl="ref").float(),
                                rtol=tol, atol=tol)
+    return got
+
+
+@pytest.mark.parametrize("d", FWHT_DS)
+@pytest.mark.parametrize("rows", [1, 37, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_matches_plain(gen, d, rows, dtype):
+    """Every d the kernel takes; 37 and 1,000 rows leave the narrow plans'
+    last block ragged."""
+    _fwht_checked(torch.randn((rows, d), generator=gen, device="cuda").to(dtype))
+
+
+@pytest.mark.parametrize("d", [2, 8, 2048, 4096, 16384, 32768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_takes_3d_and_strided_inputs(gen, d, dtype):
+    base = torch.randn((6, 7, 2 * d), generator=gen, device="cuda").to(dtype)
+    _fwht_checked(base[..., :d].contiguous())             # 3-D
+    _fwht_checked(base[..., ::2])                         # strided columns
+    _fwht_checked(base.transpose(0, 1)[..., d:])          # permuted, offset
+    flat = base.reshape(-1)[1:1 + 5 * d].reshape(5, d)    # off a 16-byte line
+    assert flat.data_ptr() % 16
+    _fwht_checked(flat)
+
+
+@pytest.mark.parametrize("d", FWHT_DS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_on_zeros_and_huge_values(gen, d, dtype):
+    """Rows of exact zeros (exactly zero out), rows with one ±1e30 among
+    zeros or among unit values, and rows with one +1e30 and one −1e30:
+    every partial sum is exact or absorbed, whatever the order of stages."""
+    rows = 12
+    x = torch.randn((rows, d), generator=gen, device="cuda")
+    x[:6] = 0.0
+    col = torch.randint(0, d, (rows,), generator=gen, device="cuda")
+    sign = torch.where(torch.arange(rows, device="cuda") % 2 == 0, 1e30, -1e30)
+    r = torch.arange(2, rows, device="cuda")
+    x[r, col[2:]] = sign[2:]
+    x[4:6, (col[4:6] + 1) % d] = -sign[4:6]               # a cancelling pair
+    got = _fwht_checked(x.to(dtype))
+    assert (got[:2] == 0).all()
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("d", FWHT_DS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_follows_its_plan(gen, d, dtype):
+    """The kernel launches with ``fwht_plan.plan``'s numbers, and computes
+    what ``ref.fwht_staged`` replays: the same fp32 additions in the same
+    order, so bit for bit where d = 4^k (the division by √d is a product
+    by 2^-k there, as PyTorch's by a scalar on the card is); elsewhere the
+    kernel divides and PyTorch multiplies by the reciprocal, one fp32 ulp
+    apart (one bf16 ulp after the cast, at a rounding tie)."""
+    from repro_torch.kernels.fwht import kernel_plan
+    from repro_torch.kernels.fwht_plan import plan
+    p = plan(d, dtype)
+    got_plan = kernel_plan(d, dtype)
+    assert (got_plan["E"], got_plan["threads"], got_plan["rows_per_block"],
+            got_plan["smem"]) == (p.E, p.threads, p.rows_per_block, p.smem)
+    assert got_plan["blocks_per_sm"] >= 1
+    x = torch.randn((37, d), generator=gen, device="cuda").to(dtype)
+    got, want = ops.fwht(x), ref.fwht_staged(x, p)
+    if d.bit_length() % 2 == 1:                           # d = 4^k
+        assert torch.equal(got, want)
+    else:
+        rtol = 1.2e-7 if dtype == torch.float32 else 7.9e-3
+        torch.testing.assert_close(got, want, rtol=rtol, atol=0)
 
 
 @pytest.mark.parametrize("Q,n,d,block,B,T", [
