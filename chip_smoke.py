@@ -66,6 +66,19 @@ Run from the root of a checkout. In order it:
    * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
      driver (``--rounds-queries`` of the queries; the default 256 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
+   * mutation: the main path's index through the handle's mutable
+     surface: ``save`` with a payload (each slot's origin) into a
+     ``tempfile.mkdtemp()`` directory, ``Index.load`` (every
+     array bit for bit on the card, its query equal to the main path's
+     bit for bit), ``insert`` of 4,096 rows (512 near-copies of the first
+     queries; one ``fwht`` launch), ``delete`` of 40,000 slots (the copies
+     of the first 128 queries, the true top-k of queries 512–1,023,
+     random others), ``query``, ``maybe_compact`` (to capacity 65,536;
+     its old→new map against the payload and the rows) and ``query``
+     again; each query with recall ≥ 0.99 against a float64 brute force
+     over the live slots, no dead slot returned, every kept copy found
+     first, no deleted copy returned; times of each step, bytes written,
+     both QPS;
    * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
      first 16 queries at full n and d, recall ≥ 0.99;
 5. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
@@ -115,6 +128,13 @@ LM_BATCH = 4
 LM_SEQ = 4096
 # queries of the paper phase: one host-driven race each, a few seconds apiece
 PAPER_QUERIES = 16
+# the mutation phase on the main path's index: rows inserted (the first
+# TWINS near-copies of the first queries), of which the twins of the first
+# TWINS_DELETED queries are deleted again among MUTATION_DELETES slots
+MUTATION_ROWS = 4096
+TWINS = 512
+TWINS_DELETED = 128
+MUTATION_DELETES = 40_000
 
 
 def emit(obj) -> None:
@@ -917,7 +937,8 @@ def counted(path: str, wrappers: dict, run):
 
 def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
     """``Index.build`` → ``Index.query`` on the fused driver. Returns the
-    report and the index, which the rounds phase queries again."""
+    report, the index, which the rounds and mutation phases take again, and
+    the query's result."""
     import numpy as np
     import torch
     from repro_torch.api import Index
@@ -976,7 +997,7 @@ def main_path_phase(corpus, queries, truth, seed: int) -> tuple:
     }
     out["traced"] = traced_query(idx, queries, seed)
     out["traced_build"] = traced_build(corpus, cfg, seed)
-    return out, idx
+    return out, idx, res
 
 
 def oracle_phase(corpus, queries, truth) -> dict:
@@ -1090,6 +1111,219 @@ def rounds_phase(idx, queries, truth, seed: int) -> dict:
                 "rows": block_pull_multi_cuda.launches_rows,
                 "pair": block_pull_multi_cuda.launches_pair},
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def live_truth(idx, rows_of, queries, k: int):
+    """Exact top-k slots of ``idx``'s live slots, by a float64 brute force
+    over the rows they hold in the original space: slot s holds row
+    ``rows_of[idx.payload[s]]``."""
+    import numpy as np
+    import torch
+    live = np.nonzero(idx.store.alive.cpu().numpy())[0]
+    origin = torch.from_numpy(idx.payload[live]).to(rows_of.device)
+    return live[brute_force_topk(rows_of[origin], queries, k)]
+
+
+def mutation_checks(what: str, idx, res, rows_of, queries, n: int) -> dict:
+    """A query over the mutated index: recall against ``live_truth``, no
+    dead slot returned, queries TWINS_DELETED…TWINS−1 find their twin (the
+    inserted row n + i) first, and queries 0…TWINS_DELETED−1 never see
+    their deleted twin."""
+    import numpy as np
+    k = idx.k
+    truth = live_truth(idx, rows_of, queries, k)
+    out = recall_of(what, res.indices, res.values, truth, idx.capacity, k)
+    alive = idx.store.alive.cpu().numpy()
+    origin = idx.payload[res.indices]                      # (Q, k)
+    out["dead_slot_hits"] = int((~alive[res.indices]).sum())
+    kept = np.arange(TWINS_DELETED, TWINS)
+    out["twins_found_first"] = int((origin[kept, 0] == n + kept).sum())
+    gone = np.arange(TWINS_DELETED)
+    out["deleted_twins_returned"] = int(
+        (origin[gone] == (n + gone)[:, None]).any(1).sum())
+    if (out["dead_slot_hits"] or out["deleted_twins_returned"]
+            or out["twins_found_first"] != len(kept)):
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def save_dir(need: int) -> str:
+    """A fresh ``tempfile.mkdtemp()`` directory on a file system with room
+    for ``need`` bytes twice: the default temporary directory, else one in
+    the checkout's ``build/``."""
+    import shutil
+    import tempfile
+    for parent in (None, os.path.join(ROOT, "build")):
+        if parent is not None:
+            os.makedirs(parent, exist_ok=True)
+        path = tempfile.mkdtemp(prefix="chip_smoke_index_", dir=parent)
+        if shutil.disk_usage(path).free >= 2 * need:
+            return path
+        os.rmdir(path)
+    raise RuntimeError(f"no file system with {2 * need} bytes free for the "
+                       "mutation phase's index")
+
+
+def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
+    """The main path's index through the handle's mutable surface, as a
+    user calls it: ``save`` (with a payload: each slot's origin, the corpus
+    row or n + j for inserted row j) → ``Index.load`` (every array bit for
+    bit, the query equal to the main path's) → ``insert`` of MUTATION_ROWS
+    rows (TWINS near-copies of the first queries, then fresh rows) →
+    ``delete`` of MUTATION_DELETES slots (the twins of the first
+    TWINS_DELETED queries, the true top-k of the queries from TWINS on,
+    random other live slots) → ``query`` → ``maybe_compact`` → ``query``."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.checkpoint import manager
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.core.datasets import next_pow2
+    from repro_torch.data.synthetic import make_knn_benchmark_data
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+
+    (n, d), Q = corpus.shape, queries.shape[0]
+    times, out = {}, {"phase": "mutation", "workload": DENSE.name,
+                      "queries": Q, "seed": seed}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return result
+
+    origin = np.full(idx.capacity, -1, np.int64)
+    origin[:n] = np.arange(n)
+    idx.attach_payload(origin)
+    dev = corpus.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    twins = queries[:TWINS] + 1e-3 * torch.randn((TWINS, d), generator=g,
+                                                 device=dev)
+    fresh, _ = make_knn_benchmark_data("dense", MUTATION_ROWS - TWINS, d, 0,
+                                       seed=seed + 1, device=dev)
+    inserted = torch.cat([twins, fresh])
+    rows_of = torch.cat([corpus, inserted])       # payload value → its row
+    del twins, fresh
+    need = sum(a.numel() * a.element_size()
+               for a in idx.store.arrays().values()) + origin.nbytes
+    tmp = save_dir(need)
+    out["save_dir_free_bytes_before"] = shutil.disk_usage(tmp).free
+    torch.cuda.reset_peak_memory_stats()
+
+    def mutation_query(what, loaded):
+        """The timed query of the mutated index, its checks, what its race
+        cost (epochs: pull launches after the init; rounds; exact
+        evaluations; coordinates read against the live slots' n·d), and
+        the same query once more, traced."""
+        before = fused_epoch_pull_cuda.launches
+        res = timed(f"query_{what}_s", lambda: loaded.query(queries, seed))
+        return {**mutation_checks(f"mutation, {what}", loaded, res, rows_of,
+                                  queries, n),
+                "epochs": fused_epoch_pull_cuda.launches - before - 1,
+                "rounds_mean": float(np.mean(res.rounds)),
+                "n_exact_mean": float(np.mean(res.n_exact)),
+                "coord_ops_share_of_live_nd": float(np.mean(res.coord_ops))
+                / (loaded.n_live * d),
+                "traced": traced_query(loaded, queries, seed)}
+
+    def run():
+        path = os.path.join(tmp, "index")
+        timed("save_s", lambda: idx.save(path))
+        out["bytes_written"] = sum(os.path.getsize(os.path.join(path, f))
+                                   for f in os.listdir(path))
+        # the device-to-host copy that save starts with, and the file read
+        # that load starts with, each once more alone
+        timed("save_device_to_host_s", lambda: [
+            a.cpu() for a in idx.store.arrays().values()])
+        timed("load_file_read_s", lambda: manager.load_arrays(path))
+        loaded = timed("load_s", lambda: Index.load(path, device=dev))
+        saved = idx.store.arrays()
+        got = loaded.store.arrays()
+        if sorted(got) != sorted(saved) or any(
+                got[k].dtype != a.dtype or not torch.equal(got[k], a)
+                for k, a in saved.items()):
+            raise AssertionError("mutation: the loaded arrays differ from "
+                                 "the saved ones")
+        if (loaded.store.meta() != idx.store.meta()
+                or not np.array_equal(loaded.payload, origin)):
+            raise AssertionError("mutation: the loaded metadata or payload "
+                                 "differs from the saved one")
+        out["loaded_arrays_bit_equal"] = sorted(saved)
+        shutil.rmtree(path)
+        res = timed("query_loaded_s", lambda: loaded.query(queries, seed))
+        if not (np.array_equal(res.indices, main_res.indices)
+                and np.array_equal(res.values, main_res.values)):
+            raise AssertionError("mutation: the loaded index's query differs "
+                                 "from the main path's")
+        out["query_loaded_equals_main"] = True
+
+        fwht0 = fwht_cuda.launches
+        slots = timed("insert_s", lambda: loaded.insert(
+            inserted, payload=n + np.arange(MUTATION_ROWS)))
+        out["insert_fwht_launches"] = fwht_cuda.launches - fwht0
+        out["capacity_after_insert"] = loaded.capacity
+        if out["insert_fwht_launches"] != 1:
+            raise AssertionError(f"mutation: the insert launched fwht "
+                                 f"{out['insert_fwht_launches']} times")
+        r = np.random.default_rng(seed)
+        dead = set(slots[:TWINS_DELETED].tolist()) | set(
+            truth[TWINS:].ravel().tolist())
+        others = np.setdiff1d(np.nonzero(loaded.store.alive.cpu().numpy())[0],
+                              np.concatenate([slots[:TWINS],
+                                              np.fromiter(dead, np.int64)]))
+        dead |= set(r.choice(others, MUTATION_DELETES - len(dead),
+                             replace=False).tolist())
+        dead = np.array(sorted(dead), np.int64)
+        timed("delete_s", lambda: loaded.delete(dead))
+        out["n_live_after_delete"] = loaded.n_live
+        out["tombstone_fraction"] = 1.0 - loaded.n_live / loaded.capacity
+        out["after_delete"] = mutation_query("after_delete", loaded)
+
+        before, payload_before = loaded.store, loaded.payload
+        old_ids = timed("compact_s", loaded.maybe_compact)
+        if old_ids is None:
+            raise AssertionError("mutation: maybe_compact did not compact")
+        after, m = loaded.store, loaded.n_live
+        keep = torch.from_numpy(old_ids[:m]).to(dev)
+        if not ((old_ids[:m] >= 0).all() and (old_ids[m:] == -1).all()
+                and np.array_equal(loaded.payload[:m],
+                                   payload_before[old_ids[:m]])
+                and torch.equal(after.x[:m], before.x[keep])
+                and torch.equal(after.prior_var[:m], before.prior_var[keep])
+                and bool(before.alive[keep].all())):
+            raise AssertionError("mutation: the compaction's old_ids, "
+                                 "payload and rows disagree")
+        del before, keep
+        out["capacity_compacted"] = loaded.capacity
+        out["after_compact"] = mutation_query("after_compact", loaded)
+        return loaded
+
+    try:
+        loaded, launches = counted(
+            "mutation", {"fused_epoch_pull": fused_epoch_pull_cuda,
+                         "fwht": fwht_cuda}, run)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_schedule = {"rows": fused_epoch_pull_cuda.launches_rows,
+                   "pair": fused_epoch_pull_cuda.launches_pair}
+    if by_schedule["rows"] != 5:       # 3 queries, 2 of them traced again
+        raise AssertionError(f"mutation: {by_schedule['rows']} of the five "
+                             "queries' inits took the rows schedule")
+    want_cap = next_pow2(n + MUTATION_ROWS - MUTATION_DELETES)  # 65,536
+    if out["capacity_compacted"] != want_cap:
+        raise AssertionError(f"mutation: compacted to capacity "
+                             f"{out['capacity_compacted']}, not {want_cap}")
+    out.update(times, qps_after_delete=Q / times["query_after_delete_s"],
+               qps_after_compact=Q / times["query_after_compact_s"],
+               launches=launches, fused_epoch_pull_by_schedule=by_schedule,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del loaded
+    return out
 
 
 def paper_phase(corpus, queries, truth, seed: int) -> dict:
@@ -1473,9 +1707,9 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 # shape) and the launches of its paths
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
-     "src/repro/kernels/fused_race.py:89", ("main_path",)),
+     "src/repro/kernels/fused_race.py:89", ("main_path", "mutation")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
-     ("main_path",)),
+     ("main_path", "mutation")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:78", ("rounds",)),
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
@@ -1551,8 +1785,8 @@ def main() -> int:
     emit({"phase": "data", "seconds": time.perf_counter() - t,
           "ground_truth": "float64 brute force on the card; allow_tf32 "
                           "False for matmul and cuDNN"})
-    report["main_path"], idx = main_path_phase(corpus, queries, truth,
-                                               args.seed)
+    report["main_path"], idx, main_res = main_path_phase(corpus, queries,
+                                                         truth, args.seed)
     emit({k: v for k, v in report["main_path"].items()
           if k not in ("traced", "traced_build")})
     emit({"phase": "traced_query", **report["main_path"]["traced"]})
@@ -1562,7 +1796,14 @@ def main() -> int:
     Qr = args.rounds_queries
     report["rounds"] = rounds_phase(idx, queries[:Qr], truth[:Qr], args.seed)
     emit(report["rounds"])
-    del idx
+    report["mutation"] = mutation_phase(idx, main_res, corpus, queries, truth,
+                                        args.seed)
+    mut = report["mutation"]
+    emit({k: ({a: b for a, b in v.items() if a != "traced"}
+              if k.startswith("after_") else v) for k, v in mut.items()})
+    for what in ("after_delete", "after_compact"):
+        emit({"phase": f"mutation_traced_{what}", **mut[what]["traced"]})
+    del idx, main_res
     torch.cuda.empty_cache()
     report["paper"] = paper_phase(corpus, queries[:PAPER_QUERIES],
                                   truth[:PAPER_QUERIES], args.seed)

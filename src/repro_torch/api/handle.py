@@ -1,39 +1,138 @@
 """``Index`` — the handle in front of the port's index (DESIGN.md §6.1):
-build a single-shard dense or rotated index and query it through the typed
-``QuerySpec`` protocol. Results come back in the reference's ``KNNResult``
-schema."""
+build, open or load a single-shard dense or rotated index, query it through
+the typed ``QuerySpec`` protocol, mutate it (insert, delete, compact) and
+save it. Results come back in the reference's ``KNNResult`` schema, and a
+saved directory is the reference's layout: either package loads it.
+
+Side payloads (e.g. kNN-LM next-token ids) attach to the handle and ride
+every slot remap (growth, compaction): ``payload[result.indices]`` is
+always aligned.
+
+The handle is mutable, unlike the stores underneath: every mutation swaps
+in a new store and bumps ``epoch``, the fence that callers rely on in
+place of store identity.
+"""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import logging
+import os
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.api.spec import KNNResult, QuerySpec
+from repro_torch.api.spec import (CompactionPolicy, KNNResult, QuerySpec,
+                                  ServeStats)
 from repro_torch.device import make_generator
+from repro_torch.index import mutable
 from repro_torch.index.batched_race import index_knn
-from repro_torch.index.builder import build_index
+from repro_torch.index.builder import build_index, load_index, save_index
+
+log = logging.getLogger("repro_torch.api")
+
+PAYLOAD_FILE = "payload.npy"
+# sidecars of the reference that the port does not read yet
+MANIFEST_FILE = "manifest.msgpack"     # a sharded index directory
+TUNED_FILE = "tuned.json"              # an autotuned serving config
+
+
+def _sharded_not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the sharded index is not ported yet (ROADMAP.md Queue 1 "
+        "item 7)")
 
 
 class Index:
-    """One handle over a single-shard racing index; the store underneath is
-    reachable read-only as ``handle.store``."""
+    """One handle over a single-shard racing index.
 
-    def __init__(self, store):
+    Construct through ``Index.build`` (from a corpus), ``Index.load`` (from
+    a saved directory) or ``Index.open`` (around an existing store). All
+    query and mutation traffic then goes through the handle; the store
+    underneath is reachable read-only as ``handle.store``.
+    """
+
+    def __init__(self, store, *, payload: Optional[np.ndarray] = None,
+                 build_gids: Optional[np.ndarray] = None,
+                 compaction: Optional[CompactionPolicy] = None):
         self._store = store
+        self.compaction_policy = (compaction if compaction is not None
+                                  else CompactionPolicy())
+        self._payload = payload
+        self._build_gids = build_gids
+        self._epoch = 0
+        self._admin_active: Optional[str] = None
+        self._races = 0
+        self._raced_queries = 0
+        self._compactions = 0
         self._auto_rng = 0
 
+    # -- constructors -------------------------------------------------------
+
     @classmethod
-    def build(cls, corpus, cfg, rng=0, *, capacity: Optional[int] = None,
-              impl: str = "auto", device=None) -> "Index":
+    def build(cls, corpus, cfg, rng=0, *, shards: int = 1,
+              capacity: Optional[int] = None, impl: str = "auto",
+              payload=None, compaction: Optional[CompactionPolicy] = None,
+              device=None) -> "Index":
         """Preprocess ``corpus`` (n, d) into a served index on ``device``
         (default: the GPU; raises without one). ``rng`` is a seed or a
-        ``torch.Generator`` on that device."""
-        return cls(build_index(corpus, cfg, rng, capacity=capacity,
-                               impl=impl, device=device))
+        ``torch.Generator`` on that device. ``payload``: optional
+        (n,)-row-aligned side values, kept slot-aligned through every
+        remap."""
+        if shards > 1:
+            raise _sharded_not_ported(f"shards={shards}")
+        store = build_index(corpus, cfg, rng, capacity=capacity, impl=impl,
+                            device=device)
+        gids = np.arange(store.n_live, dtype=np.int64)
+        handle = cls(store, build_gids=gids, compaction=compaction)
+        if payload is not None:
+            handle.attach_payload(payload, gids=gids)
+        return handle
+
+    @classmethod
+    def open(cls, store, *, payload=None, payload_gids=None,
+             compaction: Optional[CompactionPolicy] = None) -> "Index":
+        """Wrap an existing ``IndexStore``. ``payload`` without
+        ``payload_gids`` is taken slot-aligned and must cover every live
+        slot."""
+        handle = cls(store, compaction=compaction)
+        if payload is not None:
+            handle.attach_payload(payload, gids=payload_gids)
+        return handle
+
+    @classmethod
+    def load(cls, path: str, *, shards: Optional[int] = None,
+             compaction: Optional[CompactionPolicy] = None,
+             device=None) -> "Index":
+        """Load a saved single-shard index directory onto ``device``
+        (default: the GPU). A ``payload.npy`` sidecar is restored. A
+        ``tuned.json`` sidecar is not applied: the port has no tuner yet,
+        so the index serves its build-time config, and a warning says
+        so."""
+        if os.path.exists(os.path.join(path, MANIFEST_FILE)):
+            raise _sharded_not_ported(f"{path} holds a sharded index")
+        if shards is not None and shards > 1:
+            raise _sharded_not_ported(f"shards={shards}")
+        store = load_index(path, device=device)
+        handle = cls(store, compaction=compaction)
+        ppath = os.path.join(path, PAYLOAD_FILE)
+        if os.path.exists(ppath):
+            saved = np.load(ppath)
+            buf = np.zeros((store.capacity,) + saved.shape[1:], saved.dtype)
+            buf[: len(saved)] = saved
+            handle._payload = buf
+        if os.path.exists(os.path.join(path, TUNED_FILE)):
+            log.warning("%s: not applied, the port has no tuner yet; the "
+                        "index serves its build-time config",
+                        os.path.join(path, TUNED_FILE))
+        return handle
+
+    # -- store-shape properties --------------------------------------------
 
     @property
     def store(self):
+        """The underlying (immutable) store — read-only access; mutate
+        through the handle so the epoch fence stays truthful."""
         return self._store
 
     @property
@@ -41,8 +140,100 @@ class Index:
         return self._store.device
 
     @property
+    def capacity(self) -> int:
+        return self._store.capacity
+
+    @property
+    def n_live(self) -> int:
+        return self._store.n_live
+
+    @property
+    def kind(self) -> str:
+        return self._store.kind
+
+    @property
     def cfg(self):
         return self._store.cfg
+
+    @property
+    def k(self) -> int:
+        return self._store.cfg.k
+
+    @property
+    def epoch(self) -> int:
+        """Bumped on every mutation swap — the invalidation fence."""
+        return self._epoch
+
+    @property
+    def payload(self) -> Optional[np.ndarray]:
+        """(capacity,)+ slot-aligned side values; index with
+        ``KNNResult.indices``."""
+        return self._payload
+
+    @property
+    def build_gids(self) -> Optional[np.ndarray]:
+        """The slot of each original corpus row (−1 once deleted),
+        maintained through every remap."""
+        return self._build_gids
+
+    @property
+    def stats(self) -> ServeStats:
+        return ServeStats(races=self._races,
+                          raced_queries=self._raced_queries,
+                          compactions=self._compactions)
+
+    # -- internal plumbing --------------------------------------------------
+
+    def _swap(self, store) -> None:
+        """Epoch fence: install a new store."""
+        self._store = store
+        self._epoch += 1
+
+    def _remap(self, old_ids: np.ndarray) -> None:
+        """Reindex payload and build-row map through an old→new slot map
+        (the ``mutable.compact`` contract). Call BEFORE ``_swap``."""
+        old_ids = np.asarray(old_ids)
+        live = old_ids >= 0
+        if self._payload is not None:
+            remapped = np.zeros((len(old_ids),) + self._payload.shape[1:],
+                                self._payload.dtype)
+            remapped[live] = self._payload[old_ids[live]]
+            self._payload = remapped
+        if self._build_gids is not None:
+            lookup = np.full((self.capacity,), -1, np.int64)
+            lookup[old_ids[live]] = np.nonzero(live)[0]
+            bg = self._build_gids
+            ok = bg >= 0
+            self._build_gids = np.where(ok, lookup[np.where(ok, bg, 0)], -1)
+
+    def _grow_payload(self, new_capacity: int) -> None:
+        if self._payload is not None and new_capacity > len(self._payload):
+            grown = np.zeros((new_capacity,) + self._payload.shape[1:],
+                             self._payload.dtype)
+            grown[: len(self._payload)] = self._payload
+            self._payload = grown
+
+    @contextlib.contextmanager
+    def _admin_op(self, name: str):
+        """Quiesce fence for admin swaps: mutations attempted while the op
+        is in flight fail loudly instead of racing the swap."""
+        if self._admin_active is not None:
+            raise RuntimeError(
+                f"admin op {name!r} while {self._admin_active!r} is in "
+                "flight")
+        self._admin_active = name
+        try:
+            yield
+        finally:
+            self._admin_active = None
+
+    def _check_mutable(self, what: str) -> None:
+        if self._admin_active is not None:
+            raise RuntimeError(
+                f"{what} rejected: index is quiesced for admin op "
+                f"{self._admin_active!r}")
+
+    # -- query --------------------------------------------------------------
 
     def query(self, queries, rng=None, *, spec: Optional[QuerySpec] = None,
               **overrides) -> KNNResult:
@@ -65,6 +256,8 @@ class Index:
         raw = index_knn(store, queries, make_generator(rng, self.device),
                         impl=spec.impl, eliminate=spec.eliminate,
                         warm_start=spec.warm_start, mode=spec.mode)
+        self._races += 1
+        self._raced_queries += int(raw.indices.shape[0])
         return self._result(raw)
 
     @staticmethod
@@ -75,7 +268,100 @@ class Index:
                          rounds=raw.rounds.cpu().numpy(),
                          n_exact=raw.n_exact.cpu().numpy())
 
+    # -- mutation ------------------------------------------------------------
+
+    def attach_payload(self, values, *, gids=None) -> None:
+        """Attach (or replace) the slot-aligned side payload. ``gids``
+        places row i of ``values`` at slot ``gids[i]``; without it the
+        values are taken slot-aligned from 0 and must cover every live
+        slot."""
+        values = np.asarray(values)
+        if gids is None:
+            if len(values) > self.capacity:
+                raise ValueError(
+                    f"payload ({len(values)}) exceeds index capacity "
+                    f"({self.capacity}) — wrong index for this datastore?")
+            if len(values) < self.n_live:
+                raise ValueError(
+                    f"payload ({len(values)}) does not cover the index's "
+                    f"{self.n_live} live slots — uncovered slots would "
+                    "silently serve zeros")
+        buf = np.zeros((self.capacity,) + values.shape[1:], values.dtype)
+        if gids is None:
+            buf[: len(values)] = values
+        else:
+            buf[np.asarray(gids)] = values
+        self._payload = buf
+
+    def insert(self, rows, *, payload=None) -> np.ndarray:
+        """Insert (B, d) dense rows; returns their slot ids. ``payload``:
+        per-row side values written into the attached payload at those
+        slots."""
+        self._check_mutable("insert")
+        store, slots = mutable.insert(self._store, rows)
+        self._grow_payload(store.capacity)
+        if payload is not None:
+            if self._payload is None:
+                payload = np.asarray(payload)
+                self._payload = np.zeros(
+                    (store.capacity,) + payload.shape[1:], payload.dtype)
+            self._payload[slots] = payload
+        self._swap(store)
+        return slots
+
+    def delete(self, slot_ids) -> None:
+        """Tombstone slots; their data stays until compaction."""
+        self._check_mutable("delete")
+        store = mutable.delete(self._store, slot_ids)
+        if self._build_gids is not None:
+            # a later insert may reuse a freed slot, which must not be
+            # attributed to the original corpus row: −1 once deleted
+            dead = np.atleast_1d(np.asarray(slot_ids, np.int64))
+            self._build_gids = np.where(
+                np.isin(self._build_gids, dead), -1, self._build_gids)
+        self._swap(store)
+
+    def compact(self) -> np.ndarray:
+        """Rebuild the slot layout without the tombstones; payload and
+        build map are remapped. Returns the old→new slot map for any
+        external side state."""
+        self._check_mutable("compact")
+        store, old_ids = mutable.compact(self._store)
+        self._remap(old_ids)
+        self._swap(store)
+        self._compactions += 1
+        return old_ids
+
+    def maybe_compact(self, *, threshold: Optional[float] = None
+                      ) -> Optional[np.ndarray]:
+        """Apply the handle's ``CompactionPolicy`` (or an explicit
+        threshold): compact only when the tombstone fraction crosses it
+        AND capacity would shrink. Returns the remap when a compaction
+        ran, else None."""
+        self._check_mutable("compact")
+        thr = threshold if threshold is not None \
+            else self.compaction_policy.threshold
+        store, old_ids = mutable.maybe_compact(self._store, threshold=thr)
+        if old_ids is None:
+            return None
+        self._remap(old_ids)
+        self._swap(store)
+        self._compactions += 1
+        return old_ids
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist through the checkpoint layer; an attached payload is
+        written as a ``payload.npy`` sidecar inside the same atomic
+        directory publish, so ``path`` only ever holds a complete index."""
+        def _sidecars(tmp: str) -> None:
+            if self._payload is not None:
+                np.save(os.path.join(tmp, PAYLOAD_FILE), self._payload)
+
+        save_index(self._store, path, extra=_sidecars)
+
     def __repr__(self) -> str:
-        st = self._store
-        return (f"Index(kind={st.kind!r}, live={st.n_live}/{st.capacity}, "
-                f"k={st.cfg.k}, device={self.device})")
+        return (f"Index(kind={self.kind!r}, live={self.n_live}/"
+                f"{self.capacity}, k={self.k}, epoch={self._epoch}, "
+                f"device={self.device})")

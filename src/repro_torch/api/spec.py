@@ -5,6 +5,10 @@
     elimination and warm-start switches), validated once at construction.
   * ``KNNResult`` — the result schema of ``Index.query``, the reference's
     schema unchanged: host-side arrays, per-query cost counters.
+  * ``ServeStats`` — the handle's serving counters, a subset of the
+    reference's fields.
+  * ``CompactionPolicy`` — when ``Index.maybe_compact`` rebuilds the slot
+    layout.
 
 The port's ``impl`` vocabulary is its own: "auto" (the CUDA kernels on the
 card, the plain versions on the CPU), "cuda", "ref".
@@ -78,3 +82,31 @@ class KNNResult:
         out = dataclasses.asdict(self)
         out["schema_version"] = SCHEMA_VERSION
         return out
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """The handle's serving counters (``Index.stats``), named as the
+    reference's. The cache fields stay 0 until the port has a query
+    cache."""
+
+    races: int = 0             # batched races launched
+    raced_queries: int = 0     # query rows that paid a race
+    cache_hits: int = 0
+    cache_misses: int = 0
+    cache_entries: int = 0
+    near_hits: int = 0         # near-repeat CI warm starts
+    compactions: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class CompactionPolicy:
+    """Tombstone-debt policy: rebuild the slot layout when the dead
+    fraction crosses ``threshold`` AND capacity would actually shrink.
+    ``threshold >= 1`` disables auto-compaction."""
+
+    threshold: float = 0.5
+
+    def __post_init__(self):
+        if self.threshold <= 0:
+            raise ValueError(f"threshold must be > 0, got {self.threshold}")

@@ -5,6 +5,10 @@ the dense and rotated boxes.
   * rotated: the §IV-B Hadamard rotation is cached — the sign vector and
     the pre-rotated corpus are stored, so serving only rotates queries,
   * per-arm block statistics, the warm-start priors for the racing CIs.
+
+Persistence goes through ``checkpoint/manager.py``'s atomic save, in the
+reference's directory layout: an index saved by either package loads in the
+other.
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.checkpoint import manager
 from repro_torch.configs.base import BMOConfig
 from repro_torch.core.datasets import next_pow2
 from repro_torch.core.datasets import rademacher as _rademacher
@@ -67,3 +72,21 @@ def build_index(corpus, cfg: BMOConfig, rng=0, *,
     prior_var = _row_block_stats(x, cfg.block, cfg.metric)
     return IndexStore(kind=kind, cfg=cfg, d=d, alive=alive, x=x,
                       block=cfg.block, signs=signs, prior_var=prior_var)
+
+
+# ---------------------------------------------------------------------------
+# persistence (checkpoint/manager.py)
+# ---------------------------------------------------------------------------
+
+
+def save_index(store: IndexStore, path: str, *, extra=None) -> None:
+    """Atomic write of the store's arrays and metadata. ``extra(tmpdir)``:
+    an optional callback staging sidecars (the payload) into the same
+    all-or-nothing publish."""
+    manager.save(path, store.arrays(), meta=store.meta(), extra=extra)
+
+
+def load_index(path: str, *, device=None) -> IndexStore:
+    """The store saved at ``path``, on ``device`` (default: the GPU)."""
+    return IndexStore.from_arrays(manager.load_arrays(path),
+                                  manager.read_meta(path), device=device)

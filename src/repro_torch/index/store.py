@@ -104,8 +104,8 @@ class IndexStore:
         ``device`` (default: the GPU)."""
         if meta["kind"] not in KINDS or any(f in arrays for f in SPARSE_FIELDS):
             raise NotImplementedError(
-                f"{meta['kind']!r} stores are not ported yet; the port "
-                f"serves {KINDS}")
+                f"{meta['kind']!r} stores are not ported yet (the sparse "
+                f"box is ROADMAP.md Queue 1 item 2); the port serves {KINDS}")
         dev = resolve_device(device)
 
         def opt(name, dtype):
@@ -113,7 +113,13 @@ class IndexStore:
                 return None
             a = arrays[name]
             if not isinstance(a, torch.Tensor):
-                a = torch.from_numpy(np.array(a))   # a writable copy
+                a = np.asarray(a)
+                # a CPU store would share the caller's memory, and torch
+                # cannot wrap a read-only array: copy only then; a CUDA
+                # store transfers straight from the array
+                if dev.type == "cpu" or not a.flags.writeable:
+                    a = np.array(a)
+                a = torch.from_numpy(a)
             return a.to(device=dev, dtype=dtype)
 
         return cls(
@@ -123,3 +129,8 @@ class IndexStore:
             prior_var=opt("prior_var", torch.float32),
             prior_weight=float(meta.get("prior_weight", 4.0)),
         )
+
+
+def free_slots(store: IndexStore) -> np.ndarray:
+    """Host-side list of dead slot ids (insert targets), ascending."""
+    return np.nonzero(~store.alive.cpu().numpy())[0]

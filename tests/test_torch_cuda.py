@@ -560,6 +560,70 @@ def test_paper_path_and_oracle_on_the_card(gen, rotate):
     assert [set(r) for r in ex.indices.tolist()] == truth
 
 
+def _mutable_case(rotate):
+    """16 queries over 500 rows of d = 1,000 (d_pad 1,024): enough that the
+    wide init takes the rows schedule (Q·T·block = 2,048 ≥ d_pad)."""
+    corpus, queries = make_knn_benchmark_data("dense", 500, 1000, 16, seed=4)
+    cfg = BMOConfig(k=3, delta=0.01, block=64, batch_arms=16,
+                    pulls_per_round=2, metric="l2", rotate=rotate)
+    return corpus, queries, cfg
+
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["dense", "rotated"])
+def test_index_save_load_round_trip_on_the_card(gen, tmp_path, rotate):
+    corpus, queries, cfg = _mutable_case(rotate)
+    idx = Index.build(corpus, cfg, payload=np.arange(500) * 2)
+    path = str(tmp_path / "idx")
+    idx.save(path)
+    loaded = Index.load(path)
+    assert loaded.device.type == "cuda"
+    assert loaded.store.meta() == idx.store.meta()
+    for name, arr in idx.store.arrays().items():
+        got = loaded.store.arrays()[name]
+        assert got.is_cuda and got.dtype == arr.dtype
+        assert torch.equal(got, arr), name
+    np.testing.assert_array_equal(loaded.payload, idx.payload)
+    want, got = idx.query(queries, 1), loaded.query(queries, 1)
+    np.testing.assert_array_equal(got.indices, want.indices)
+    np.testing.assert_array_equal(got.values, want.values)
+
+
+def test_rotated_insert_launches_fwht_once(gen):
+    corpus, queries, cfg = _mutable_case(True)
+    idx = Index.build(corpus, cfg)
+    rows = torch.from_numpy(queries + 1e-3).cuda()
+    before = fwht_cuda.launches
+    slots = idx.insert(rows)
+    assert fwht_cuda.launches == before + 1
+    st = idx.store
+    padded = torch.nn.functional.pad(rows, (0, st.d_pad - rows.shape[1]))
+    want = ref.fwht_ref(padded * st.signs[None, :])
+    torch.testing.assert_close(st.x[torch.from_numpy(slots).cuda()], want,
+                               rtol=1e-5, atol=1e-5)
+    res = idx.query(queries)
+    assert res.indices[:, 0].tolist() == slots.tolist()
+
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["dense", "rotated"])
+def test_query_after_deletes_skips_dead_slots_on_the_rows_schedule(gen,
+                                                                   rotate):
+    corpus, queries, cfg = _mutable_case(rotate)
+    dist = ((queries[:, None, :].astype(np.float64)
+             - corpus[None].astype(np.float64)) ** 2).sum(-1)
+    kill = sorted(set(np.argsort(dist, 1)[:, :2].ravel().tolist())
+                  | set(range(0, 500, 7)))
+    live = np.setdiff1d(np.arange(500), kill)
+    truth = [set(live[r].tolist()) for r in
+             np.argsort(dist[:, live], 1, kind="stable")[:, :3]]
+    idx = Index.build(corpus, cfg)
+    idx.delete(kill)
+    rows0 = fused_epoch_pull_cuda.launches_rows
+    res = idx.query(queries)
+    assert fused_epoch_pull_cuda.launches_rows == rows0 + 1     # the init
+    assert not set(res.indices.ravel().tolist()) & set(kill)
+    assert [set(r) for r in res.indices.tolist()] == truth
+
+
 FLASH_FP32 = dict(rtol=3e-5, atol=3e-5)
 FLASH_BF16_CUDA_CORES = dict(rtol=8e-3, atol=1e-4)
 

@@ -365,7 +365,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files[:-1]}
     assert {"core/oracle.py", "core/bmo_nn.py", "core/ucb.py",
             "core/datasets.py", "index/batched_race.py",
-            "kernels/block_pull.py", "kernels/pairwise_dist.py"} <= names
+            "kernels/block_pull.py", "kernels/pairwise_dist.py",
+            "checkpoint/manager.py", "checkpoint/msgpack_lite.py",
+            "index/mutable.py", "api/handle.py"} <= names
     for path in files:
-        bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro"}
+        bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro",
+                                            "msgpack"}
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
