@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed S] [--queries Q] [--rounds-queries Q]
-                          [--out FILE.json]
+                          [--sparse-queries Q] [--out FILE.json]
 
 Run from the root of a checkout. In order it:
 
@@ -81,7 +81,28 @@ Run from the root of a checkout. In order it:
      both QPS;
    * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
      first 16 queries at full n and d, recall ≥ 0.99;
-5. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
+5. sparse: the ``bmo-nn-sparse`` workload (§IV-A: n = 100,000, d = 28,672,
+   7% nonzero, ℓ1, k = 5, block 1, 1,024 queries that copy corpus rows),
+   drawn on the card as CSR from ``--seed``: ``Index.build``;
+   ``exact_knn_sparse`` of every query (``pairwise_dist`` ℓ1 on the CUDA
+   cores over densified chunks of 8,192 rows), its sets equal to a float64
+   ``torch.cdist(p=1)`` brute force's (near-ties under 1e-4 relative
+   pass); the index saved and loaded, every array bit for bit. At full
+   size the races run capped at 1 + 200 rounds (run to certification they
+   would take some 880,000): ``Index.query`` of ``--sparse-queries`` queries
+   and ``knn`` of one, each timed at 1 and at 201 rounds and traced at 1
+   and at 17 (a round's ms, device ms, kernels and idle share); then an
+   insert of 512 rows that widens the rows (the inserted rows held bit for
+   bit), deletes, a capped query, ``maybe_compact`` (the kept rows held bit
+   for bit) and a capped query, no dead slot returned. Races run to
+   certification over the first 768 rows check recall, not the cell's
+   throughput: ``Index.query`` of ``--sparse-queries`` copies of its rows
+   (the per-round driver, with its coord-op gain over the sparsity-aware
+   exact count), ``knn`` of one of them, and that index saved, loaded (its
+   query equal to the first), grown and widened by 512 inserted rows,
+   deleted from, queried, compacted and queried; recall ≥ 0.99 each time
+   against a float64 brute force over the live rows, no dead slot;
+6. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
    qwen2.5-14b at full width and depth (bf16, random weights from
    ``--seed``) over 4 sequences of 4,096 tokens, through
    ``flash_attention``'s tensor-core kernel once per layer, with a traced
@@ -135,6 +156,26 @@ MUTATION_ROWS = 4096
 TWINS = 512
 TWINS_DELETED = 128
 MUTATION_DELETES = 40_000
+# the sparse phase (bmo-nn-sparse, d = 28,672): the sparse oracle's corpus
+# rows a pairwise_dist call. At the full 100,000 rows the races run capped:
+# the per-round race takes 8.7–8.9 rounds a corpus row a query (at 768 and
+# 1,024 rows), some 880,000 a race there, so SPARSE_CAPPED_ROUNDS rounds measure what a round
+# costs (SPARSE_TRACED_ROUNDS of them traced) and the store's mutations run
+# at full size; recall is held on races run to certification over the first
+# SPARSE_RACE_ROWS rows, a check of the path and not the cell's throughput
+# (not below 768: at 256 rows, 8 a cluster, a query whose cluster holds
+# fewer than k rows races hundreds of near-equal rows to exact and takes 7×
+# the rounds). The paper step's queries; the mutation steps' inserted rows
+# (their deletes then leave 64 under half the capacity live, so that it
+# compacts) and the queries whose true top-k is among the deletes
+SPARSE_D = 28_672
+SPARSE_ORACLE_CHUNK = 8192
+SPARSE_CAPPED_ROUNDS = 200
+SPARSE_TRACED_ROUNDS = 16
+SPARSE_RACE_ROWS = 768
+SPARSE_PAPER_QUERIES = 1
+SPARSE_INSERTS = 512
+SPARSE_TOP_DELETED = 16       # queries whose true top-k is among the deletes
 
 
 def emit(obj) -> None:
@@ -782,19 +823,27 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
     torch.cuda.empty_cache()
 
     # --- pairwise_dist: one oracle batch (256 queries against the corpus at
-    # d = 12,288: the tensor cores), and the paper path's exact evaluation
-    # (one query against the B rows just selected, at d_pad = 16,384: the
-    # CUDA cores) ---------------------------------------------------------
+    # d = 12,288: the tensor cores), the paper path's exact evaluation (one
+    # query against the B rows just selected, at d_pad = 16,384: the CUDA
+    # cores), and one chunk of the sparse oracle (every query against
+    # SPARSE_ORACLE_CHUNK densified rows at d = 28,672, 7% nonzero: ℓ1 on
+    # the CUDA cores) -----------------------------------------------------
     results["pairwise_dist"] = []
     X = torch.randn((n_build, 12_288), generator=g, device="cuda")
     Qo = torch.randn((256, 12_288), generator=g, device="cuda")
     Xe = torch.randn((B, d_pad), generator=g, device="cuda")
     qe = torch.randn((1, d_pad), generator=g, device="cuda")
-    for case, qq, xx in (("oracle", Qo, X), ("exact_eval", qe, Xe)):
-        for metric in ("l2", "l1"):
-            # ℓ1's plain version holds (Q, n, 2048) at once: at the oracle's
+
+    def sparse_like(rows):
+        x = torch.rand((rows, SPARSE_D), generator=g, device="cuda")
+        return torch.where(x < 0.07, x * 30.0, 0.0)     # 7% nonzero
+    Xs, Qs_ = sparse_like(SPARSE_ORACLE_CHUNK), sparse_like(Q)
+    for case, qq, xx in (("oracle", Qo, X), ("exact_eval", qe, Xe),
+                         ("sparse_oracle", Qs_, Xs)):
+        for metric in ("l1",) if case == "sparse_oracle" else ("l2", "l1"):
+            # ℓ1's plain version holds (Q, n, 2048) at once: at an oracle's
             # shape it is checked on the first 8 queries × 8,192 rows
-            sub = (8, 8192) if (case, metric) == ("oracle", "l1") else \
+            sub = (8, 8192) if case != "exact_eval" and metric == "l1" else \
                 tuple(qq.shape[:1]) + tuple(xx.shape[:1])
             run = lambda: pairwise_dist_cuda(qq, xx, metric=metric)
             plain = lambda: ref.pairwise_dist_ref(qq[:sub[0]], xx[:sub[1]],
@@ -829,9 +878,9 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             del got
             # the exact evaluation is host-bound: warmed up as block_pull's
             # round
-            reps = 5 if case == "oracle" else 1000
+            reps = 1000 if case == "exact_eval" else 5
             row["ms"] = cuda_ms(run, reps=reps,
-                                warmup=2 if case == "oracle" else 200)
+                                warmup=200 if case == "exact_eval" else 2)
             row["device_ms"] = device_ms(run, "pairwise_", reps=min(reps, 20))
             if which == "tensor_cores":
                 row["repair_ms"] = device_ms(run, "pairwise_repair_flagged",
@@ -852,11 +901,11 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             else:
                 lib = lambda: torch.cdist(qq, xx, p=1)
                 row["library_call"] = "torch.cdist(q, x, p=1)"
-            row["library_ms"] = cuda_ms(lib, reps=2 if case == "oracle" else 20,
-                                        warmup=1)
+            row["library_ms"] = cuda_ms(lib, reps=20 if case == "exact_eval"
+                                        else 2, warmup=1)
             results["pairwise_dist"].append(row)
             emit(row)
-    del X, Qo, Xe, qe
+    del X, Qo, Xe, qe, Xs, Qs_
     torch.cuda.empty_cache()
     results["pairwise_gamma"] = pairwise_gamma_rows(g)
     torch.cuda.empty_cache()
@@ -1361,6 +1410,434 @@ def paper_phase(corpus, queries, truth, seed: int) -> dict:
             "launches": launches}
 
 
+def l1_truth(indices, values, q_idx, q_val, d: int, k: int,
+             chunk: int = 8192):
+    """Exact top-k by float64 ℓ1 distance: ``torch.cdist(p=1)`` over
+    densified rows, ``chunk`` corpus rows at a time. Returns (ids, the
+    float64 distances) on the host, the lower index first among ties."""
+    import torch
+
+    def dense(idx, val):
+        r = idx.shape[0]
+        out = torch.zeros((r, d + 1), dtype=torch.float64, device=idx.device)
+        out.scatter_(1, idx.long(), val.to(torch.float64))
+        return out[:, :d]
+
+    q = dense(q_idx, q_val)
+    best = torch.zeros((q.shape[0], 0), dtype=torch.float64, device=q.device)
+    ids = torch.zeros((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for s in range(0, indices.shape[0], chunk):
+        dist = torch.cdist(q, dense(indices[s:s + chunk],
+                                    values[s:s + chunk]), p=1)
+        cand = torch.cat([best, dist], 1)
+        cand_ids = torch.cat([ids, torch.arange(
+            s, s + dist.shape[1], device=q.device).expand(q.shape[0], -1)], 1)
+        keep = torch.sort(cand, dim=1, stable=True).indices[:, :k]
+        best = torch.gather(cand, 1, keep)
+        ids = torch.gather(cand_ids, 1, keep)
+    return ids.cpu().numpy(), best.cpu().numpy()
+
+
+def sparse_rows(corpus, rows: int, n_queries: int, seed: int):
+    """The first ``rows`` rows of the corpus as a corpus of their own (its
+    width their largest nnz), and ``n_queries`` copies of its rows drawn
+    from ``seed``: the race steps' cut."""
+    import torch
+    from repro_torch.core.datasets import SparseDataset
+    nnz = corpus.nnz[:rows]
+    m = max(int(nnz.max()), 1)
+    sub = SparseDataset(indices=corpus.indices[:rows, :m].clone(),
+                        values=corpus.values[:rows, :m].clone(), nnz=nnz.clone(),
+                        d=corpus.d)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    pick = torch.randint(0, rows, (n_queries,), generator=g, device="cuda")
+    return sub, (sub.indices[pick], sub.values[pick], sub.nnz[pick])
+
+
+def profiled(fn) -> tuple:
+    """``fn()`` under torch.profiler: (wall ms, device rows by kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    return wall_ms, kernel_breakdown(prof)
+
+
+def round_cost(race, cap: int, traced: int) -> tuple:
+    """What one round of a race costs. ``race(r)`` runs the race capped at
+    r rounds; it runs to 1 and to 1 + ``cap`` rounds, timed, then to 1 and
+    to 1 + ``traced`` under the profiler. Each difference holds rounds
+    alone (the init and the first round cancel): ms a round, and from the
+    traces device ms, kernels and the device's idle share a round and the
+    kernels that take most of it. Returns (the race capped at 1 + cap,
+    the costs)."""
+    import torch
+    wall = {}
+    for r in (1, 1 + cap):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = race(r)
+        torch.cuda.synchronize()
+        wall[r] = time.perf_counter() - t
+    w0, k0 = profiled(lambda: race(1))
+    w1, k1 = profiled(lambda: race(1 + traced))
+    base = {r["name"]: r for r in k0}
+    per = sorted(({"name": r["name"],
+                   "device_ms": (r["device_ms"] - base.get(r["name"], {})
+                                 .get("device_ms", 0.0)) / traced,
+                   "calls": (r["calls"] - base.get(r["name"], {})
+                             .get("calls", 0)) / traced} for r in k1),
+                 key=lambda r: -r["device_ms"])
+    busy, traced_ms = sum(r["device_ms"] for r in per), (w1 - w0) / traced
+    return res, {"capped_rounds": cap,
+                 "ms_per_round": (wall[1 + cap] - wall[1]) * 1e3 / cap,
+                 "traced_ms_per_round": traced_ms,
+                 "device_ms_per_round": busy,
+                 "kernels_per_round": sum(r["calls"] for r in per),
+                 "device_idle_share": max(0.0, 1.0 - busy / traced_ms),
+                 "top": per[:8]}
+
+
+def inserted_rows(corpus, first: int, m: int, seed: int):
+    """The mutation steps' SPARSE_INSERTS dense rows: copies of corpus rows
+    ``first`` on, and one row with m + 100 nonzeros, wider than a store
+    ``m`` wide."""
+    import torch
+    d = corpus.d
+    src = torch.arange(first, first + SPARSE_INSERTS - 1, device="cuda")
+    rows = torch.zeros((SPARSE_INSERTS, d + 1), device="cuda")
+    rows[:-1].scatter_(1, corpus.indices[src].long(), corpus.values[src])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 3)
+    wide = torch.randperm(d, generator=g, device="cuda")[:m + 100]
+    rows[-1, wide] = 1.0 + torch.rand(len(wide), generator=g, device="cuda")
+    return rows[:, :d]
+
+
+def sparse_phase(seed: int, n_queries: int) -> dict:
+    """The ``bmo-nn-sparse`` workload (§IV-A): the corpus drawn on the card
+    at its published size (n = 100,000, d = 28,672, 7% nonzero), the
+    benchmark's 1,024 queries (copies of corpus rows). Steps, each timed.
+    At full size: build (``Index.build``); oracle (``exact_knn_sparse`` of
+    every query, its sets against ``l1_truth``); files (save and load,
+    every array bit for bit); races capped at 1 + SPARSE_CAPPED_ROUNDS
+    rounds, ``Index.query`` of ``n_queries`` queries and ``core.bmo_nn.knn``
+    of one (``round_cost``: a round's ms, device ms, kernels and idle
+    share); mutation (an insert that widens the rows, deletes, a capped
+    query, ``maybe_compact``, a capped query: the inserted and the
+    compacted rows held bit for bit, no dead slot returned). Then races run
+    to certification over the first SPARSE_RACE_ROWS rows: rounds
+    (``Index.query`` of ``n_queries`` copies of its rows); paper
+    (``core.bmo_nn.knn`` of SPARSE_PAPER_QUERIES of them); mutation (that
+    index saved and loaded, its query equal to the rounds step's, an
+    insert that grows and widens the store, deletes, a query,
+    ``maybe_compact``, a query). Recall ≥ 0.99 on every race run to
+    certification, no dead slot returned."""
+    import dataclasses
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.configs.bmo_nn import SPARSE
+    from repro_torch.core.bmo_nn import knn
+    from repro_torch.core.datasets import SparseDataset
+    from repro_torch.core.oracle import exact_knn_sparse
+    from repro_torch.data.synthetic import make_knn_benchmark_data
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+
+    cfg, n, d, k = SPARSE.bmo, SPARSE.n_points, SPARSE.dim, SPARSE.bmo.k
+    out = {"phase": "sparse", "workload": SPARSE.name, "n": n, "d": d,
+           "sparsity": SPARSE.sparsity, "queries": SPARSE.n_queries, "k": k,
+           "delta": cfg.delta, "block": cfg.block,
+           "batch_arms": cfg.batch_arms,
+           "pulls_per_round": cfg.pulls_per_round, "seed": seed}
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return result
+
+    def store_bytes(idx):
+        return sum(a.numel() * a.element_size()
+                   for a in idx.store.arrays().values())
+
+    def same_arrays(what, a, b):
+        if a.store.meta() != b.store.meta() or sorted(
+                a.store.arrays()) != sorted(b.store.arrays()) or any(
+                x.dtype != b.store.arrays()[name].dtype
+                or not torch.equal(x, b.store.arrays()[name])
+                for name, x in a.store.arrays().items()):
+            raise AssertionError(f"sparse {what}: the loaded arrays differ "
+                                 "from the saved ones")
+
+    def race_checks(what, res, truth, n_rows):
+        got = recall_of(f"sparse {what}", np.asarray(res.indices),
+                        np.asarray(res.values), truth, n_rows, k)
+        return {**got, "rounds_max": int(np.max(res.rounds)),
+                "rounds_mean": float(np.mean(res.rounds)),
+                "n_exact_mean": float(np.mean(res.n_exact)),
+                "coord_ops_mean": float(np.mean(res.coord_ops))}
+
+    def oracle_count(sub, q_nnz):
+        """The sparsity-aware exact cost of the queries over ``sub``."""
+        return (len(q_nnz) * float(sub.nnz.double().sum())
+                + float(q_nnz.double().sum()) * sub.n)
+
+    def run():
+        corpus, queries = timed("data_s", lambda: make_knn_benchmark_data(
+            "sparse", n, d, SPARSE.n_queries, seed=seed, device="cuda"))
+        idx = timed("build_s", lambda: Index.build(corpus, cfg, seed))
+        out.update(m=idx.store.m, capacity=idx.capacity,
+                   index_bytes=store_bytes(idx),
+                   nnz_mean=float(corpus.nnz.double().mean()))
+
+        # --- oracle: every query at full size against a float64 truth ----
+        ex = timed("oracle_s", lambda: exact_knn_sparse(corpus, *queries, k))
+        truth, tdist = timed("truth_s", lambda: l1_truth(
+            corpus.indices, corpus.values, *queries[:2], d, k))
+        got = ex.indices.cpu().numpy()
+        disagreements = []
+        for i in np.nonzero([set(a) != set(b) for a, b in
+                             zip(got.tolist(), truth.tolist())])[0]:
+            worst = float(ex.values[i].max()) * d
+            disagreements.append({"query": int(i),
+                                  "rel_gap": abs(worst - tdist[i, -1])
+                                  / tdist[i, -1]})
+        value_err = float(np.max(np.abs(ex.values.double().cpu().numpy() * d
+                                        - tdist) / np.maximum(tdist, 1e-30)))
+        out["oracle"] = {"set_disagreements": disagreements,
+                         "max_value_rel_err": value_err,
+                         "coord_ops": float(ex.coord_ops),
+                         "coord_ops_share_of_nd": float(ex.coord_ops)
+                         / (SPARSE.n_queries * n * d)}
+        if any(x["rel_gap"] > 1e-4 for x in disagreements) or \
+                value_err > 1e-4:
+            raise AssertionError(f"sparse oracle disagrees with the float64 "
+                                 f"truth: {out['oracle']}")
+        del ex
+
+        # --- files at full size ------------------------------------------
+        tmp = save_dir(2 * out["index_bytes"])
+        try:
+            path = os.path.join(tmp, "sparse")
+            timed("save_s", lambda: idx.save(path))
+            out["bytes_written"] = sum(
+                os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))
+            loaded = timed("load_s", lambda: Index.load(path))
+            same_arrays("files", idx, loaded)
+            out["loaded_arrays_bit_equal"] = sorted(idx.store.arrays())
+            del loaded
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+        # --- races at full size, capped: what a round costs ---------------
+        t_full = time.perf_counter()
+        qf = tuple(t[:n_queries] for t in queries)
+
+        def capped_checks(what, res, alive):
+            ids = np.asarray(res.indices)
+            if ids.ndim != 2 or ids.shape[1] != k or \
+                    not np.isfinite(np.asarray(res.values)).all() or \
+                    not alive[ids].all():
+                raise AssertionError(f"sparse {what}: a capped race returned "
+                                     "a bad shape, a non-finite value or a "
+                                     "dead slot")
+            return {"rounds_max": int(np.max(res.rounds)),
+                    "queries": int(ids.shape[0])}
+
+        full = {}
+        res, full["rounds"] = round_cost(
+            lambda r: idx.query(qf, seed, max_rounds=r),
+            SPARSE_CAPPED_ROUNDS, SPARSE_TRACED_ROUNDS)
+        full["rounds"].update(capped_checks(
+            "full-size rounds", res, idx.store.alive.cpu().numpy()))
+        pq = tuple(t[:SPARSE_PAPER_QUERIES] for t in queries)
+        res, full["paper"] = round_cost(
+            lambda r: knn(corpus, pq, dataclasses.replace(cfg, max_rounds=r),
+                          seed), SPARSE_CAPPED_ROUNDS, SPARSE_TRACED_ROUNDS)
+        full["paper"].update(capped_checks(
+            "full-size paper", res._replace(
+                **{f: t.cpu().numpy() for f, t in res._asdict().items()}),
+            np.ones(n, bool)))
+
+        # --- mutation at full size: an insert that widens the rows,
+        # deletes to 64 under half the capacity, maybe_compact ------------
+        fm = {"m_before": idx.store.m}
+        rows_in = inserted_rows(corpus, 0, idx.store.m, seed)
+        slots = timed("full_insert_s", lambda: idx.insert(rows_in))
+        got = {f: getattr(idx.store, f)[torch.from_numpy(slots).cuda()]
+               for f in ("indices", "values", "nnz")}
+        want = SparseDataset.build(rows_in)
+        if idx.store.m <= fm["m_before"] or not (
+                torch.equal(got["nnz"], want.nnz)
+                and torch.equal(got["indices"][:, :want.m], want.indices)
+                and torch.equal(got["values"][:, :want.m], want.values)
+                and bool((got["indices"][:, want.m:] == d).all())):
+            raise AssertionError("sparse full-size insert: the store did not "
+                                 "widen or holds other rows than inserted")
+        fm.update(m_after_insert=idx.store.m, n_live=idx.n_live)
+        r = np.random.default_rng(seed)
+        live = np.nonzero(idx.store.alive.cpu().numpy())[0]
+        timed("full_delete_s", lambda: idx.delete(r.choice(
+            live, idx.n_live - idx.capacity // 2 + 64, replace=False)))
+        fm["n_live_after_delete"] = idx.n_live
+        fm["after_delete"] = capped_checks(
+            "full-size mutation, after delete",
+            idx.query(qf, seed, max_rounds=SPARSE_TRACED_ROUNDS),
+            idx.store.alive.cpu().numpy())
+        before = idx.store
+        old_ids = timed("full_compact_s", idx.maybe_compact)
+        if old_ids is None:
+            raise AssertionError("sparse full-size mutation: maybe_compact "
+                                 "did not compact")
+        keep = torch.from_numpy(old_ids[old_ids >= 0]).cuda()
+        if not all(torch.equal(getattr(idx.store, f)[:len(keep)],
+                               getattr(before, f)[keep])
+                   for f in ("indices", "values", "nnz")):
+            raise AssertionError("sparse full-size compact: the compacted "
+                                 "rows differ from the live ones")
+        del before
+        fm["capacity_compacted"] = idx.capacity
+        fm["after_compact"] = capped_checks(
+            "full-size mutation, after compact",
+            idx.query(qf, seed, max_rounds=SPARSE_TRACED_ROUNDS),
+            idx.store.alive.cpu().numpy())
+        full["mutation"] = fm
+        out["full_size"] = full
+        times["full_size_s"] = time.perf_counter() - t_full
+        del idx, queries, res
+        torch.cuda.empty_cache()
+
+        # --- rounds: the per-round driver over the cut --------------------
+        rows = SPARSE_RACE_ROWS
+        sub, q = sparse_rows(corpus, rows, n_queries, seed)
+        ridx = Index.build(sub, cfg, seed)
+        truth_sub, _ = l1_truth(sub.indices, sub.values, *q[:2], d, k)
+        built = timed("rounds_query_s", lambda: ridx.query(q, seed))
+        exact_cost = oracle_count(sub, q[2])
+        out["rounds"] = {
+            "rows": rows, "queries": n_queries,
+            "qps": n_queries / times["rounds_query_s"],
+            **race_checks("rounds", built, truth_sub, rows),
+            "ms_per_round": times["rounds_query_s"] * 1e3
+            / max(int(np.max(built.rounds)), 1),
+            "coord_ops": float(np.sum(built.coord_ops)),
+            "oracle_coord_ops": exact_cost,
+            "coord_op_gain": exact_cost / float(np.sum(built.coord_ops))}
+
+        # --- paper: Algorithm 2, one race per query -----------------------
+        pq = tuple(t[:SPARSE_PAPER_QUERIES] for t in q)
+        pres = timed("paper_s", lambda: knn(sub, pq, cfg, seed))
+        out["paper"] = {
+            "rows": rows, "queries": SPARSE_PAPER_QUERIES,
+            "seconds_per_query": times["paper_s"] / SPARSE_PAPER_QUERIES,
+            **race_checks("paper", pres._replace(
+                **{f: t.cpu().numpy() for f, t in pres._asdict().items()}),
+                truth_sub[:SPARSE_PAPER_QUERIES], rows)}
+        # a race to certification at full size, projected: the rounds a
+        # row over the cut times the rows, at a full-size round's ms
+        for what, res in (("rounds", built), ("paper", pres)):
+            full[what]["projected_race_s"] = (
+                float(res.rounds.max()) / rows * n
+                * full[what]["ms_per_round"] / 1e3)
+
+        # --- mutation of the rounds step's index: files, insert (growth
+        # and widening), deletes, maybe_compact, each query held to a
+        # float64 truth over the live slots -------------------------------
+        ridx.attach_payload(np.arange(rows))
+        mut = {"m_before": ridx.store.m}
+        tmp = save_dir(4 * store_bytes(ridx))
+        try:
+            path = os.path.join(tmp, "mutation")
+            ridx.save(path)
+            loaded = timed("mutation_load_s", lambda: Index.load(path))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        same_arrays("mutation files", ridx, loaded)
+        again = timed("mutation_query_loaded_s",
+                      lambda: loaded.query(q, seed))
+        if not (np.array_equal(again.indices, built.indices)
+                and np.array_equal(again.values, built.values)):
+            raise AssertionError("sparse mutation: the loaded index's "
+                                 "query differs from the built one's")
+        mut["query_loaded_equals_built"] = True
+        del ridx
+        # the inserted rows: copies of corpus rows past the cut, and one
+        # row denser than the store is wide
+        dense_rows = inserted_rows(corpus, rows, loaded.store.m, seed)
+        mut["capacity_before_insert"] = loaded.capacity
+        timed("mutation_insert_s", lambda: loaded.insert(
+            dense_rows, payload=rows + np.arange(SPARSE_INSERTS)))
+        mut.update(capacity_after_insert=loaded.capacity,
+                   m_after_insert=loaded.store.m)
+        if loaded.store.m <= mut["m_before"] or \
+                loaded.capacity <= mut["capacity_before_insert"]:
+            raise AssertionError(f"sparse mutation: the insert did not grow "
+                                 f"and widen the store: {mut}")
+        # payload value → its CSR row: the cut's rows, then the inserted
+        rows_of = [sub, SparseDataset.build(dense_rows)]
+        every = torch.cat([torch.nn.functional.pad(
+            r.indices, (0, loaded.store.m - r.m), value=d) for r in rows_of])
+        every_val = torch.cat([torch.nn.functional.pad(
+            r.values, (0, loaded.store.m - r.m)) for r in rows_of])
+
+        def live_check(what, res):
+            """Recall over the live slots against the float64 truth of the
+            rows they hold, and no dead slot returned."""
+            alive = loaded.store.alive.cpu().numpy()
+            live = np.nonzero(alive)[0]
+            origin = torch.from_numpy(loaded.payload[live]).cuda()
+            ids, _ = l1_truth(every[origin], every_val[origin], *q[:2], d, k)
+            got = race_checks(f"mutation, {what}", res, live[ids],
+                              loaded.capacity)
+            got["dead_slot_hits"] = int((~alive[res.indices]).sum())
+            if got["dead_slot_hits"]:
+                raise AssertionError(f"sparse mutation, {what}: {got}")
+            return got
+
+        r = np.random.default_rng(seed)
+        true_top = set(loaded.payload[built.indices[:SPARSE_TOP_DELETED]]
+                       .ravel().tolist())
+        pool = np.setdiff1d(np.nonzero(loaded.store.alive.cpu().numpy())[0],
+                            list(true_top))
+        n_dead = loaded.n_live - loaded.capacity // 2 + 64
+        dead = np.array(sorted(true_top | set(r.choice(
+            pool, n_dead - len(true_top), replace=False).tolist())))
+        timed("mutation_delete_s", lambda: loaded.delete(dead))
+        mut["n_live_after_delete"] = loaded.n_live
+        res = timed("mutation_query_after_delete_s",
+                    lambda: loaded.query(q, seed))
+        mut["after_delete"] = live_check("after delete", res)
+        old_ids = timed("mutation_compact_s", loaded.maybe_compact)
+        if old_ids is None:
+            raise AssertionError("sparse mutation: maybe_compact did not "
+                                 "compact")
+        mut["capacity_compacted"] = loaded.capacity
+        res = timed("mutation_query_after_compact_s",
+                    lambda: loaded.query(q, seed))
+        mut["after_compact"] = live_check("after compact", res)
+        out["mutation"] = mut
+        del loaded
+
+    _, launches = counted("sparse", {"pairwise_dist": pairwise_dist_cuda},
+                          run)
+    out.update(times, launches=launches,
+               launches_cuda_cores=pairwise_dist_cuda.launches_cc,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
 def kernel_breakdown(prof) -> list:
     """Device time by kernel name under a torch.profiler run, largest
     first."""
@@ -1684,18 +2161,8 @@ def traced_build(corpus, cfg, seed: int) -> dict:
     device's idle share of its wall time. The allocator keeps the build's
     freed blocks cached, as it does after the timed build, so the oracle
     phase that follows allocates as it did before this trace was added."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.api import Index
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        idx = Index.build(corpus, cfg, seed)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    del idx
-    rows = kernel_breakdown(prof)
+    wall_ms, rows = profiled(lambda: Index.build(corpus, cfg, seed))
     busy = sum(r["device_ms"] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
@@ -1715,7 +2182,7 @@ KERNELS = (
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:41", ("paper",)),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist_sm90.cu",
-     "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper")),
+     "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper", "sparse")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
 )
@@ -1735,6 +2202,9 @@ def main() -> int:
                     help="query batch of the workload (its own is 1024)")
     ap.add_argument("--rounds-queries", type=int, default=256,
                     help="queries of the rounds phase (a cut from 1024)")
+    ap.add_argument("--sparse-queries", type=int, default=64,
+                    help="queries of the sparse phase's rounds step (a cut "
+                         "from 1024)")
     ap.add_argument("--out", help="write every detail to this JSON file")
     args = ap.parse_args()
 
@@ -1762,9 +2232,16 @@ def main() -> int:
           "python": sys.version.split()[0], "allow_tf32_matmul": False,
           "allow_tf32_cudnn": False})
     for what, got in (("queries", args.queries),
-                      ("rounds-phase queries", args.rounds_queries)):
+                      ("rounds-phase queries", args.rounds_queries),
+                      ("sparse rounds-step queries", args.sparse_queries)):
         if got != 1024:
             emit({"cut": f"{what} {got} instead of the workload's 1024"})
+    emit({"cut": f"sparse races at the workload's 100,000 rows: capped at "
+                 f"1 + {SPARSE_CAPPED_ROUNDS} rounds (8.7-8.9 rounds a row a "
+                 "query would make some 880,000); recall held over the "
+                 f"first {SPARSE_RACE_ROWS} rows, races run to certification"})
+    emit({"cut": f"sparse paper step: {SPARSE_PAPER_QUERIES} queries "
+                 "instead of the workload's 1024 (one race each)"})
 
     t = time.perf_counter()
     _build.build_all()
@@ -1809,6 +2286,10 @@ def main() -> int:
                                   truth[:PAPER_QUERIES], args.seed)
     emit(report["paper"])
     del corpus, queries, truth
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report["sparse"] = sparse_phase(args.seed, args.sparse_queries)
+    emit(report["sparse"])
     torch.cuda.empty_cache()
     report["lm_forward"] = lm_forward_phase(args.seed)
     emit({k: v for k, v in report["lm_forward"].items()

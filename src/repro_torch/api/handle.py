@@ -1,7 +1,7 @@
 """``Index`` — the handle in front of the port's index (DESIGN.md §6.1):
-build, open or load a single-shard dense or rotated index, query it through
-the typed ``QuerySpec`` protocol, mutate it (insert, delete, compact) and
-save it. Results come back in the reference's ``KNNResult`` schema, and a
+build, open or load a single-shard dense, rotated or sparse index, query it
+through the typed ``QuerySpec`` protocol, mutate it (insert, delete,
+compact) and save it. Results come back in the reference's ``KNNResult`` schema, and a
 saved directory is the reference's layout: either package loads it.
 
 Side payloads (e.g. kNN-LM next-token ids) attach to the handle and ride
@@ -75,7 +75,8 @@ class Index:
               payload=None, compaction: Optional[CompactionPolicy] = None,
               device=None) -> "Index":
         """Preprocess ``corpus`` (n, d) into a served index on ``device``
-        (default: the GPU; raises without one). ``rng`` is a seed or a
+        (default: the GPU; raises without one); with ``cfg.sparse`` the
+        corpus may also be a ``SparseDataset``. ``rng`` is a seed or a
         ``torch.Generator`` on that device. ``payload``: optional
         (n,)-row-aligned side values, kept slot-aligned through every
         remap."""
@@ -237,9 +238,10 @@ class Index:
 
     def query(self, queries, rng=None, *, spec: Optional[QuerySpec] = None,
               **overrides) -> KNNResult:
-        """Batched k-NN of a (Q, d) query array with the typed query
-        protocol: a ``QuerySpec``, keyword overrides (``k=``, ``delta=``,
-        ``mode=``, …), or both. ``rng`` is a seed or a ``torch.Generator``
+        """Batched k-NN with the typed query protocol: a ``QuerySpec``,
+        keyword overrides (``k=``, ``delta=``, ``mode=``, …), or both. Dense
+        queries are a (Q, d) array; a sparse index takes the (q_idx, q_val,
+        q_nnz) padded triplet and races on the per-round driver. ``rng`` is a seed or a ``torch.Generator``
         on the index's device; by default each call takes the next seed of
         a per-handle counter. Returns slot ids."""
         if spec is None:
@@ -294,7 +296,9 @@ class Index:
         self._payload = buf
 
     def insert(self, rows, *, payload=None) -> np.ndarray:
-        """Insert (B, d) dense rows; returns their slot ids. ``payload``:
+        """Insert (B, d) dense rows (a sparse index compresses them and
+        widens its rows when one needs it); returns their slot ids.
+        ``payload``:
         per-row side values written into the attached payload at those
         slots."""
         self._check_mutable("insert")

@@ -1,7 +1,8 @@
 """The paper's own workload configs for BMO-NN k-nearest-neighbour retrieval.
 
-  * dense: Tiny-ImageNet-like n=100k, d=12288 (§V, Figs 2/3), rotated box
-  * smoke: a small dense box for quick runs
+  * dense:  Tiny-ImageNet-like n=100k, d=12288 (§V, Figs 2/3), rotated box
+  * sparse: 10x-genomics-like  n=100k, d=28672, 7% nnz (§V, Fig 4b)
+  * smoke:  a small dense box for quick runs
 """
 import dataclasses
 
@@ -26,6 +27,16 @@ DENSE = BMONNWorkload(
     sparsity=1.0,
     bmo=BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, metric="l2",
                   rotate=True),
+)
+
+SPARSE = BMONNWorkload(
+    name="bmo-nn-sparse",
+    n_points=100_000,
+    dim=28_672,
+    n_queries=1024,
+    sparsity=0.07,
+    bmo=BMOConfig(k=5, delta=0.01, block=1, batch_arms=32, metric="l1",
+                  sparse=True),
 )
 
 SMOKE = BMONNWorkload(

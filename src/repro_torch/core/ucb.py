@@ -130,6 +130,14 @@ def topk_from_state_masked(mean, ci, accepted, rejected, valid, ids, k: int):
     return torch.gather(ids, -1, pos), vals
 
 
+def per_arm(value, shape, device, static: int = 0):
+    """A scalar or per-arm ``value`` as an fp32 tensor of ``shape`` (a view
+    where it broadcasts), and the upper bound the race's union bound takes:
+    ``static``, else the largest value, as an int."""
+    t = torch.as_tensor(value, dtype=torch.float32, device=device)
+    return t.expand(shape), static or int(torch.max(t))
+
+
 def pull_slack(count, max_pulls, need) -> torch.Tensor:
     """Largest ``count − max_pulls`` over the arms the next round may
     select (−inf when none): an arm can cross MAX_PULLS in a round of P
@@ -142,13 +150,16 @@ def race_topk(
     pull_fn: Callable,          # (arm_idx (B,)) -> (B, P) sample values
     exact_fn: Callable,         # (arm_idx (B,)) -> (B,) exact θ
     n: int,
-    max_pulls: float,           # pulls that constitute an exact evaluation
+    max_pulls,                  # pulls that constitute an exact evaluation;
+                                # scalar or (n,)
     pull_cost: float,           # coordinate-ops per sample (block width)
-    exact_cost: float,          # coordinate-ops per exact evaluation (d)
+    exact_cost,                 # coordinate-ops per exact evaluation (d);
+                                # scalar or (n,)
     cfg: BMOConfig,
     *,
     device: torch.device,
     eliminate: bool = True,
+    max_pulls_static: int = 0,  # upper bound of max_pulls (0: its maximum)
 ) -> RaceResult:
     """One query's race (Alg. 1, batched as in the paper's App. D-A): per
     round, the ``batch_arms`` lowest-LCB candidates take ``pulls_per_round``
@@ -159,15 +170,21 @@ def race_topk(
     ``pull_fn`` draws its own randomness (the caller's block sampler) and
     gets arm id −1 for a lane whose result is discarded. The host reads two
     numbers per round: the accepted count (the stop rule) and the pull
-    slack that gates the next round's exact evaluation."""
+    slack that gates the next round's exact evaluation.
+
+    ``max_pulls`` and ``exact_cost`` are per arm where the box's exact
+    evaluation costs differ (the sparse box's n_q + n_i); the union bound
+    and the round cap take ``max_pulls_static`` or the largest of them."""
     k = cfg.k
     B = min(cfg.batch_arms, n)
     P = cfg.pulls_per_round
-    max_pulls = float(max_pulls)
-    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, int(max_pulls)))
+    max_pulls, max_pulls_hi = per_arm(max_pulls, (n,), device,
+                                      max_pulls_static)
+    exact_cost, _ = per_arm(exact_cost, (n,), device)
+    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, max_pulls_hi))
     # hard cap: everything pulled to exact plus slack
     max_rounds = cfg.max_rounds or int(
-        2 * math.ceil(n * max_pulls / max(B * P, 1)) + n + 16)
+        2 * math.ceil(n * max_pulls_hi / max(B * P, 1)) + n + 16)
 
     def ci_radius(st: RaceState) -> torch.Tensor:
         if cfg.sigma is not None:
@@ -218,10 +235,10 @@ def race_topk(
 
         # ---- exact evaluation for arms that crossed MAX_PULLS -------------
         sel_exact = st.exact[sel]
-        crossed = (nc >= max_pulls) & sel_valid & ~sel_exact
+        crossed = (nc >= max_pulls[sel]) & sel_valid & ~sel_exact
         if slack + P >= 0:
             nm = torch.where(crossed, exact_fn(sel), nm)
-        coord_ops = coord_ops + torch.sum(crossed) * float(exact_cost)
+        coord_ops = coord_ops + torch.sum(crossed * exact_cost[sel])
         st = st._replace(
             mean=st.mean.scatter(0, sel, nm),
             count=st.count.scatter(0, sel, nc),

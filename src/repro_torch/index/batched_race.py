@@ -1,4 +1,5 @@
-"""Cross-query batched racing for dense and rotated stores: two drivers.
+"""Cross-query batched racing: two drivers for dense and rotated stores, and
+the per-round one for sparse stores.
 
 ``batched_race_topk`` (the per-round driver, DESIGN.md §3.2) races one
 (Q, n) arm state with one ``block_pull_multi`` launch per round: the B
@@ -26,8 +27,15 @@ MAX_PULLS, which is what gates the exact evaluation; the reference gates it
 with an on-device ``lax.cond``.
 
 Block ids come from a replaceable ``block_sampler(shape, nb)`` that returns
-an int32 tensor on the corpus's device; the default draws from the query's
-``torch.Generator``. The tests replace it to replay the reference's draws.
+an int32 tensor on the corpus's device, a sparse pull's draws from a
+replaceable ``coord_sampler(q_nnz, arm_nnz)``; the defaults draw from the
+query's ``torch.Generator``. The tests replace them to replay the
+reference's draws.
+
+The sparse box (§IV-A) races on the per-round driver only: its pulls are
+Eq. 12 coordinate samples (``core/bmo_nn.py``), its exact evaluation
+costs n_q + n_i, per arm and query, and an arm is exact after that many
+pulls (at least 8).
 
 Priors: the store's build-time per-arm variance priors are (n,); a caller
 may seed per-query (Q, n) priors instead (``index_knn(prior_hint=…)``).
@@ -53,10 +61,13 @@ import torch
 
 from repro_torch.configs.base import BMOConfig
 from repro_torch.core import confidence as conf
-from repro_torch.core.bmo_nn import (BlockSampler, KNNResult,
-                                     default_block_sampler)
+from repro_torch.core.bmo_nn import (BlockSampler, CoordSampler, KNNResult,
+                                     _sparse_pull_fn, default_block_sampler,
+                                     default_coord_sampler,
+                                     sparse_exact_theta, sparse_queries)
+from repro_torch.core.datasets import SparseDataset
 from repro_torch.core.ucb import (INF, acceptance_step,
-                                  acceptance_step_masked, pull_slack,
+                                  acceptance_step_masked, per_arm, pull_slack,
                                   smallest_k, topk_from_state,
                                   topk_from_state_masked)
 from repro_torch.device import make_generator
@@ -91,7 +102,7 @@ class RoundsRaceFns(NamedTuple):
     active: Callable      # state -> bool (queries left AND round cap unhit)
     ci_radius: Callable   # state -> (Q, n) CI half-widths
     exact_fn: Callable    # (sel (Q, B)) -> (Q, B) exact θ
-    exact_cost: float     # coordinate-op cost of an exact evaluation
+    exact_cost: torch.Tensor  # (Q, n) coordinate-op cost of an exact eval
     max_rounds: int
 
 
@@ -106,9 +117,11 @@ def make_rounds_race(
     exact_fn: Callable,         # (sel (Q, B)) -> (Q, B) exact θ
     n: int,
     Q: int,
-    max_pulls: float,           # pulls that constitute an exact evaluation
+    max_pulls,                  # pulls that constitute an exact evaluation:
+                                # scalar, (n,) or (Q, n)
     pull_cost: float,
-    exact_cost: float,          # coordinate-ops per exact evaluation (d)
+    exact_cost,                 # coordinate-ops per exact evaluation:
+                                # scalar, (n,) or (Q, n)
     cfg: BMOConfig,
     *,
     device: torch.device,
@@ -116,19 +129,22 @@ def make_rounds_race(
     dead: Optional[torch.Tensor] = None,       # (n,) bool tombstones
     prior_var: Optional[torch.Tensor] = None,  # (n,) or (Q, n) variance prior
     prior_weight: float = 0.0,
+    max_pulls_static: int = 0,  # upper bound of max_pulls (0: its maximum)
 ) -> RoundsRaceFns:
     """The per-round driver (DESIGN.md §3.2) as init/body/active pieces.
-    ``pull_fn`` draws its own block ids (the caller's sampler) and gets arm
-    id −1 for a lane whose result is discarded: dead arms at the init, and
-    selections that are not valid candidates."""
+    ``pull_fn`` draws its own randomness (the caller's sampler) and gets
+    arm id −1 for a lane whose result is discarded: dead arms at the init,
+    and selections that are not valid candidates. The union bound and the
+    round cap take ``max_pulls_static``, else the largest ``max_pulls``."""
     k = cfg.k
     B = min(cfg.batch_arms, n)
     P = cfg.pulls_per_round
-    max_pulls = float(max_pulls)
-    exact_cost = float(exact_cost)
-    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, int(max_pulls)))
+    max_pulls, max_pulls_hi = per_arm(max_pulls, (Q, n), device,
+                                      max_pulls_static)
+    exact_cost, _ = per_arm(exact_cost, (Q, n), device)
+    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, max_pulls_hi))
     max_rounds = cfg.max_rounds or int(
-        2 * math.ceil(n * max_pulls / max(B * P, 1)) + n + 16)
+        2 * math.ceil(n * max_pulls_hi / max(B * P, 1)) + n + 16)
 
     alive = (torch.ones((n,), dtype=torch.bool, device=device) if dead is None
              else ~dead)
@@ -215,10 +231,12 @@ def make_rounds_race(
 
         # ---- lazy exact evaluation for arms that crossed MAX_PULLS -------
         sel_exact = torch.gather(st.exact, 1, sel)
-        crossed = (nc >= max_pulls) & sel_valid & ~sel_exact
+        crossed = (nc >= torch.gather(max_pulls, 1, sel)) & sel_valid \
+            & ~sel_exact
         if st.slack + P >= 0:
             nm = torch.where(crossed, exact_fn(sel), nm)
-        coord_ops = coord_ops + torch.sum(crossed, 1) * exact_cost
+        coord_ops = coord_ops + torch.sum(
+            crossed * torch.gather(exact_cost, 1, sel), 1)
         st2 = st._replace(
             mean=st.mean.scatter(1, sel, nm), count=st.count.scatter(1, sel, nc),
             m2=st.m2.scatter(1, sel, n2),
@@ -265,9 +283,9 @@ def batched_race_topk(
     exact_fn: Callable,         # (sel (Q, B)) -> (Q, B) exact θ
     n: int,
     Q: int,
-    max_pulls: float,           # pulls that constitute an exact evaluation
+    max_pulls,                  # scalar, (n,) or (Q, n)
     pull_cost: float,
-    exact_cost: float,          # coordinate-ops per exact evaluation (d)
+    exact_cost,                 # scalar, (n,) or (Q, n)
     cfg: BMOConfig,
     *,
     device: torch.device,
@@ -275,11 +293,12 @@ def batched_race_topk(
     dead: Optional[torch.Tensor] = None,       # (n,) bool tombstones
     prior_var: Optional[torch.Tensor] = None,  # (n,) or (Q, n) variance prior
     prior_weight: float = 0.0,
+    max_pulls_static: int = 0,
 ) -> KNNResult:
     fns = make_rounds_race(
         pull_fn, exact_fn, n, Q, max_pulls, pull_cost, exact_cost, cfg,
         device=device, eliminate=eliminate, dead=dead, prior_var=prior_var,
-        prior_weight=prior_weight)
+        prior_weight=prior_weight, max_pulls_static=max_pulls_static)
     return run_to_certification(fns, cfg.k)
 
 
@@ -577,21 +596,58 @@ def _dense_index_knn(x, qs, alive, prior_var, sample_blocks: BlockSampler, *,
     return res._replace(values=res.values * (d_pad / d))
 
 
+def make_sparse_rounds_race(indices, values, nnz, alive, prior_var,
+                            q_idx, q_val, q_nnz,
+                            sample_coords: CoordSampler, *, cfg: BMOConfig,
+                            d: int, eliminate: bool, prior_weight: float
+                            ) -> RoundsRaceFns:
+    """The §IV-A sparse box's per-round race pieces: Eq. 12 pulls, exact
+    evaluations in the reference's two terms, per-(query, arm) exact cost
+    n_q + n_i and MAX_PULLS max(n_q + n_i, 8)."""
+    n, m = indices.shape
+    dev = indices.device
+    ds = SparseDataset(indices=indices, values=values, nnz=nnz, d=d)
+    qs = sparse_queries(q_idx, q_val, q_nnz, d, dev)
+    Q, mq = qs.idx.shape
+    exact_cost = (nnz[None, :] + qs.nnz[:, None]).to(torch.float32)  # (Q, n)
+    return make_rounds_race(
+        _sparse_pull_fn(ds, qs, cfg, sample_coords),
+        lambda sel: sparse_exact_theta(ds, qs, sel),
+        n=n, Q=Q, max_pulls=torch.clamp(exact_cost, min=8.0), pull_cost=1.0,
+        exact_cost=exact_cost, cfg=cfg, device=dev, eliminate=eliminate,
+        dead=~alive, prior_var=prior_var, prior_weight=prior_weight,
+        max_pulls_static=m + mq)
+
+
+def _sparse_index_knn(indices, values, nnz, alive, prior_var,
+                      q_idx, q_val, q_nnz, sample_coords: CoordSampler, *,
+                      cfg: BMOConfig, d: int, eliminate: bool,
+                      prior_weight: float) -> KNNResult:
+    fns = make_sparse_rounds_race(
+        indices, values, nnz, alive, prior_var, q_idx, q_val, q_nnz,
+        sample_coords, cfg=cfg, d=d, eliminate=eliminate,
+        prior_weight=prior_weight)
+    return run_to_certification(fns, cfg.k)
+
+
 def index_knn(store, queries, generator=None, *, k=None, impl: str = "auto",
               eliminate: bool = True, warm_start: bool = True,
               mode: str = "auto", prior_hint=None,
-              block_sampler: Optional[BlockSampler] = None) -> KNNResult:
-    """Batched k-NN of (Q, d) dense queries against a dense or rotated
-    IndexStore (slot indices; tombstones excluded).
+              block_sampler: Optional[BlockSampler] = None,
+              coord_sampler: Optional[CoordSampler] = None) -> KNNResult:
+    """Batched k-NN against an IndexStore (slot indices; tombstones
+    excluded): (Q, d) dense queries against a dense or rotated store, the
+    (q_idx, q_val, q_nnz) padded triplet against a sparse one.
 
-    ``mode``: "fused" — the epoch-fused, survivor-compacted driver; "rounds"
-    — the one-launch-per-round driver; "auto" — fused.
+    ``mode``: "fused" — the epoch-fused, survivor-compacted driver
+    (dense/rotated only); "rounds" — the one-launch-per-round driver;
+    "auto" — fused where available, rounds for sparse.
 
     ``prior_hint``: optional (Q, capacity) per-query CI variance priors in
     place of the store's build-time per-arm priors (the near-repeat warm
     start); a seeded prior implies warm start. ``generator`` (a
     ``torch.Generator`` on the store's device, or a seed) feeds the default
-    block sampler; ``block_sampler`` replaces it."""
+    samplers; ``block_sampler`` and ``coord_sampler`` replace them."""
     cfg = store.cfg if k is None else dataclasses.replace(store.cfg, k=k)
     n_live = store.n_live
     if cfg.k > n_live:
@@ -606,6 +662,19 @@ def index_knn(store, queries, generator=None, *, k=None, impl: str = "auto",
         prior = torch.as_tensor(prior_hint, dtype=torch.float32,
                                 device=store.device)
         w = store.prior_weight
+    if store.kind == "sparse":
+        if mode == "fused":
+            raise ValueError("the fused epoch driver pulls corpus blocks — "
+                             "sparse boxes race on the per-round driver")
+        if coord_sampler is None:
+            coord_sampler = default_coord_sampler(
+                make_generator(0 if generator is None else generator,
+                               store.device), store.device)
+        q_idx, q_val, q_nnz = queries
+        return _sparse_index_knn(
+            store.indices, store.values, store.nnz, store.alive, prior,
+            q_idx, q_val, q_nnz, coord_sampler, cfg=cfg, d=store.d,
+            eliminate=eliminate, prior_weight=w)
     qs = store.prepare_queries(queries, impl=impl)
     if mode == "rounds":
         if block_sampler is None:

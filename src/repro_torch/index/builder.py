@@ -1,9 +1,9 @@
-"""One-time index preprocessing (DESIGN.md §3.1): corpus → IndexStore, for
-the dense and rotated boxes.
+"""One-time index preprocessing (DESIGN.md §3.1): corpus → IndexStore.
 
   * dense:   blocked, padded, capacity-padded corpus layout,
   * rotated: the §IV-B Hadamard rotation is cached — the sign vector and
     the pre-rotated corpus are stored, so serving only rotates queries,
+  * sparse:  the capacity-padded CSR layout (§IV-A box),
   * per-arm block statistics, the warm-start priors for the racing CIs.
 
 Persistence goes through ``checkpoint/manager.py``'s atomic save, in the
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.checkpoint import manager
 from repro_torch.configs.base import BMOConfig
-from repro_torch.core.datasets import next_pow2
+from repro_torch.core.datasets import SparseDataset, next_pow2
 from repro_torch.core.datasets import rademacher as _rademacher
 from repro_torch.device import make_generator, resolve_device
 from repro_torch.index.store import IndexStore
@@ -34,16 +34,29 @@ def _row_block_stats(x: torch.Tensor, block: int, metric: str):
     return torch.var(v, dim=-1, unbiased=False)
 
 
+def _sparse_prior(values: torch.Tensor, nnz: torch.Tensor, d: int):
+    """Eq. 12 pull values are (tot/2d)·(1+…)·|v|: scale the per-row value
+    variance by the squared support mass so empty/light rows start tight."""
+    mask = torch.arange(values.shape[1], device=values.device) < nnz[:, None]
+    cnt = torch.clamp(nnz.to(torch.float32), min=1.0)
+    mean = torch.sum(torch.abs(values) * mask, 1) / cnt
+    var = torch.sum(torch.square(torch.abs(values) - mean[:, None]) * mask,
+                    1) / cnt
+    return var * (nnz.to(torch.float32) / d) ** 2
+
+
 def build_index(corpus, cfg: BMOConfig, rng=0, *,
                 capacity: Optional[int] = None, impl: str = "auto",
                 device=None) -> IndexStore:
-    """Preprocess a dense (n, d) ``corpus`` (numpy or tensor) into an
-    IndexStore on ``device`` (default: the GPU). ``cfg.rotate`` selects the
-    rotated box; ``rng`` (a seed or a ``torch.Generator`` on the device)
-    draws its signs. ``capacity`` defaults to the next power of two."""
-    if cfg.sparse:
-        raise NotImplementedError("the sparse box is not ported yet")
+    """Preprocess ``corpus`` into an IndexStore on ``device`` (default: the
+    GPU). ``corpus``: a dense (n, d) numpy array or tensor, or, with
+    ``cfg.sparse``, also a ``SparseDataset``. ``cfg.rotate`` and
+    ``cfg.sparse`` select the §IV box; ``rng`` (a seed or a
+    ``torch.Generator`` on the device) draws the rotated box's signs.
+    ``capacity`` defaults to the next power of two."""
     dev = resolve_device(device)
+    if cfg.sparse:
+        return _build_sparse(corpus, cfg, capacity, dev)
     x = torch.as_tensor(corpus, dtype=torch.float32, device=dev)
     n, d = x.shape
     kind = "rotated" if cfg.rotate else "dense"
@@ -72,6 +85,24 @@ def build_index(corpus, cfg: BMOConfig, rng=0, *,
     prior_var = _row_block_stats(x, cfg.block, cfg.metric)
     return IndexStore(kind=kind, cfg=cfg, d=d, alive=alive, x=x,
                       block=cfg.block, signs=signs, prior_var=prior_var)
+
+
+def _build_sparse(corpus, cfg: BMOConfig, capacity: Optional[int],
+                  dev: torch.device) -> IndexStore:
+    ds = (corpus.to(dev) if isinstance(corpus, SparseDataset)
+          else SparseDataset.build(corpus, device=dev))
+    n, m, d = ds.n, ds.m, ds.d
+    cap = capacity or next_pow2(n)
+    if cap < n:
+        raise ValueError(f"capacity {cap} < corpus rows {n}")
+    pad = cap - n
+    indices = torch.cat([ds.indices, ds.indices.new_full((pad, m), d)])
+    values = torch.nn.functional.pad(ds.values, (0, 0, 0, pad))
+    nnz = torch.nn.functional.pad(ds.nnz, (0, pad))
+    return IndexStore(kind="sparse", cfg=cfg, d=d,
+                      alive=torch.arange(cap, device=dev) < n,
+                      indices=indices, values=values, nnz=nnz,
+                      prior_var=_sparse_prior(values, nnz, d))
 
 
 # ---------------------------------------------------------------------------

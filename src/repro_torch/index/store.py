@@ -1,11 +1,12 @@
-"""IndexStore: the corpus container behind the batched BMO-NN index, dense
-and rotated kinds (DESIGN.md §3).
+"""IndexStore: the corpus container behind the batched BMO-NN index
+(DESIGN.md §3).
 
 One store owns what the paper's Algorithm 2 would recompute per call: the
-padded, blocked corpus layout, the cached Hadamard rotation (sign vector +
-pre-rotated corpus; only queries are rotated at request time), per-arm
-block-statistics priors, and the ``alive`` tombstone mask. Arrays are
-capacity-padded (slots ≥ live points).
+padded, blocked corpus layout (dense), the cached Hadamard rotation (sign
+vector + pre-rotated corpus; only queries are rotated at request time), or
+the padded-CSR layout (sparse, §IV-A); per-arm block-statistics priors;
+and the ``alive`` tombstone mask. Arrays are capacity-padded (slots ≥ live
+points).
 
 ``from_arrays`` takes the reference store's ``arrays()`` (as numpy) and
 ``meta()`` unchanged, so an index built by either package races in the
@@ -22,25 +23,30 @@ import torch
 from repro_torch.configs.base import BMOConfig
 from repro_torch.device import resolve_device
 
-KINDS = ("dense", "rotated")
-SPARSE_FIELDS = ("indices", "values", "nnz")
+KINDS = ("dense", "rotated", "sparse")
 
 
 @dataclasses.dataclass
 class IndexStore:
-    kind: str                           # dense | rotated
+    kind: str                           # dense | rotated | sparse
     cfg: BMOConfig                      # racing defaults bound at build time
     d: int                              # true dimension (θ normalizer)
     alive: torch.Tensor                 # (cap,) bool — tombstone mask
-    x: torch.Tensor                     # (cap, d_pad) fp32, blocked layout
+    # --- dense / rotated layout ---
+    x: Optional[torch.Tensor] = None    # (cap, d_pad) fp32, blocked layout
     block: int = 128
     signs: Optional[torch.Tensor] = None      # (d_pad,) ±1 — cached rotation
-    prior_var: Optional[torch.Tensor] = None  # (cap,) per-arm block variance
+    # --- sparse (padded-CSR) layout ---
+    indices: Optional[torch.Tensor] = None    # (cap, m) int32, sorted, pad d
+    values: Optional[torch.Tensor] = None     # (cap, m) fp32, pad 0
+    nnz: Optional[torch.Tensor] = None        # (cap,) int32
+    # --- priors ---
+    prior_var: Optional[torch.Tensor] = None  # (cap,) per-arm variance
     prior_weight: float = 4.0                 # pseudo-observations
 
     @property
     def device(self) -> torch.device:
-        return self.x.device
+        return self.alive.device
 
     @property
     def capacity(self) -> int:
@@ -62,12 +68,21 @@ class IndexStore:
     def n_blocks(self) -> int:
         return self.d_pad // self.block
 
+    @property
+    def m(self) -> int:
+        """The sparse layout's width: the largest nnz it holds."""
+        return self.indices.shape[1]
+
     # -- query-side preprocessing ------------------------------------------
 
     def prepare_queries(self, queries, impl: str = "auto") -> torch.Tensor:
         """Pad (and rotate, with the cached signs) a (Q, d) query batch into
-        the store's (Q, d_pad) layout on the store's device."""
+        the store's (Q, d_pad) layout on the store's device. Dense and
+        rotated stores: a sparse store races the padded triplet as is."""
         from repro_torch.kernels import ops as kops
+        if self.kind == "sparse":
+            raise ValueError("a sparse store takes the (q_idx, q_val, "
+                             "q_nnz) triplet, not dense queries")
         qs = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         pad = self.d_pad - qs.shape[-1]
         if pad:
@@ -80,8 +95,8 @@ class IndexStore:
 
     def arrays(self) -> dict:
         """The arrays a checkpoint persists, as tensors."""
-        out = {"alive": self.alive, "x": self.x}
-        for name in ("signs", "prior_var"):
+        out = {"alive": self.alive}
+        for name in ("x", "signs", "indices", "values", "nnz", "prior_var"):
             arr = getattr(self, name)
             if arr is not None:
                 out[name] = arr
@@ -102,10 +117,8 @@ class IndexStore:
         """A store from persisted arrays (numpy or tensors) and metadata —
         the reference's ``arrays()``/``meta()`` load unchanged. Runs on
         ``device`` (default: the GPU)."""
-        if meta["kind"] not in KINDS or any(f in arrays for f in SPARSE_FIELDS):
-            raise NotImplementedError(
-                f"{meta['kind']!r} stores are not ported yet (the sparse "
-                f"box is ROADMAP.md Queue 1 item 2); the port serves {KINDS}")
+        if meta["kind"] not in KINDS:
+            raise ValueError(f"unknown store kind {meta['kind']!r}")
         dev = resolve_device(device)
 
         def opt(name, dtype):
@@ -126,7 +139,9 @@ class IndexStore:
             kind=meta["kind"], cfg=BMOConfig(**meta["cfg"]), d=int(meta["d"]),
             alive=opt("alive", torch.bool), x=opt("x", torch.float32),
             block=int(meta["block"]), signs=opt("signs", torch.float32),
-            prior_var=opt("prior_var", torch.float32),
+            indices=opt("indices", torch.int32),
+            values=opt("values", torch.float32),
+            nnz=opt("nnz", torch.int32), prior_var=opt("prior_var", torch.float32),
             prior_weight=float(meta.get("prior_weight", 4.0)),
         )
 

@@ -624,6 +624,53 @@ def test_query_after_deletes_skips_dead_slots_on_the_rows_schedule(gen,
     assert [set(r) for r in res.indices.tolist()] == truth
 
 
+def test_sparse_box_on_the_card_matches_the_cpu(gen):
+    """The sparse box's pulls (Eq. 12: a binary search in each arm's row and
+    the queries' position table), its exact evaluations and its oracle
+    (``pairwise_dist`` ℓ1 on densified chunks) on the card, against the
+    same calls on the CPU from the same corpus and draws: pulls at rtol
+    1e-6 (elementwise fp32 on both), exact θ at rtol 1e-5 (sums in another
+    order), the oracle's ids equal and θ at rtol 1e-5; then a query of the
+    index finds the oracle's top-k."""
+    corpus, (qi, qv, qn) = make_knn_benchmark_data(
+        "sparse", 3000, 4096, 16, device="cuda", generator=gen)
+    corpus.nnz[5] = 0                               # an empty row
+    corpus.indices[5] = corpus.d
+    corpus.values[5] = 0.0
+    cpu = corpus.to("cpu")
+    qs = bmo_nn.sparse_queries(qi, qv, qn, corpus.d, "cuda")
+    qs_cpu = bmo_nn.sparse_queries(qi.cpu(), qv.cpu(), qn.cpu(), corpus.d,
+                                   "cpu")
+    arm = torch.randint(-1, 3000, (16, 32), generator=gen, device="cuda")
+    arm[:, 0] = 5
+    an = torch.where(arm >= 0, corpus.nnz[arm.clamp(min=0)], 0)
+    draws = bmo_nn.default_coord_sampler(gen, torch.device("cuda"))(
+        qn[:, None, None].expand(16, 32, 4), an[..., None].expand(16, 32, 4))
+    got = bmo_nn.sparse_pull_one(corpus, qs, arm, draws)
+    want = bmo_nn.sparse_pull_one(cpu, qs_cpu, arm.cpu(),
+                                  tuple(t.cpu() for t in draws))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
+    live = arm.clamp(min=0)
+    torch.testing.assert_close(
+        bmo_nn.sparse_exact_theta(corpus, qs, live).cpu(),
+        bmo_nn.sparse_exact_theta(cpu, qs_cpu, live.cpu()), rtol=1e-5,
+        atol=0.0)
+    before = pairwise_dist_cuda.launches_cc
+    ex = oracle.exact_knn_sparse(corpus, qi, qv, qn, 5, chunk=1024)
+    assert pairwise_dist_cuda.launches_cc == before + 3
+    ex_cpu = oracle.exact_knn_sparse(cpu, qi.cpu(), qv.cpu(), qn.cpu(), 5,
+                                     chunk=1024, device="cpu")
+    assert torch.equal(ex.indices.cpu(), ex_cpu.indices)
+    torch.testing.assert_close(ex.values.cpu(), ex_cpu.values, rtol=1e-5,
+                               atol=0.0)
+    cfg = BMOConfig(k=5, delta=0.01, block=1, batch_arms=32,
+                    pulls_per_round=8, init_pulls=16, metric="l1",
+                    sparse=True)
+    res = Index.build(corpus, cfg).query((qi, qv, qn))
+    assert [set(r) for r in res.indices.tolist()] == \
+        [set(r) for r in ex.indices.tolist()]
+
+
 FLASH_FP32 = dict(rtol=3e-5, atol=3e-5)
 FLASH_BF16_CUDA_CORES = dict(rtol=8e-3, atol=1e-4)
 

@@ -103,13 +103,28 @@ def test_rotated_build_draws_signs_from_the_generator():
     assert torch.equal(a.signs, b.signs) and not torch.equal(a.signs, c.signs)
 
 
-def test_from_arrays_rejects_sparse_stores():
-    with pytest.raises(NotImplementedError, match="sparse"):
-        IndexStore.from_arrays(
-            {"alive": np.ones(4, bool), "indices": np.zeros((4, 2))},
-            {"kind": "sparse", "d": 8, "block": 1,
-             "cfg": dataclasses.asdict(BMOConfig(sparse=True))},
-            device="cpu")
+def test_from_arrays_carries_a_sparse_reference_store():
+    """A sparse store built by the reference (40 rows in 64 slots, one
+    tombstone) comes across whole: the padded-CSR arrays bit for bit, the
+    metadata unchanged, its width and live count."""
+    from repro.index.mutable import delete as jax_delete
+    cfg = JaxBMOConfig(k=3, delta=0.01, batch_arms=16, metric="l1", block=1,
+                       pulls_per_round=8, init_pulls=16, sparse=True)
+    jstore = jax_delete(jax_build_index(
+        jsynthetic.clustered_sparse(40, 128, seed=3), cfg,
+        jax.random.PRNGKey(0), capacity=64), [7])
+    store = IndexStore.from_arrays(*_carry(jstore), device="cpu")
+    assert store.kind == "sparse" and store.meta() == jstore.meta()
+    assert (store.capacity, store.n_live, store.m, store.d) == \
+        (64, 39, jstore.m, 128)
+    assert sorted(store.arrays()) == sorted(jstore.arrays())
+    for name, arr in store.arrays().items():
+        np.testing.assert_array_equal(arr.numpy(),
+                                      np.asarray(jstore.arrays()[name]))
+    assert store.indices.dtype == torch.int32 and store.nnz.dtype == \
+        torch.int32
+    with pytest.raises(ValueError, match="triplet"):
+        store.prepare_queries(np.zeros((1, 128), np.float32))
 
 
 # ---------------------------------------------------------------------------

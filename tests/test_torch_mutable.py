@@ -13,9 +13,13 @@
 * The reference's own handle and mutation tests (``tests/test_api.py``,
   ``tests/test_index.py``), on the port's own draws.
 * Value semantics: a mutation never writes into the old store.
-* What the port does not serve yet raises ``NotImplementedError`` (a sparse
-  store, a sharded directory, ``shards > 1``), and a ``tuned.json`` sidecar
-  is logged and not applied.
+* The sparse box: the reference's sparse mutation sequence (with a growth
+  and a widening of m) gives the same slots, remaps and arrays in both
+  packages, and a sparse directory saved by either loads in the other bit
+  for bit and races to the same decisions.
+* What the port does not serve yet raises ``NotImplementedError`` (a
+  sharded directory, ``shards > 1``), and a ``tuned.json`` sidecar is
+  logged and not applied.
 """
 import dataclasses
 import logging
@@ -321,14 +325,52 @@ def test_delete_refuses_slots_outside_the_store(bad):
     assert delete(store, []).n_live == 40
 
 
-def test_sparse_stores_raise_not_implemented():
-    corpus, _ = _data(20, 64, 1)
-    store = build_index(corpus, _cfg(block=16), device="cpu")
-    sparse = dataclasses.replace(store, kind="sparse")
-    for op, args in ((insert, (corpus[:1],)), (delete, ([0],)),
-                     (compact, ()), (maybe_compact, ())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            op(sparse, *args)
+def _assert_same_sparse_store(jstore, store):
+    assert (store.capacity, store.n_live, store.m) == \
+        (jstore.capacity, jstore.n_live, jstore.m)
+    for name in ("alive", "indices", "values", "nnz"):
+        np.testing.assert_array_equal(getattr(store, name).numpy(),
+                                      np.asarray(getattr(jstore, name)), name)
+    np.testing.assert_allclose(store.prior_var.numpy(),
+                               np.asarray(jstore.prior_var), rtol=1e-6)
+
+
+def test_sparse_mutation_sequence_matches_the_reference():
+    """The reference's sparse mutation test's sequence through both
+    packages: 5 rows, one denser than any stored, into 4 free slots (a
+    growth and a widening of m), a delete, ``maybe_compact`` below and
+    above its threshold, ``compact``: the same slots, remaps and arrays."""
+    from repro.data.synthetic import clustered_sparse
+    from repro.index import mutable as jmutable
+    corpus = clustered_sparse(60, 512, seed=6)
+    cfg = dict(k=2, delta=0.01, block=1, batch_arms=16, pulls_per_round=8,
+               init_pulls=16, metric="l1", sparse=True)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**cfg),
+                             jax.random.PRNGKey(0), capacity=64)
+    store = build_index(corpus, BMOConfig(**cfg), device="cpu", capacity=64)
+    _assert_same_sparse_store(jstore, store)
+    r = np.random.default_rng(0)
+    rows = np.where(r.random((5, 512)) < 0.5, r.exponential(1.0, (5, 512)),
+                    0).astype(np.float32)
+    jstore, jslots = jmutable.insert(jstore, rows)
+    store, slots = insert(store, rows)
+    assert slots.tolist() == jslots.tolist() == [60, 61, 62, 63, 64]
+    assert store.m > 42 and store.capacity == 128
+    _assert_same_sparse_store(jstore, store)
+    dead = list(range(0, 60, 2)) + [61, 100]
+    jstore, store = jmutable.delete(jstore, dead), delete(store, dead)
+    _assert_same_sparse_store(jstore, store)
+    for threshold in (0.9, 0.5):
+        jstore, jold = jmutable.maybe_compact(jstore, threshold=threshold)
+        store, old = maybe_compact(store, threshold=threshold)
+        assert (old is None) == (jold is None) == (threshold == 0.9)
+    np.testing.assert_array_equal(old, jold)
+    _assert_same_sparse_store(jstore, store)
+    jstore, jold = jmutable.compact(jmutable.delete(jstore, [1]))
+    store, old = compact(delete(store, [1]))
+    np.testing.assert_array_equal(old, jold)
+    _assert_same_sparse_store(jstore, store)
+    assert (store.indices[store.n_live:] == 512).all()
 
 
 def test_maybe_compact_threshold_policy():
@@ -433,16 +475,39 @@ def test_sharded_index_raises_not_implemented(tmp_path):
         Index.load(path, device="cpu")
 
 
-def test_a_saved_sparse_index_raises_not_implemented(tmp_path):
+def test_a_saved_sparse_index_loads_in_both_packages(tmp_path):
+    """A sparse directory saved by the reference loads in the port and the
+    port's in the reference, every array bit for bit; both loaded stores
+    race the same queries to the same decisions on the reference's draws."""
+    from repro.core.datasets import SparseDataset as JaxSparseDataset
     from repro.data.synthetic import clustered_sparse
-    cfg = JaxBMOConfig(k=3, delta=0.01, batch_arms=16, metric="l1", block=1,
-                       pulls_per_round=8, init_pulls=16, sparse=True)
-    jstore = jax_build_index(clustered_sparse(40, 128, seed=3), cfg,
+    from repro.index.batched_race import index_knn as jax_index_knn
+    from repro.index.builder import load_index as jax_load_index
+    from test_torch_replay import replay_coord_sampler, triplet
+    corpus = clustered_sparse(40, 128, seed=3)
+    cfg = dict(k=3, delta=0.01, batch_arms=16, metric="l1", block=1,
+               pulls_per_round=8, init_pulls=16, sparse=True)
+    jstore = jax_build_index(corpus, JaxBMOConfig(**cfg),
                              jax.random.PRNGKey(0))
-    path = str(tmp_path / "sparse")
-    jax_save_index(jstore, path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        Index.load(path, device="cpu")
+    jax_save_index(jstore, str(tmp_path / "from_jax"))
+    loaded = Index.load(str(tmp_path / "from_jax"), device="cpu")
+    loaded.save(str(tmp_path / "from_port"))
+    back = jax_load_index(str(tmp_path / "from_port"))
+    assert loaded.kind == back.kind == "sparse"
+    assert loaded.store.meta() == back.meta() == jstore.meta()
+    for name, arr in jstore.arrays().items():
+        np.testing.assert_array_equal(loaded.store.arrays()[name].numpy(),
+                                      np.asarray(arr), name)
+        np.testing.assert_array_equal(np.asarray(back.arrays()[name]),
+                                      np.asarray(arr), name)
+        assert back.arrays()[name].dtype == arr.dtype
+    q = triplet(JaxSparseDataset.build(corpus[:2]))
+    key = jax.random.PRNGKey(1)
+    want = jax_index_knn(back, q, key)
+    got = index_knn(loaded.store, q, coord_sampler=replay_coord_sampler(key))
+    np.testing.assert_array_equal(got.indices.numpy(),
+                                  np.asarray(want.indices))
+    np.testing.assert_array_equal(got.rounds.numpy(), np.asarray(want.rounds))
 
 
 def test_tuned_sidecar_is_logged_and_not_applied(tmp_path, caplog):

@@ -7,7 +7,8 @@ JAX package on the CPU.
   ℓ1) and ``knn_graph`` make the reference's decisions: identical ids,
   rounds, exact-evaluation counts and accepted/rejected/exact masks.
   Values and coordinate-ops at fp32 tolerance (rtol 2e-4 / atol 1e-5).
-* Own draws: ``knn`` returns the oracle's top-k.
+* Own draws: ``knn`` returns the oracle's top-k, the sparse box's too (its
+  replayed races are in ``test_torch_sparse.py``).
 * Scale: the race compares exact evaluations on the pulls' ρ/d_pad scale
   and reports θ = ρ/d (ROADMAP.md Queue 3).
 """
@@ -219,10 +220,21 @@ def test_exact_evaluation_is_on_the_pulls_scale(rng):
     np.testing.assert_allclose(res.values.numpy()[0], theta[idx], rtol=2e-4)
 
 
-def test_knn_sparse_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bmo_nn.knn(None, None, BMOConfig(sparse=True, metric="l1"),
-                   device="cpu")
+def test_knn_sparse_finds_the_oracles_neighbours():
+    """``knn`` on a sparse corpus (the reference's ``test_knn_sparse_exact``
+    data, on the port's own draws) returns ``exact_knn_sparse``'s top-k,
+    and refuses a dense corpus for the sparse box."""
+    corpus = jsynthetic.clustered_sparse(200, 2048, seed=4)
+    ds = datasets.SparseDataset.build(corpus)
+    q = (ds.indices[:4], ds.values[:4], ds.nnz[:4])
+    cfg = BMOConfig(k=3, delta=0.01, block=1, batch_arms=16,
+                    pulls_per_round=8, init_pulls=16, metric="l1",
+                    sparse=True)
+    ex = oracle.exact_knn_sparse(ds, *q, 3, device="cpu")
+    res = bmo_nn.knn(ds, q, cfg, 0, device="cpu")
+    assert sets(res.indices) == sets(ex.indices)
+    with pytest.raises(TypeError, match="SparseDataset"):
+        bmo_nn.knn(corpus, q, cfg, device="cpu")
 
 
 def test_paper_entry_points_need_a_gpu_unless_asked_for_the_cpu():

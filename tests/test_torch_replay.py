@@ -83,6 +83,56 @@ def paper_samplers(key, Q, dp=None):
     return out
 
 
+def coord_draws(key, q_nnz, arm_nnz):
+    """The reference's sparse-pull draws for one pull key each: the key is
+    split into one key per entry of ``q_nnz``'s shape (row-major, as the
+    reference's ``split(key, Q·B·P).reshape(Q, B, P, 2)``), and each of
+    those in three: ``uniform``, ``randint(0, max(q_nnz, 1))`` and
+    ``randint(0, max(arm_nnz, 1))``, the bounds traced per entry."""
+    shape = tuple(q_nnz.shape)
+
+    def bound(count):
+        return jnp.asarray(np.maximum(np.asarray(count).reshape(-1), 1),
+                           jnp.int32)
+
+    draws = _coord_draws(key, bound(q_nnz), bound(arm_nnz))
+    return tuple(torch.from_numpy(np.array(a)).reshape(shape) for a in draws)
+
+
+@jax.jit
+def _coord_draws(key, q_top, a_top):
+    def one(k, q_hi, a_hi):
+        k1, k2, k3 = jax.random.split(k, 3)
+        return (jax.random.uniform(k1), jax.random.randint(k2, (), 0, q_hi),
+                jax.random.randint(k3, (), 0, a_hi))
+    return jax.vmap(one)(jax.random.split(key, q_top.shape[0]), q_top, a_top)
+
+
+def replay_coord_sampler(key):
+    """The reference's sparse-pull draws, in order: each call splits the key
+    (its drivers split once for each init rep and each round) and draws
+    ``coord_draws`` from the subkey."""
+    state = {"key": key}
+
+    def sample(q_nnz, arm_nnz):
+        state["key"], sub = jax.random.split(state["key"])
+        return coord_draws(sub, q_nnz, arm_nnz)
+    return sample
+
+
+def paper_coord_samplers(key, Q):
+    """The draws of the reference's sparse ``core.bmo_nn.knn``: one key per
+    query, each replayed as that query's coordinate sampler."""
+    keys = jax.random.split(key, Q)
+    return lambda i: replay_coord_sampler(keys[i])
+
+
+def triplet(jds):
+    """A reference ``SparseDataset``'s rows as the (idx, val, nnz) numpy
+    triplet (writable copies)."""
+    return tuple(np.array(a) for a in (jds.indices, jds.values, jds.nnz))
+
+
 # ---------------------------------------------------------------------------
 # the replay follows the reference's key schedule
 # ---------------------------------------------------------------------------
@@ -114,3 +164,25 @@ def test_replay_sampler_replays_the_reference_pulls():
     got = ops.block_pull(torch.from_numpy(x), torch.from_numpy(q),
                          torch.from_numpy(arms), blk, block=64)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FP32)
+
+
+def test_coord_draws_replay_the_reference_pull_draws():
+    """``coord_draws`` gives, entry for entry, the three numbers the
+    reference's ``sparse_pull_one`` draws from the same pull key, with
+    ``randint``'s bound traced per entry (zero counts draw from [0, 1))."""
+    key = jax.random.PRNGKey(11)
+    q_nnz = np.array([[0, 3, 7], [1, 0, 120]], np.int32)
+    a_nnz = np.array([[5, 0, 2], [0, 9, 4000]], np.int32)
+    u, jq, ja = coord_draws(key, torch.from_numpy(q_nnz),
+                            torch.from_numpy(a_nnz))
+    keys = jax.random.split(key, 6).reshape(2, 3, 2)
+    for i in range(2):
+        for j in range(3):
+            k1, k2, k3 = jax.random.split(keys[i, j], 3)
+            assert float(u[i, j]) == float(jax.random.uniform(k1))
+            assert int(jq[i, j]) == int(jax.random.randint(
+                k2, (), 0, jnp.maximum(jnp.int32(q_nnz[i, j]), 1)))
+            assert int(ja[i, j]) == int(jax.random.randint(
+                k3, (), 0, jnp.maximum(jnp.int32(a_nnz[i, j]), 1)))
+    assert (jq.numpy() < np.maximum(q_nnz, 1)).all()
+    assert (ja.numpy() < np.maximum(a_nnz, 1)).all()
