@@ -66,6 +66,21 @@ Run from the root of a checkout. In order it:
    * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
      driver (``--rounds-queries`` of the queries; the default 256 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
+   * plane: the request plane (``serve.RequestPlane``, default
+     ``PlaneConfig``) over a second handle on the same store: every query
+     in 128 tickets of 8 rows over 4 tenants, a quarter with a 2,000 ms
+     ``Deadline``, a quarter with ``EffortBudget(epochs=8)``, half raced to
+     certification (one scheduler step traced); 128 exact repeats of
+     certified rows, served at submit at zero cost with the same answers;
+     64 near repeats (1e-3 relative noise) with seeded priors and with the
+     cache bypassed; the mutation fence (64 rows, two epochs, 512 inserted
+     near-copies, drained under ``on_mutation="complete"`` and
+     ``"readmit"``, each held to the truth of its store epoch). Certified
+     tickets at recall ≥ 0.99; every partial's certified prefix equal to
+     the truth's prefix at ≥ 0.99 of its positions, with CI 0; no ticket
+     shed by a launch failure; one host sync (``host_fetch``) per session
+     epoch; rows/s, latency percentiles, exits by reason, epochs per
+     ticket, coord ops per certified row against ``Index.query``'s;
    * mutation: the main path's index through the handle's mutable
      surface: ``save`` with a payload (each slot's origin) into a
      ``tempfile.mkdtemp()`` directory, ``Index.load`` (every
@@ -94,9 +109,11 @@ Run from the root of a checkout. In order it:
    and at 17 (a round's ms, device ms, kernels and idle share); then an
    insert of 512 rows that widens the rows (the inserted rows held bit for
    bit), deletes, a capped query, ``maybe_compact`` (the kept rows held bit
-   for bit) and a capped query, no dead slot returned. Races run to
-   certification over the first 768 rows check recall, not the cell's
-   throughput: ``Index.query`` of ``--sparse-queries`` copies of its rows
+   for bit) and a capped query, no dead slot returned; 64 queries through
+   the request plane under ``EffortBudget(epochs=2)``, their certified
+   prefixes held to the float64 truth. Races run to certification over the
+   first 768 rows check recall, not the cell's throughput: 8 plane tickets
+   raced to certification; ``Index.query`` of ``--sparse-queries`` copies of its rows
    (the per-round driver, with its coord-op gain over the sparsity-aware
    exact count), ``knn`` of one of them, and that index saved, loaded (its
    query equal to the first), grown and widened by 512 inserted rows,
@@ -176,6 +193,21 @@ SPARSE_RACE_ROWS = 768
 SPARSE_PAPER_QUERIES = 1
 SPARSE_INSERTS = 512
 SPARSE_TOP_DELETED = 16       # queries whose true top-k is among the deletes
+# the plane phase (bmo-nn-dense at full width): tickets of PLANE_ROWS rows,
+# round-robin over PLANE_TENANTS tenants; a quarter with a deadline, a
+# quarter with an effort budget, half raced to certification
+PLANE_ROWS = 8
+PLANE_TENANTS = 4
+PLANE_DEADLINE_MS = 2000.0
+PLANE_BUDGET_EPOCHS = 8
+PLANE_REPEATS = 128
+PLANE_NEAR = 64
+PLANE_NOISE = 1e-3
+PLANE_FENCE_ROWS = 64
+PLANE_FENCE_INSERTS = 512
+PLANE_SPARSE_CUT_QUERIES = 8
+PLANE_SPARSE_FULL_QUERIES = 64
+PLANE_SPARSE_FULL_EPOCHS = 2
 
 
 def emit(obj) -> None:
@@ -1146,7 +1178,7 @@ def rounds_phase(idx, queries, truth, seed: int) -> dict:
     res, launches = counted(
         "rounds", {"block_pull_multi": block_pull_multi_cuda,
                    "fwht": fwht_cuda},
-        lambda: idx.query(queries, seed, mode="rounds"))
+        lambda: idx.query(queries, seed, mode="rounds", cache="bypass"))
     query_s = time.perf_counter() - t
     return {"phase": "rounds", "queries": Q, "query_s": query_s,
             "qps": Q / query_s,
@@ -1160,6 +1192,298 @@ def rounds_phase(idx, queries, truth, seed: int) -> dict:
                 "rows": block_pull_multi_cuda.launches_rows,
                 "pair": block_pull_multi_cuda.launches_pair},
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+class EpochSyncs:
+    """Counts ``host_fetch`` calls inside every ``RaceSession.step()`` that
+    advanced an epoch, while active: the sessions' one host sync an epoch,
+    as ``utils/hostsync.py`` counts it."""
+
+    def __init__(self):
+        self.per_epoch = collections.Counter()    # (kind, syncs) -> epochs
+
+    @contextlib.contextmanager
+    def watching(self):
+        from repro_torch.index import anytime
+        from repro_torch.utils import hostsync
+        step = anytime.RaceSession.step
+        counts = self.per_epoch
+
+        def counted_step(sess):
+            before, epochs = hostsync.syncs(), sess.epochs
+            out = step(sess)
+            if sess.epochs != epochs:
+                counts[(sess.kind, hostsync.syncs() - before)] += \
+                    sess.epochs - epochs
+            return out
+        anytime.RaceSession.step = counted_step
+        try:
+            yield self
+        finally:
+            anytime.RaceSession.step = step
+
+    def report(self) -> dict:
+        return {f"{kind}_epochs_with_{n}_syncs": c
+                for (kind, n), c in sorted(self.per_epoch.items())}
+
+
+def ticket_report(tickets) -> dict:
+    """Exits by reason, latency percentiles and epochs per ticket."""
+    import numpy as np
+    from repro_torch.api.stream import percentile
+    lat = [t.latency_ms for t in tickets]
+    ep = [t.epochs for t in tickets]
+    return {"tickets": len(tickets),
+            "exits": dict(collections.Counter(t.reason for t in tickets)),
+            "latency_ms_p50": percentile(lat, 50),
+            "latency_ms_p95": percentile(lat, 95),
+            "latency_ms_p99": percentile(lat, 99),
+            "epochs_per_ticket_mean": float(np.mean(ep)),
+            "epochs_per_ticket_max": int(np.max(ep)),
+            "never_raced": int(sum(e == 0 for e in ep))}
+
+
+def plane_checks(what: str, pairs, truth_of, n: int, k: int) -> dict:
+    """Hold terminal tickets to the truth: no ``rejected:`` shed; the
+    certified tickets' top-k sets at recall ≥ 0.99; on every partial
+    (deadline, budget) the certified prefix position by position against
+    the truth's, at ≥ 0.99 of the certified positions, with CI 0.
+    ``pairs`` is [(ticket, its rows)]; ``truth_of(rows)`` the (rows, k)
+    true ids in ascending distance."""
+    import numpy as np
+    bad = [t.reason for t, _ in pairs if not t.terminal
+           or t.reason.startswith("rejected")]
+    if bad:
+        raise AssertionError(f"plane {what}: tickets not terminal or shed "
+                             f"by a launch failure: {bad[:4]}")
+    out = {}
+    cert = [(t, r) for t, r in pairs if t.reason == "certified"]
+    if cert:
+        idx = np.concatenate([t.result.indices for t, _ in cert])
+        vals = np.concatenate([t.result.values for t, _ in cert])
+        rows = np.concatenate([r for _, r in cert])
+        out["certified"] = recall_of(f"plane {what}, certified", idx, vals,
+                                     truth_of(rows), n, k)
+        out["certified"]["rows"] = int(len(rows))
+        if not all((t.result.certified_count == k).all() for t, _ in cert):
+            raise AssertionError(f"plane {what}: a certified ticket with an "
+                                 "uncertified position")
+    part = [(t, r) for t, r in pairs if t.reason in ("deadline", "budget")]
+    positions = agree = ci_nonzero = 0
+    for t, rows in part:
+        res, truth = t.result, truth_of(rows)
+        for j in range(len(rows)):
+            cc = int(res.certified_count[j])
+            positions += cc
+            agree += int((res.indices[j, :cc] == truth[j, :cc]).sum())
+            ci_nonzero += int((res.ci_radii[j, :cc] != 0).sum())
+    out["partial"] = {"tickets": len(part), "certified_positions": positions,
+                      "agree_with_truth": agree,
+                      "share": agree / positions if positions else None}
+    if ci_nonzero or (positions and agree / positions < 0.99):
+        raise AssertionError(f"plane {what}: a certified prefix disagrees "
+                             f"with the truth or has CI ≠ 0: {out}")
+    return out
+
+
+def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
+    """The request plane over a second handle on the main path's store
+    (``Index.open``, so its inserts leave the main index as it is), with
+    ``PlaneConfig``'s defaults (max_queue 64, max_group_queries 64,
+    max_active_groups 4). Passes: mixed tickets (every query, in tickets of
+    PLANE_ROWS rows round-robin over PLANE_TENANTS tenants: a quarter with
+    a Deadline (tenant t1's), a quarter with an EffortBudget (t3's), half
+    raced to certification; one scheduler step traced); exact repeats (rows of
+    certified tickets, served at submit); near repeats (PLANE_NOISE
+    relative noise, seeded priors, against the same rows with the cache
+    bypassed); the mutation fence (PLANE_FENCE_ROWS rows, two epochs, an
+    insert of PLANE_FENCE_INSERTS near-copies, drained once under
+    ``on_mutation="complete"`` and once under ``"readmit"``). Every ticket
+    is held by ``plane_checks``; every session epoch makes one host
+    sync."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.api import Deadline, EffortBudget, Index
+    from repro_torch.api.cache import QueryCache
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.serve import PlaneConfig, RequestPlane
+
+    (n, d), k = corpus.shape, DENSE.bmo.k
+    Q = queries.shape[0]
+    qh = queries.cpu().numpy()
+    syncs = EpochSyncs()
+    out = {"phase": "plane", "workload": DENSE.name, "queries": Q,
+           "rows_per_ticket": PLANE_ROWS, "tenants": PLANE_TENANTS,
+           "deadline_ms": PLANE_DEADLINE_MS,
+           "budget_epochs": PLANE_BUDGET_EPOCHS,
+           "config": dataclasses.asdict(PlaneConfig())}
+    by_truth = lambda rows: truth[rows]
+
+    def run():
+        pidx = Index.open(idx.store, payload=np.arange(n))
+        plane = RequestPlane(pidx)
+        # --- mixed tickets ------------------------------------------------
+        pairs = []
+        for i in range(Q // PLANE_ROWS):
+            rows = np.arange(i * PLANE_ROWS, (i + 1) * PLANE_ROWS)
+            kw = ({"deadline": Deadline(ms=PLANE_DEADLINE_MS)} if i % 4 == 1
+                  else {"budget": EffortBudget(epochs=PLANE_BUDGET_EPOCHS)}
+                  if i % 4 == 3 else {})
+            pairs.append((plane.submit(qh[rows], rng=seed + i,
+                                       tenant=f"t{i % PLANE_TENANTS}", **kw),
+                          rows))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = 0
+        while plane.active:
+            if steps == 8:      # four groups racing: trace one step
+                wall, rows_ = profiled(plane.step)
+                busy = sum(r["device_ms"] for r in rows_)
+                out["traced_step"] = {
+                    "wall_ms": wall, "device_busy_ms": busy,
+                    "device_idle_share": max(0.0, 1.0 - busy / wall),
+                    "groups": len(plane._groups), "top": rows_[:8]}
+            else:
+                plane.step()
+            steps += 1
+        wall = time.perf_counter() - t0
+        tickets = [t for t, _ in pairs]
+        cert_rows = np.concatenate([r for t, r in pairs
+                                    if t.reason == "certified"])
+        cert_ops = np.concatenate([t.result.coord_ops for t, _ in pairs
+                                   if t.reason == "certified"])
+        out["mixed"] = {
+            "wall_s": wall, "rows_per_s": Q / wall, "steps": steps,
+            **ticket_report(tickets),
+            "by_spec": {name: ticket_report([t for j, (t, _) in
+                                             enumerate(pairs) if j % 4 in m])
+                        for name, m in (("deadline", (1,)),
+                                        ("budget", (3,)),
+                                        ("certify", (0, 2)))},
+            **plane_checks("mixed", pairs, by_truth, n, k),
+            "coord_ops_per_certified_row": float(np.mean(cert_ops)),
+            "index_query_coord_ops_same_rows": float(
+                np.mean(main_res.coord_ops[cert_rows])),
+            "stats": {f: getattr(plane.stats, f) for f in (
+                "races", "raced_queries", "cache_hits", "cache_misses",
+                "near_hits", "plane_epochs", "plane_shed",
+                "plane_deadline_exits", "plane_budget_exits")}}
+
+        # --- exact repeats: rows of certified tickets still in the LRU ----
+        cached = [r for r in cert_rows.tolist()
+                  if QueryCache.key(qh[r]) in pidx._cache._od]
+        rep = np.array(cached[:PLANE_REPEATS])
+        if len(rep) < PLANE_REPEATS:
+            raise AssertionError(f"plane repeats: only {len(rep)} certified "
+                                 "rows left in the query cache")
+        before = pidx.stats.cache_hits
+        t0 = time.perf_counter()
+        rpairs = [(plane.submit(qh[rep[s:s + PLANE_ROWS]], rng=seed),
+                   rep[s:s + PLANE_ROWS])
+                  for s in range(0, len(rep), PLANE_ROWS)]
+        rep_s = time.perf_counter() - t0
+        first = {int(r): t.result.indices[j] for t, rows in pairs
+                 if t.reason == "certified" for j, r in enumerate(rows)}
+        same = all(np.array_equal(t.result.indices[j], first[int(r)])
+                   for t, rows in rpairs for j, r in enumerate(rows))
+        ops = float(sum(np.sum(t.result.coord_ops) for t, _ in rpairs))
+        if not (all(t.terminal and t.reason == "certified"
+                    and t.epochs == 0 for t, _ in rpairs)
+                and ops == 0.0 and same):
+            raise AssertionError("plane repeats: not served at submit at "
+                                 "zero cost with the first answers")
+        out["repeats"] = {"rows": len(rep), "submit_s": rep_s,
+                          "cache_hits": pidx.stats.cache_hits - before,
+                          "coord_ops": ops, "same_answers": same}
+
+        # --- near repeats: seeded priors against the cache bypassed -------
+        near_rows = rep[:PLANE_NEAR]
+        g = np.random.default_rng(seed)
+        base = qh[near_rows]
+        noisy = (base + PLANE_NOISE * np.abs(base).mean(1, keepdims=True)
+                 * g.standard_normal(base.shape)).astype(np.float32)
+        near_truth = brute_force_topk(
+            corpus, torch.from_numpy(noisy).cuda(), k)
+        by_near = lambda rows: near_truth[rows]
+        near_out = {}
+        for mode in ("use", "bypass"):
+            hits0 = pidx.stats.near_hits
+            npairs = [(plane.submit(noisy[s:s + PLANE_ROWS], rng=seed,
+                                    cache=mode),
+                       np.arange(s, s + PLANE_ROWS))
+                      for s in range(0, PLANE_NEAR, PLANE_ROWS)]
+            plane.drain()
+            near_out[mode] = {
+                "near_hits": pidx.stats.near_hits - hits0,
+                "coord_ops_per_row": float(np.mean(np.concatenate(
+                    [t.result.coord_ops for t, _ in npairs]))),
+                **ticket_report([t for t, _ in npairs]),
+                **plane_checks(f"near repeats, cache={mode}", npairs,
+                               by_near, n, k)}
+        out["near"] = near_out
+        del plane, pidx
+        torch.cuda.empty_cache()
+
+        # --- mutation fence ----------------------------------------------
+        fence_rows = np.arange(PLANE_FENCE_ROWS)
+        copies = (np.repeat(qh[fence_rows], PLANE_FENCE_INSERTS
+                            // PLANE_FENCE_ROWS, 0)
+                  + PLANE_NOISE * g.standard_normal(
+                      (PLANE_FENCE_INSERTS, d)).astype(np.float32))
+        rows_of_all = torch.cat([corpus, torch.from_numpy(copies).cuda()])
+        fence = {}
+        for policy in ("complete", "readmit"):
+            fidx = Index.open(idx.store, payload=np.arange(n))
+            epoch0 = fidx.epoch
+            plane = RequestPlane(fidx, PlaneConfig(on_mutation=policy))
+            fpairs = [(plane.submit(qh[fence_rows[s:s + PLANE_ROWS]],
+                                    rng=seed, cache="bypass"),
+                       fence_rows[s:s + PLANE_ROWS])
+                      for s in range(0, PLANE_FENCE_ROWS, PLANE_ROWS)]
+            plane.step()
+            plane.step()
+            fidx.insert(copies, payload=n + np.arange(len(copies)))
+            plane.drain()
+            live = live_truth(fidx, rows_of_all, queries[fence_rows], k)
+            want_epoch = epoch0 if policy == "complete" else fidx.epoch
+            truth_now = (truth[fence_rows] if policy == "complete" else live)
+            if any(t.result.epoch != want_epoch for t, _ in fpairs):
+                raise AssertionError(f"plane fence {policy}: a result carries "
+                                     "the wrong store epoch")
+            fence[policy] = {
+                "store_epoch": want_epoch,
+                "readmitted": plane.stats.plane_readmitted,
+                "new_copies_first": int(sum(
+                    (fidx.payload[t.result.indices[:, 0]] >= n).sum()
+                    for t, _ in fpairs)),
+                **ticket_report([t for t, _ in fpairs]),
+                **plane_checks(f"fence {policy}", fpairs,
+                               lambda rows: truth_now[rows], fidx.capacity,
+                               k)}
+            del plane, fidx
+            torch.cuda.empty_cache()
+        out["fence"] = fence
+        return out
+
+    t0 = time.perf_counter()
+    with syncs.watching():
+        _, launches = counted("plane", {"fused_epoch_pull":
+                                        fused_epoch_pull_cuda,
+                                        "fwht": fwht_cuda}, run)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launches
+    out["fused_epoch_pull_by_schedule"] = {
+        "rows": fused_epoch_pull_cuda.launches_rows,
+        "pair": fused_epoch_pull_cuda.launches_pair}
+    out["host_syncs"] = syncs.report()
+    bad = {key: c for key, c in syncs.per_epoch.items() if key[1] != 1}
+    if bad:
+        raise AssertionError(f"plane: session epochs with other than one "
+                             f"host sync: {bad}")
+    return out
 
 
 def live_truth(idx, rows_of, queries, k: int):
@@ -1543,13 +1867,14 @@ def sparse_phase(seed: int, n_queries: int) -> dict:
     import shutil
     import numpy as np
     import torch
-    from repro_torch.api import Index
+    from repro_torch.api import EffortBudget, Index
     from repro_torch.configs.bmo_nn import SPARSE
     from repro_torch.core.bmo_nn import knn
     from repro_torch.core.datasets import SparseDataset
     from repro_torch.core.oracle import exact_knn_sparse
     from repro_torch.data.synthetic import make_knn_benchmark_data
     from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.serve import RequestPlane
 
     cfg, n, d, k = SPARSE.bmo, SPARSE.n_points, SPARSE.dim, SPARSE.bmo.k
     out = {"phase": "sparse", "workload": SPARSE.name, "n": n, "d": d,
@@ -1671,6 +1996,28 @@ def sparse_phase(seed: int, n_queries: int) -> dict:
                 **{f: t.cpu().numpy() for f, t in res._asdict().items()}),
             np.ones(n, bool)))
 
+        # --- tickets at full size: an effort budget of a few epochs gives
+        # a certified prefix where a race to certification takes an hour --
+        syncs = EpochSyncs()
+        plane = RequestPlane(idx)
+        fq = tuple(t[:PLANE_SPARSE_FULL_QUERIES].cpu().numpy()
+                   for t in queries)
+        with syncs.watching():
+            t0 = time.perf_counter()
+            fpairs = [(plane.submit(
+                tuple(a[s:s + PLANE_ROWS] for a in fq), rng=seed,
+                budget=EffortBudget(epochs=PLANE_SPARSE_FULL_EPOCHS)),
+                np.arange(s, s + PLANE_ROWS))
+                for s in range(0, PLANE_SPARSE_FULL_QUERIES, PLANE_ROWS)]
+            plane.drain()
+            times["tickets_full_size_s"] = time.perf_counter() - t0
+        out["tickets_full_size"] = {
+            **ticket_report([t for t, _ in fpairs]),
+            **plane_checks("sparse, full size", fpairs,
+                           lambda rows: truth[rows], n, k),
+            "host_syncs": syncs.report()}
+        del plane
+
         # --- mutation at full size: an insert that widens the rows,
         # deletes to 64 under half the capacity, maybe_compact ------------
         fm = {"m_before": idx.store.m}
@@ -1735,6 +2082,20 @@ def sparse_phase(seed: int, n_queries: int) -> dict:
             "coord_ops": float(np.sum(built.coord_ops)),
             "oracle_coord_ops": exact_cost,
             "coord_op_gain": exact_cost / float(np.sum(built.coord_ops))}
+
+        # --- tickets over the cut, raced to certification ----------------
+        plane = RequestPlane(ridx)
+        cq = tuple(t[:PLANE_SPARSE_CUT_QUERIES].cpu().numpy() for t in q)
+        t0 = time.perf_counter()
+        cpairs = [(plane.submit(cq, rng=seed),
+                   np.arange(PLANE_SPARSE_CUT_QUERIES))]
+        plane.drain()
+        times["tickets_cut_s"] = time.perf_counter() - t0
+        out["tickets_cut"] = {
+            "rows": rows, **ticket_report([t for t, _ in cpairs]),
+            **plane_checks("sparse, cut", cpairs,
+                           lambda r: truth_sub[r], rows, k)}
+        del plane
 
         # --- paper: Algorithm 2, one race per query -----------------------
         pq = tuple(t[:SPARSE_PAPER_QUERIES] for t in q)
@@ -2123,15 +2484,16 @@ def lm_forward_phase(seed: int) -> dict:
 
 
 def traced_query(idx, queries, seed: int) -> dict:
-    """One more query under torch.profiler: device time by kernel and the
-    device's idle share of the query's wall time."""
+    """One more query under torch.profiler, past the query cache that the
+    query before filled: device time by kernel and the device's idle share
+    of the query's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        idx.query(queries, seed)
+        idx.query(queries, seed, cache="bypass")
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = kernel_breakdown(prof)
     busy = sum(r["device_ms"] for r in rows)
@@ -2174,9 +2536,9 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 # shape) and the launches of its paths
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
-     "src/repro/kernels/fused_race.py:89", ("main_path", "mutation")),
+     "src/repro/kernels/fused_race.py:89", ("main_path", "plane", "mutation")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
-     ("main_path", "mutation")),
+     ("main_path", "plane", "mutation")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:78", ("rounds",)),
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
@@ -2273,6 +2635,10 @@ def main() -> int:
     Qr = args.rounds_queries
     report["rounds"] = rounds_phase(idx, queries[:Qr], truth[:Qr], args.seed)
     emit(report["rounds"])
+    report["plane"] = plane_phase(idx, corpus, queries, truth, main_res,
+                                  args.seed)
+    emit({k: v for k, v in report["plane"].items() if k != "traced_step"})
+    emit({"phase": "plane_traced_step", **report["plane"]["traced_step"]})
     report["mutation"] = mutation_phase(idx, main_res, corpus, queries, truth,
                                         args.seed)
     mut = report["mutation"]

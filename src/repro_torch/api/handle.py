@@ -1,8 +1,14 @@
 """``Index`` — the handle in front of the port's index (DESIGN.md §6.1):
 build, open or load a single-shard dense, rotated or sparse index, query it
 through the typed ``QuerySpec`` protocol, mutate it (insert, delete,
-compact) and save it. Results come back in the reference's ``KNNResult`` schema, and a
-saved directory is the reference's layout: either package loads it.
+compact) and save it. Results come back in the reference's ``KNNResult``
+schema, and a saved directory is the reference's layout: either package
+loads it.
+
+Exact-repeat query rows are served from a query LRU (``CachePolicy``,
+``api/cache.py``) at zero cost; near repeats race with CI priors seeded from
+the cached neighbour. ``Index.race`` opens an epoch-granular resumable race
+(``index/anytime.py``), which the request plane (``serve/plane.py``) drives.
 
 Side payloads (e.g. kNN-LM next-token ids) attach to the handle and ride
 every slot remap (growth, compaction): ``payload[result.indices]`` is
@@ -22,8 +28,10 @@ from typing import Optional
 
 import numpy as np
 
-from repro_torch.api.spec import (CompactionPolicy, KNNResult, QuerySpec,
-                                  ServeStats)
+from repro_torch.api.cache import QueryCache
+from repro_torch.api.spec import (CachePolicy, CompactionPolicy, KNNResult,
+                                  QuerySpec, ServeStats)
+from repro_torch.core.datasets import next_pow2
 from repro_torch.device import make_generator
 from repro_torch.index import mutable
 from repro_torch.index.batched_race import index_knn
@@ -54,16 +62,21 @@ class Index:
 
     def __init__(self, store, *, payload: Optional[np.ndarray] = None,
                  build_gids: Optional[np.ndarray] = None,
+                 cache: Optional[CachePolicy] = None,
                  compaction: Optional[CompactionPolicy] = None):
         self._store = store
+        self.cache_policy = cache if cache is not None else CachePolicy()
         self.compaction_policy = (compaction if compaction is not None
                                   else CompactionPolicy())
+        self._cache = (QueryCache(self.cache_policy.capacity)
+                       if self.cache_policy.capacity > 0 else None)
         self._payload = payload
         self._build_gids = build_gids
         self._epoch = 0
         self._admin_active: Optional[str] = None
         self._races = 0
         self._raced_queries = 0
+        self._near_hits = 0
         self._compactions = 0
         self._auto_rng = 0
 
@@ -72,7 +85,8 @@ class Index:
     @classmethod
     def build(cls, corpus, cfg, rng=0, *, shards: int = 1,
               capacity: Optional[int] = None, impl: str = "auto",
-              payload=None, compaction: Optional[CompactionPolicy] = None,
+              payload=None, cache: Optional[CachePolicy] = None,
+              compaction: Optional[CompactionPolicy] = None,
               device=None) -> "Index":
         """Preprocess ``corpus`` (n, d) into a served index on ``device``
         (default: the GPU; raises without one); with ``cfg.sparse`` the
@@ -85,24 +99,27 @@ class Index:
         store = build_index(corpus, cfg, rng, capacity=capacity, impl=impl,
                             device=device)
         gids = np.arange(store.n_live, dtype=np.int64)
-        handle = cls(store, build_gids=gids, compaction=compaction)
+        handle = cls(store, build_gids=gids, cache=cache,
+                     compaction=compaction)
         if payload is not None:
             handle.attach_payload(payload, gids=gids)
         return handle
 
     @classmethod
     def open(cls, store, *, payload=None, payload_gids=None,
+             cache: Optional[CachePolicy] = None,
              compaction: Optional[CompactionPolicy] = None) -> "Index":
         """Wrap an existing ``IndexStore``. ``payload`` without
         ``payload_gids`` is taken slot-aligned and must cover every live
         slot."""
-        handle = cls(store, compaction=compaction)
+        handle = cls(store, cache=cache, compaction=compaction)
         if payload is not None:
             handle.attach_payload(payload, gids=payload_gids)
         return handle
 
     @classmethod
     def load(cls, path: str, *, shards: Optional[int] = None,
+             cache: Optional[CachePolicy] = None,
              compaction: Optional[CompactionPolicy] = None,
              device=None) -> "Index":
         """Load a saved single-shard index directory onto ``device``
@@ -115,7 +132,7 @@ class Index:
         if shards is not None and shards > 1:
             raise _sharded_not_ported(f"shards={shards}")
         store = load_index(path, device=device)
-        handle = cls(store, compaction=compaction)
+        handle = cls(store, cache=cache, compaction=compaction)
         ppath = os.path.join(path, PAYLOAD_FILE)
         if os.path.exists(ppath):
             saved = np.load(ppath)
@@ -179,16 +196,25 @@ class Index:
 
     @property
     def stats(self) -> ServeStats:
-        return ServeStats(races=self._races,
-                          raced_queries=self._raced_queries,
-                          compactions=self._compactions)
+        cache = self._cache      # NB: an *empty* QueryCache is falsy (__len__)
+        return ServeStats(
+            races=self._races,
+            raced_queries=self._raced_queries,
+            cache_hits=cache.hits if cache is not None else 0,
+            cache_misses=cache.misses if cache is not None else 0,
+            cache_entries=len(cache) if cache is not None else 0,
+            near_hits=self._near_hits,
+            compactions=self._compactions)
 
     # -- internal plumbing --------------------------------------------------
 
     def _swap(self, store) -> None:
-        """Epoch fence: install a new store."""
+        """Epoch fence: install a new store and invalidate the query
+        cache."""
         self._store = store
         self._epoch += 1
+        if self._cache is not None:
+            self._cache.clear()
 
     def _remap(self, old_ids: np.ndarray) -> None:
         """Reindex payload and build-row map through an old→new slot map
@@ -236,31 +262,162 @@ class Index:
 
     # -- query --------------------------------------------------------------
 
+    def _bound_store(self, spec: QuerySpec):
+        """The store with the spec's k / δ / budget overrides bound."""
+        cfg = spec.bind(self._store.cfg)
+        if cfg == self._store.cfg:
+            return self._store
+        return dataclasses.replace(self._store, cfg=cfg)
+
+    def _next_rng(self, rng):
+        if rng is None:
+            rng = self._auto_rng
+            self._auto_rng += 1
+        return make_generator(rng, self.device)
+
+    def _race(self, queries, rng, spec: QuerySpec, prior_hint):
+        return index_knn(self._bound_store(spec), queries, rng,
+                         impl=spec.impl, eliminate=spec.eliminate,
+                         warm_start=spec.warm_start, mode=spec.mode,
+                         prior_hint=prior_hint)
+
+    def _seeded_priors(self, hid: np.ndarray, miss):
+        """Near-repeat warm starts: per-query CI variance priors for the
+        missed rows, tightened on the cached neighbour's top-k arms. Priors
+        shape the variance estimate only — the race stays a fresh δ-PAC
+        race."""
+        pol = self.cache_policy
+        if (self._cache is None or pol.near_threshold <= 0
+                or len(self._cache) == 0):
+            return None
+        base = self._store.prior_var.cpu().numpy()
+        rows, found = [], False
+        for i in miss:
+            near = self._cache.get_near(hid[i], pol.near_threshold)
+            if near is None:
+                rows.append(base)
+            else:
+                seeded = base.copy()
+                seeded[near[0]] *= pol.near_prior_scale
+                rows.append(seeded)
+                found = True
+                self._near_hits += 1
+        return np.stack(rows) if found else None
+
     def query(self, queries, rng=None, *, spec: Optional[QuerySpec] = None,
               **overrides) -> KNNResult:
         """Batched k-NN with the typed query protocol: a ``QuerySpec``,
-        keyword overrides (``k=``, ``delta=``, ``mode=``, …), or both. Dense
-        queries are a (Q, d) array; a sparse index takes the (q_idx, q_val,
-        q_nnz) padded triplet and races on the per-round driver. ``rng`` is a seed or a ``torch.Generator``
-        on the index's device; by default each call takes the next seed of
-        a per-handle counter. Returns slot ids."""
+        keyword overrides (``k=``, ``delta=``, ``mode=``, ``cache=``, …), or
+        both. Dense queries are a (Q, d) array; a sparse index takes the
+        (q_idx, q_val, q_nnz) padded triplet and races on the per-round
+        driver. ``rng`` is a seed or a ``torch.Generator`` on the index's
+        device; by default each call takes the next seed of a per-handle
+        counter. Returns slot ids.
+
+        Exact-repeat dense rows are served from the query LRU at zero
+        coordinate ops unless the spec bypasses it (``cache="bypass"``;
+        ``"refresh"`` re-races and overwrites); the missed rows race as
+        one batch padded to a power of two, near repeats with seeded CI
+        priors. Rows are keyed by their float32 bytes on the host."""
         if spec is None:
             spec = QuerySpec(**overrides)
         elif overrides:
             spec = dataclasses.replace(spec, **overrides)
+        gen = self._next_rng(rng)
+        use_cache = (self._cache is not None and spec.cacheable
+                     and spec.cache != "bypass"
+                     and not isinstance(queries, tuple))
+        if not use_cache:
+            raw = self._race(queries, gen, spec, spec.prior_hint)
+            self._races += 1
+            self._raced_queries += int(raw.indices.shape[0])
+            return self._result(raw)
+
+        hid = np.asarray(queries.cpu() if hasattr(queries, "cpu")
+                         else queries, np.float32)
+        Q, k = hid.shape[0], spec.bind(self.cfg).k
+        idx = np.zeros((Q, k), np.int64)
+        vals = np.zeros((Q, k), np.float32)
+        coord_ops = np.zeros((Q,), np.float32)
+        rounds = np.zeros((Q,), np.int32)
+        n_exact = np.zeros((Q,), np.int32)
+        keys = [QueryCache.key(row) for row in hid]
+        miss = []
+        for i in range(Q):
+            got = None if spec.cache == "refresh" else self._cache.get(keys[i])
+            if got is None:
+                miss.append(i)
+            else:
+                idx[i], vals[i] = got
+        if miss:
+            sub = hid[miss]
+            prior_hint = self._seeded_priors(hid, miss)
+            # a power-of-two sub-batch: the draws' shapes, and so the race,
+            # depend on the batch, as in the reference
+            pad = next_pow2(len(miss)) - len(miss)
+            if pad:
+                sub = np.concatenate([sub, np.repeat(sub[:1], pad, 0)], 0)
+                if prior_hint is not None:
+                    prior_hint = np.concatenate(
+                        [prior_hint, np.repeat(prior_hint[:1], pad, 0)], 0)
+            raw = self._result(self._race(sub, gen, spec, prior_hint))
+            for j, i in enumerate(miss):
+                idx[i], vals[i] = raw.indices[j], raw.values[j]
+                coord_ops[i] = raw.coord_ops[j]
+                rounds[i] = raw.rounds[j]
+                n_exact[i] = raw.n_exact[j]
+                self._cache.put(keys[i], (idx[i].copy(), vals[i].copy()),
+                                vec=hid[i])
+            self._races += 1
+            self._raced_queries += len(miss)
+        return KNNResult(indices=idx, values=vals, coord_ops=coord_ops,
+                         rounds=rounds, n_exact=n_exact,
+                         cache_hits=Q - len(miss))
+
+    def race(self, queries, rng=None, *, spec: Optional[QuerySpec] = None,
+             raced_queries: Optional[int] = None, chunk_rounds: int = 0,
+             obs=None, sid=None, deadline_ms: Optional[float] = None,
+             block_sampler=None, coord_sampler=None, **overrides):
+        """Epoch-granular resumable race — the anytime twin of ``query``
+        (DESIGN.md §7.1). Returns an ``index.anytime.RaceSession``:
+        ``step()`` advances one epoch, ``snapshot`` is the partial top-k
+        with CI radii and the certified-prefix length. The request plane
+        drives it; it never touches the query LRU (partial results must not
+        poison the cache).
+
+        ``raced_queries`` overrides the row count recorded in ``stats``
+        (the plane pads coalesced batches to powers of two). ``obs``/``sid``
+        select the observability context and trace id of the session's
+        epoch spans. ``deadline_ms``: the remaining wall budget (default:
+        ``spec.deadline``'s); with no tuner in the port the per-round cost
+        is 0 and the session's round cap stays off. ``block_sampler`` /
+        ``coord_sampler`` replace the draws from ``rng``."""
+        from repro_torch.index.anytime import make_session
+        if spec is None:
+            spec = QuerySpec(**overrides)
+        elif overrides:
+            spec = dataclasses.replace(spec, **overrides)
+        if spec.mode == "fused" and self.kind == "sparse":
+            raise ValueError("the fused epoch driver pulls corpus blocks — "
+                             "sparse boxes race on the per-round driver")
+        if spec.mode == "rounds" and self.kind != "sparse":
+            raise ValueError(
+                "anytime sessions drive dense/rotated boxes through the "
+                "epoch-fused driver; mode='rounds' is blocking-query only")
+        if deadline_ms is None and spec.deadline is not None:
+            deadline_ms = spec.deadline.ms
         store = self._store
-        cfg = spec.bind(store.cfg)
-        if cfg != store.cfg:      # k / δ / budget overrides
-            store = dataclasses.replace(store, cfg=cfg)
-        if rng is None:
-            rng = self._auto_rng
-            self._auto_rng += 1
-        raw = index_knn(store, queries, make_generator(rng, self.device),
-                        impl=spec.impl, eliminate=spec.eliminate,
-                        warm_start=spec.warm_start, mode=spec.mode)
+        session = make_session(
+            store, queries, self._next_rng(rng), cfg=spec.bind(store.cfg),
+            impl=spec.impl, eliminate=spec.eliminate,
+            warm_start=spec.warm_start, prior_hint=spec.prior_hint,
+            chunk_rounds=chunk_rounds, obs=obs, sid=sid,
+            deadline_ms=deadline_ms, round_ms=0.0,
+            block_sampler=block_sampler, coord_sampler=coord_sampler)
         self._races += 1
-        self._raced_queries += int(raw.indices.shape[0])
-        return self._result(raw)
+        self._raced_queries += int(raced_queries if raced_queries is not None
+                                   else session.Q)
+        return session
 
     @staticmethod
     def _result(raw) -> KNNResult:

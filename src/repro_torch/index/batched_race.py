@@ -7,8 +7,8 @@ lowest-LCB candidates of every active query take P pulls each, arms past
 MAX_PULLS are evaluated exactly, and the Alg. 1 acceptance step runs every
 round. Its pieces (``RoundsRaceFns``) are generic over ``pull_fn`` /
 ``exact_fn`` closures, so other boxes and resumable sessions can drive
-them. The host meets the device once per round: one ``.cpu()`` of the
-all-done flag and the pull slack that gates the next round's exact
+them. The host meets the device once per round: one ``host_fetch`` of
+the all-done flag and the pull slack that gates the next round's exact
 evaluation.
 
 ``fused_race_topk`` (the epoch-fused, survivor-compacted driver,
@@ -19,9 +19,9 @@ and runs the Alg. 1 acceptance step once. Between epochs the host gathers
 the survivors into shrinking power-of-two buckets (``index/frontier.py``),
 so bookkeeping scales with survivors instead of n.
 
-The fused driver's host and device meet once per epoch: one ``.cpu()`` of
-the survivor counts, the done flags and the largest pull count among arms
-still to be pulled (the counterpart of the reference's ``host_fetch``). The
+The fused driver's host and device meet once per epoch: one
+``host_fetch`` (``utils/hostsync.py``) of the survivor counts, the done
+flags and the largest pull count among arms still to be pulled. The
 last of these tells the host whether the next epoch can push any arm past
 MAX_PULLS, which is what gates the exact evaluation; the reference gates it
 with an on-device ``lax.cond``.
@@ -75,6 +75,7 @@ from repro_torch.index.frontier import (FrontierState, bucket_width,
                                         compact_frontier, floor_width,
                                         pow2_floor, survivors)
 from repro_torch.kernels import ops as kops
+from repro_torch.utils.hostsync import host_fetch
 
 
 class BatchedRaceState(NamedTuple):
@@ -182,7 +183,7 @@ def make_rounds_race(
         # the round's one host sync: the stop rule and the exact-eval gate
         host = torch.stack([torch.all(st.done).to(torch.float32),
                             pull_slack(st.count, max_pulls, need(st))])
-        all_done, slack = host.tolist()
+        all_done, slack = host_fetch(host).tolist()
         return st._replace(all_done=bool(all_done), slack=slack)
 
     def init_state() -> BatchedRaceState:
@@ -552,7 +553,7 @@ def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
         rounds_spent += R
         # the per-epoch boundary: survivor counts, done flags and the pull
         # bound cross to the host to drive the reallocation loop
-        host = host.cpu().numpy()
+        host = host_fetch(host)
         n_surv = host[:Q].astype(np.int64)
         done = host[Q:2 * Q] > 0
         count_hi = float(host[-1])

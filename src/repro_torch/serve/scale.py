@@ -1,0 +1,118 @@
+"""repro_torch.serve.scale — autoscaling hints from request-plane
+telemetry, the reference's policies over the port's ``ServeStats``.
+
+A ``ScalePolicy`` consumes the queue-depth / latency fields the plane adds
+to ``ServeStats`` (schema v2) and emits *recommendations* — it never
+touches the index itself. The caller decides whether to act on them, so
+capacity decisions stay observable and reversible.
+
+The default ``QueueDepthPolicy`` is deliberately boring: sustained queue
+depth (or p95 latency over target) scales *out*; a sustained idle queue
+scales back *in*; a shard-imbalanced index is told to ``reshard`` before
+replicating, because replicas multiply an imbalance instead of fixing it.
+Hysteresis comes from requiring ``sustain`` consecutive observations and a
+``cooldown`` between actions.
+
+The reference's ``RecallGuardPolicy``, ``FleetPressurePolicy``,
+``apply_fleet`` and ``apply_guard`` need the SLO engine, the fleet and the
+tuner, and wait for them (ROADMAP.md Queue 1 items 6 and 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from repro_torch.api import ServeStats
+
+ACTIONS = ("none", "add_replicas", "reshard", "fallback_untuned", "retune",
+           "evict_namespace", "rebalance")
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleDecision:
+    """One recommendation: do ``action`` with parameter ``value``.
+    ``target`` names the namespace a fleet-granularity action applies to
+    (empty for whole-plane actions)."""
+
+    action: str = "none"          # none | add_replicas | reshard |
+                                  # fallback_untuned | retune |
+                                  # evict_namespace | rebalance
+    value: int = 0                # target replica count / shard count
+    reason: str = ""
+    target: str = ""              # namespace for fleet-granularity actions
+
+    def __post_init__(self):
+        if self.action not in ACTIONS:
+            raise ValueError(f"unknown action {self.action!r} "
+                             f"(want one of {ACTIONS})")
+
+
+class ScalePolicy:
+    """Interface: feed one ``ServeStats`` snapshot per observation window,
+    get a ``ScaleDecision`` back. Implementations keep their own hysteresis
+    state; ``recommend`` must stay side-effect-free w.r.t. the index."""
+
+    def recommend(self, stats: ServeStats) -> ScaleDecision:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class QueueDepthPolicy(ScalePolicy):
+    """Watermark policy over plane queue depth and terminal p95 latency."""
+
+    high_queue: int = 8            # queue depth that signals saturation
+    low_queue: int = 0             # queue depth that signals idle capacity
+    p95_target_ms: Optional[float] = None   # latency SLO (None = ignore)
+    imbalance: float = 2.0         # max/mean shard coord-ops → reshard
+    sustain: int = 3               # consecutive hot/cold windows to act
+    cooldown: int = 3              # windows to hold after any action
+    max_replicas: int = 4
+    max_shards: int = 8
+    _hot: int = dataclasses.field(default=0, repr=False)
+    _cold: int = dataclasses.field(default=0, repr=False)
+    _hold: int = dataclasses.field(default=0, repr=False)
+
+    def recommend(self, stats: ServeStats) -> ScaleDecision:
+        if self._hold > 0:
+            self._hold -= 1
+            return ScaleDecision(reason="cooldown")
+        hot = stats.plane_queue_depth >= self.high_queue
+        # p95 is 0.0 (never None/NaN) on an empty latency window since
+        # schema v3, so the SLO comparison is unconditional and an empty
+        # window can never read as hot
+        if (self.p95_target_ms is not None
+                and (stats.plane_latency_p95_ms or 0.0) > self.p95_target_ms):
+            hot = True
+        cold = (stats.plane_queue_depth <= self.low_queue
+                and stats.plane_active == 0)
+        self._hot = self._hot + 1 if hot else 0
+        self._cold = self._cold + 1 if (cold and not hot) else 0
+
+        if self._hot >= self.sustain:
+            self._hot = 0
+            self._hold = self.cooldown
+            ops = stats.shard_coord_ops
+            if ops and sum(ops) > 0:
+                mean = sum(ops) / len(ops)
+                if mean > 0 and max(ops) / mean >= self.imbalance:
+                    target = min(2 * len(ops), self.max_shards)
+                    if target > len(ops):
+                        return ScaleDecision(
+                            "reshard", target,
+                            f"queue {stats.plane_queue_depth} high and "
+                            f"shard load imbalanced "
+                            f"(max/mean {max(ops) / mean:.2f})")
+            if stats.replicas < self.max_replicas:
+                return ScaleDecision(
+                    "add_replicas", stats.replicas + 1,
+                    f"queue depth {stats.plane_queue_depth} "
+                    f"(p95 {stats.plane_latency_p95_ms}) sustained "
+                    f"{self.sustain} windows")
+            return ScaleDecision(reason="saturated at max_replicas")
+        if self._cold >= self.sustain and stats.replicas > 1:
+            self._cold = 0
+            self._hold = self.cooldown
+            return ScaleDecision(
+                "add_replicas", stats.replicas - 1,
+                f"idle {self.sustain} windows at {stats.replicas} replicas")
+        return ScaleDecision(reason="steady")

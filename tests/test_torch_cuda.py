@@ -624,6 +624,44 @@ def test_query_after_deletes_skips_dead_slots_on_the_rows_schedule(gen,
     assert [set(r) for r in res.indices.tolist()] == truth
 
 
+def test_fused_session_on_the_card_certifies_with_one_sync_an_epoch(gen):
+    """An anytime session on the card (``Index.race``, rotated box with d =
+    1100 padded to 2048) certifies the exact top-k with θ = ρ/d, and each
+    epoch crosses to the host once: one ``host_fetch``, and one
+    synchronizing CUDA call by torch's sync debug mode."""
+    import warnings
+    from repro_torch.utils import hostsync
+    corpus, queries = make_knn_benchmark_data("dense", 3000, 1100, 8, seed=0)
+    cfg = BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, rotate=True)
+    idx = Index.build(corpus, cfg)
+    sess = idx.race(queries, 0)
+    per_epoch = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while True:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                before = hostsync.syncs()
+                going = sess.step()
+            per_epoch.append((hostsync.syncs() - before, sum(
+                "synchroniz" in str(w.message) for w in caught)))
+            if not going:
+                break
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert per_epoch == [(1, 1)] * len(per_epoch)
+    c, q = corpus.astype(np.float64), queries.astype(np.float64)
+    dist = (q * q).sum(1)[:, None] + (c * c).sum(1)[None] - 2.0 * q @ c.T
+    truth = np.argsort(dist, 1, kind="stable")[:, :5]
+    snap = sess.snapshot
+    assert [set(r) for r in snap.ids.tolist()] == \
+        [set(r) for r in truth.tolist()]
+    assert (snap.acc_count == 5).all() and (snap.ci == 0).all()
+    theta = np.take_along_axis(dist, snap.ids.astype(np.int64), 1) / 1100
+    np.testing.assert_allclose(snap.values, theta, rtol=2e-4)
+
+
 def test_sparse_box_on_the_card_matches_the_cpu(gen):
     """The sparse box's pulls (Eq. 12: a binary search in each arm's row and
     the queries' position table), its exact evaluations and its oracle
