@@ -66,6 +66,18 @@ Run from the root of a checkout. In order it:
    * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
      driver (``--rounds-queries`` of the queries; the default 256 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
+   * tune: ``Index.tune()`` over a second handle on the same store with
+     the reference's defaults (8 synthetic queries, 2 halving levels, 1
+     rep): the grid (R, P, B, frontier floor, the fused pull's 2 or 4
+     buffers, the driver), the analytic cost model's score of each raced
+     survivor beside its measured median and their Spearman rank
+     correlation, the winner against the identity, the measured epoch and
+     round costs; all queries under the tuned config (recall ≥ 0.99) and
+     under the defaults, QPS of each (reported, not claimed); the tuned
+     query's first epoch launch (its arms and blocks, the winner's B, T
+     and buffers) held against the plain pull; the tuned index saved and loaded (``tuned.json`` applied, reason "ok", the same
+     config), and the sidecar beside an index of another scale bucket
+     (reason "signature", the build-time config served);
    * plane: the request plane (``serve.RequestPlane``, default
      ``PlaneConfig``) over a second handle on the same store: every query
      in 128 tickets of 8 rows over 4 tenants, a quarter with a 2,000 ms
@@ -80,7 +92,23 @@ Run from the root of a checkout. In order it:
      the truth's prefix at ≥ 0.99 of its positions, with CI 0; no ticket
      shed by a launch failure; one host sync (``host_fetch``) per session
      epoch; rows/s, latency percentiles, exits by reason, epochs per
-     ticket, coord ops per certified row against ``Index.query``'s;
+     ticket, coord ops per certified row against ``Index.query``'s. The
+     shadow δ-audit samples every certified ticket (``audit_rate=1.0``;
+     the µs of each ``offer`` on the serving path) and re-answers them
+     after the pass on the exact oracle (``pairwise_dist``, the oracle's
+     ms an item; rows audited, mismatches, the Wilson bound); after the
+     phase, the oracle on one audited ticket held to the float64 brute
+     force and its ``pairwise_dist`` launch at the audit's shape to the
+     plain version. Then, on a handle with the tune phase's winner: the
+     same tickets with the deadline tickets spread over all four tenants,
+     raced with the tuned round cost and with ``use_tuned=False`` (exits
+     by reason, epochs per ticket, certified positions); two tickets
+     corrupted below the plane (a duplicated served id; a far live id in
+     place of the k-th, which only the θ comparison can catch), each
+     caught by the audit, written as a bundle and reproduced by
+     ``tools/torch_replay_audit.py``'s ``replay_one``; the recall SLO on a
+     held clock firing, the recall guard's fallback → retune chain, and
+     ``tune(force=True)`` lifting both;
    * mutation: the main path's index through the handle's mutable
      surface: ``save`` with a payload (each slot's origin) into a
      ``tempfile.mkdtemp()`` directory, ``Index.load`` (every
@@ -148,14 +176,15 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-
-# NVIDIA H100 SXM (data sheet): device memory rate, fp32 rate outside the
-# tensor cores and the dense bf16 tensor-core rate, the peaks the bounds are
-# taken against
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12
-TF32_TC_FLOPS = 495e12
+sys.path.insert(0, os.path.join(ROOT, "src"))
+try:
+    # NVIDIA H100 SXM (data sheet): the peaks the bounds are taken against,
+    # the same the port's tuner scores its candidates with
+    from repro_torch.hardware import (BF16_TC_FLOPS, FP32_FLOPS,
+                                      HBM_BYTES_PER_S, TF32_TC_FLOPS)
+except ImportError:
+    sys.exit("chip_smoke: run from a checkout of the repository "
+             "(src/repro_torch is missing)")
 # fp32 instructions a second on the CUDA cores (an FFMA counts 2 flops of
 # the 67 TFLOP/s, a subtraction takes a whole slot)
 FP32_SLOTS = FP32_FLOPS / 2
@@ -208,6 +237,9 @@ PLANE_FENCE_INSERTS = 512
 PLANE_SPARSE_CUT_QUERIES = 8
 PLANE_SPARSE_FULL_QUERIES = 64
 PLANE_SPARSE_FULL_EPOCHS = 2
+# rows of the store over which the audit's pairwise_dist launch is held to
+# its plain version and to float64, at full d_pad
+AUDIT_CHECK_ROWS = 16384
 
 
 def emit(obj) -> None:
@@ -1194,6 +1226,207 @@ def rounds_phase(idx, queries, truth, seed: int) -> dict:
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
+def spearman(a, b) -> float:
+    """Spearman's rank correlation of two equal-length sequences, tied
+    values taking their average rank (the cost model scores candidates
+    that differ only in the frontier floor or the buffer count alike)."""
+    import numpy as np
+
+    def ranks(v):
+        v = np.asarray(v, np.float64)
+        order = np.argsort(v, kind="stable")
+        r = np.empty(len(v))
+        r[order] = np.arange(len(v), dtype=np.float64)
+        for x in np.unique(v):
+            r[v == x] = r[v == x].mean()
+        return r
+    if len(a) < 2:
+        return float("nan")
+    ra, rb = ranks(a), ranks(b)
+    if ra.std() == 0 or rb.std() == 0:
+        return float("nan")
+    return float(np.corrcoef(ra, rb)[0, 1])
+
+
+def tune_phase(idx, corpus, queries, truth, seed: int) -> dict:
+    """``Index.tune()`` on a second handle over the main path's store, with
+    the reference's defaults (8 synthetic queries, 2 halving levels, 1 rep):
+    the grid, the cost model's scores against the measured medians of the
+    raced survivors, the winner against the identity. Then all queries
+    under the tuned config (recall ≥ 0.99: tuning never changes what is
+    certified) and under the defaults (``use_tuned=False``); the tuned
+    query's first epoch (or round) launch replayed on its own inputs
+    against the plain pull (rtol 2e-4, atol 1e-5, as in the kernel
+    phase); the tuned index saved and loaded (``tuned.json`` applied,
+    reason ``ok``), and the sidecar beside an index of another scale
+    bucket (reason ``signature``, the build-time config served)."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import Index
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_pull import block_pull_multi_cuda
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.tune import TUNED_FILE, cache_clear, load_tuned
+
+    (n, d), k = corpus.shape, DENSE.bmo.k
+    Q = queries.shape[0]
+    out = {"phase": "tune", "workload": DENSE.name, "queries": Q,
+           "tune_queries": 8, "levels": 2, "reps": 1}
+    tidx = Index.open(idx.store)
+    # the pull of the tuned mode's epoch or round: the op the driver calls,
+    # its kernel's wrapper and its plain version
+    pulls = {"fused": ("fused_epoch_pull", fused_epoch_pull_cuda,
+                       ref.fused_epoch_pull_ref),
+             "rounds": ("block_pull_multi", block_pull_multi_cuda,
+                        ref.block_pull_multi_ref)}
+    epoch = {}          # the tuned query's first such launch, its inputs
+
+    def keeping(pull):
+        def kept(x, qs, arm_idx, blk_idx, **kw):
+            if not epoch and blk_idx.shape[1] == tidx.cfg.batch_arms:
+                epoch.update(qs=qs.clone(), arm=arm_idx.clone(),
+                             blk=blk_idx.clone(),
+                             kw={a: b for a, b in kw.items() if a != "impl"})
+            return pull(x, qs, arm_idx, blk_idx, **kw)
+        return kept
+
+    def qps_of(**kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = tidx.query(queries, seed, cache="bypass", **kw)
+        return res, Q / (time.perf_counter() - t)
+
+    def run():
+        cache_clear()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        report = tidx.tune(rng=seed)
+        torch.cuda.synchronize()
+        out["tune_s"] = time.perf_counter() - t
+        op = pulls[tidx.tuned.mode][0]
+        pull = getattr(kops, op)
+        setattr(kops, op, keeping(pull))
+        try:
+            res, out["qps_tuned"] = qps_of()
+        finally:
+            setattr(kops, op, pull)
+        out["tuned"] = recall_of("tune, tuned config", res.indices,
+                                 res.values, truth, n, k)
+        res, out["qps_defaults"] = qps_of(use_tuned=False)
+        out["defaults"] = recall_of("tune, defaults", res.indices,
+                                    res.values, truth, n, k)
+        return report
+
+    t0 = time.perf_counter()
+    report, launches = counted(
+        "tune", {"fused_epoch_pull": fused_epoch_pull_cuda, "fwht": fwht_cuda,
+                 "block_pull_multi": block_pull_multi_cuda}, run)
+    if report["cached"]:
+        raise AssertionError("tune: the race was served from the cache")
+    score = {json.dumps(m["cand"], sort_keys=True): m["e"]
+             for m in report["model"]}
+    raced = [{"cand": m["cand"],
+              "model_s_per_element": score[json.dumps(m["cand"],
+                                                      sort_keys=True)],
+              "median_ms": m["median_ms"], "wall_ms": m["wall_ms"],
+              "epoch_ms": m["epoch_ms"], "round_ms": m["round_ms"]}
+             for m in report["measurements"]]
+    scored = [r for r in raced if r["model_s_per_element"] is not None]
+    out.update({
+        "grid_size": report["grid_size"], "raced": report["raced"],
+        "survivors": raced,
+        "spearman_model_vs_measured": spearman(
+            [r["model_s_per_element"] for r in scored],
+            [r["median_ms"] for r in scored]),
+        "spearman_n": len(scored),
+        "winner": report["config"],
+        "winner_median_ms": report["winner_median_ms"],
+        "identity_median_ms": report["default_median_ms"],
+        "epoch_ms": report["config"]["epoch_ms"],
+        "round_ms": report["config"]["round_ms"],
+        "launches": launches,
+        "fused_epoch_pull_by_schedule": {
+            "rows": fused_epoch_pull_cuda.launches_rows,
+            "pair": fused_epoch_pull_cuda.launches_pair}})
+
+    # --- the kernel at the tuned shape: the tuned query's first epoch (or
+    # round), its arms and blocks as launched, against the plain pull -------
+    name, wrapper, plain = pulls[tidx.tuned.mode]
+    if not epoch or epoch["kw"].get("n_buf", tidx.cfg.kernel_buffers) \
+            != tidx.cfg.kernel_buffers:
+        raise AssertionError(f"tune: no {name} launch of the tuned query at "
+                             f"B {tidx.cfg.batch_arms}, n_buf "
+                             f"{tidx.cfg.kernel_buffers}")
+    x, kw = tidx.store.x, epoch["kw"]
+    before = wrapper.launches_pair
+    got = wrapper(x, epoch["qs"], epoch["arm"], epoch["blk"], **kw)
+    Qe, Be, Te = epoch["blk"].shape
+    out["tuned_shape_kernel"] = {
+        "kernel": name,
+        "shape": {"Q": Qe, "B": Be, "T" if name == "fused_epoch_pull"
+                  else "P": Te, "block": kw["block"], "d_pad": x.shape[1],
+                  "n": x.shape[0]},
+        "n_buf": kw.get("n_buf"), "metric": kw["metric"],
+        "schedule": "pair" if wrapper.launches_pair > before else "rows",
+        **compare(f"{name} at the tuned shape", got,
+                  plain(x, epoch["qs"], epoch["arm"], epoch["blk"],
+                        kw["block"], kw["metric"]),
+                  rtol=2e-4, atol=1e-5)}
+    del got
+    epoch.clear()
+    torch.cuda.empty_cache()
+
+    # --- the sidecar: saved, loaded and applied; rejected beside a store
+    # of another scale bucket -------------------------------------------
+    need = sum(a.numel() * a.element_size()
+               for a in tidx.store.arrays().values())
+    tmp = save_dir(need)
+    try:
+        path = os.path.join(tmp, "index")
+        t = time.perf_counter()
+        tidx.save(path)
+        out["save_s"] = time.perf_counter() - t
+        cache_clear()
+        t = time.perf_counter()
+        loaded = Index.load(path, device=corpus.device)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t
+        _, why = load_tuned(path, loaded.store)
+        out["sidecar_reload"] = {"reason": why,
+                                 "applied": loaded.tuned == tidx.tuned,
+                                 "config_equal": loaded.cfg == tidx.cfg}
+        if not (why == "ok" and loaded.tuned == tidx.tuned
+                and loaded.cfg == tidx.cfg):
+            raise AssertionError(f"tune: sidecar not applied on load: "
+                                 f"{out['sidecar_reload']}")
+        del loaded
+        small_path = os.path.join(tmp, "small")
+        Index.build(corpus[:4096], DENSE.bmo, seed).save(small_path)
+        shutil.copy(os.path.join(path, TUNED_FILE),
+                    os.path.join(small_path, TUNED_FILE))
+        small = Index.load(small_path, device=corpus.device)
+        _, why = load_tuned(small_path, small.store)
+        out["sidecar_drifted"] = {"reason": why,
+                                  "applied": small.tuned is not None,
+                                  "serves_build_config":
+                                      small.cfg == DENSE.bmo}
+        if why != "signature" or small.tuned is not None \
+                or small.cfg != DENSE.bmo:
+            raise AssertionError(f"tune: a drifted sidecar was applied: "
+                                 f"{out['sidecar_drifted']}")
+        del small
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del tidx
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 class EpochSyncs:
     """Counts ``host_fetch`` calls inside every ``RaceSession.step()`` that
     advanced an epoch, while active: the sessions' one host sync an epoch,
@@ -1286,30 +1519,190 @@ def plane_checks(what: str, pairs, truth_of, n: int, k: int) -> dict:
     return out
 
 
+def mixed_tickets(plane, qh, seed: int, tenant_of, **extra) -> list:
+    """Every query row in tickets of PLANE_ROWS rows: ticket i has a
+    Deadline when i % 4 == 1, an EffortBudget when i % 4 == 3, and races
+    to certification otherwise; ``tenant_of(i)`` names its tenant. Returns
+    [(ticket, its rows)]."""
+    import numpy as np
+    from repro_torch.api import Deadline, EffortBudget
+    pairs = []
+    for i in range(qh.shape[0] // PLANE_ROWS):
+        rows = np.arange(i * PLANE_ROWS, (i + 1) * PLANE_ROWS)
+        kw = ({"deadline": Deadline(ms=PLANE_DEADLINE_MS)} if i % 4 == 1
+              else {"budget": EffortBudget(epochs=PLANE_BUDGET_EPOCHS)}
+              if i % 4 == 3 else {})
+        pairs.append((plane.submit(qh[rows], rng=seed + i,
+                                   tenant=tenant_of(i), **kw, **extra),
+                      rows))
+    return pairs
+
+
+def by_spec(pairs) -> dict:
+    """``ticket_report`` of each kind of ticket ``mixed_tickets`` makes."""
+    return {name: ticket_report([t for j, (t, _) in enumerate(pairs)
+                                 if j % 4 in m])
+            for name, m in (("deadline", (1,)), ("budget", (3,)),
+                            ("certify", (0, 2)))}
+
+
+def audit_report(plane, flush_s: float) -> dict:
+    """The plane's δ-audit so far: rows audited, mismatches, the Wilson
+    bound, the oracle's ms an item (its ``repro_audit_ms`` histogram)."""
+    aud = plane.auditor
+    h = aud._h_ms
+    return {"sampled_tickets": aud.sampled_tickets,
+            "rows_audited": aud.sampled_rows,
+            "mismatch_rows": aud.mismatch_rows,
+            "err_upper_wilson_95": aud.err_upper(),
+            "skipped": dict(aud.skipped), "pending": aud.pending,
+            "oracle_items": h.count,
+            "oracle_ms_per_item": h.sum / h.count if h.count else None,
+            "flush_s": flush_s}
+
+
+def timed_offers(plane) -> list:
+    """Wrap the plane's ``auditor.offer`` so each call's µs is kept (the
+    serving path's share of the audit). Returns the list it fills."""
+    spent, offer = [], plane.auditor.offer
+
+    def timed(**kw):
+        t = time.perf_counter()
+        try:
+            return offer(**kw)
+        finally:
+            spent.append((time.perf_counter() - t) * 1e6)
+    plane.auditor.offer = timed
+    return spent
+
+
+def audit_oracle_check(store, corpus, qh, truth, rows, served,
+                       k: int) -> dict:
+    """The plane's δ-audit oracle on one audited ticket, after the plane's
+    run (these launches are not counted): ``exact_topk`` of its rows at
+    the audit's shape (one tensor-core ``pairwise_dist`` of the ticket's
+    prepared queries against the whole capacity at d_pad), held three
+    ways. Its θ against the float64 brute force of the same ids in the
+    original space; the θ of its top-k, sorted, against those of the
+    brute force's top-k (so its ids are the exact top-k up to near-ties);
+    and that launch against the plain ``pairwise_dist`` and against
+    float64 over the first AUDIT_CHECK_ROWS rows at full d_pad. Then
+    ``check_topk`` of the served ids passes them, with the same exact
+    ids. ℓ2 tolerance as in the kernel phase: 1e-4 relatively, plus 1e-6
+    of ‖q‖² + ‖x‖² against the plain version (fp32 sums of 16,384
+    terms)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.kernels.pairwise_dist import variant as pairwise_variant
+    from repro_torch.obs.audit import check_topk, exact_topk
+
+    q = qh[rows]
+    d = store.d
+    t = time.perf_counter()
+    ids, vals = exact_topk(store, q, k)
+    out = {"rows": len(rows), "exact_topk_ms": (time.perf_counter() - t) * 1e3}
+    if not ((ids >= 0) & (ids < corpus.shape[0])).all():
+        raise AssertionError("audit oracle: an id that is not a live row")
+
+    def theta64(id_rows):
+        qt = torch.from_numpy(q).cuda().double()
+        x = corpus[torch.from_numpy(id_rows).cuda()].double()
+        diff = ((x - qt[:, None]) ** 2).sum(-1) / d
+        scale = ((x * x).sum(-1) + (qt * qt).sum(-1)[:, None]) / d
+        return diff, scale
+    got64, scale = theta64(ids)
+    out["theta_vs_float64"] = compare(
+        "audit oracle θ against float64", torch.from_numpy(vals).cuda(),
+        got64, rtol=1e-4, atol=0.0, allowance=1e-6 * scale)
+    want64, scale_t = theta64(np.ascontiguousarray(truth[rows]))
+    out["topk_theta_vs_truth"] = compare(
+        "audit oracle top-k θ against the float64 top-k",
+        torch.sort(got64, 1).values, torch.sort(want64, 1).values,
+        rtol=1e-4, atol=0.0, allowance=1e-6 * scale_t)
+    out["ids_equal_to_truth_share"] = float(np.mean(
+        [len(set(a) & set(b)) / k for a, b in zip(ids.tolist(),
+                                                  truth[rows].tolist())]))
+
+    qs = store.prepare_queries(q)
+    x = store.x
+    launches = pairwise_dist_cuda.launches_tc
+    full = pairwise_dist_cuda(qs, x, metric="l2")
+    which = pairwise_variant("l2", qs.shape[0], x.shape[1])
+    if which != "tensor_cores" or pairwise_dist_cuda.launches_tc != launches + 1:
+        raise AssertionError("audit oracle: pairwise_dist not on the tensor "
+                             "cores at the audit's shape")
+    sub = slice(0, AUDIT_CHECK_ROWS)
+    got = full[:, sub]
+    del full
+    want64, scale64 = float64_l2(qs, x[sub])
+    out["pairwise_dist"] = {
+        "variant": which,
+        "shape": {"Q": int(qs.shape[0]), "n": int(x.shape[0]),
+                  "d": int(x.shape[1])},
+        "plain_checked_on_rows": AUDIT_CHECK_ROWS,
+        **compare("pairwise_dist at the audit's shape", got,
+                  ref.pairwise_dist_ref(qs, x[sub], "l2"), rtol=1e-4,
+                  atol=0.0, allowance=1e-6 * scale64),
+        "max_rel_err_float64": compare(
+            "pairwise_dist at the audit's shape against float64",
+            got.double(), want64, rtol=1e-4, atol=0.0)["max_rel_err"],
+        "ms": cuda_ms(lambda: pairwise_dist_cuda(qs, x, metric="l2"),
+                      reps=5)}
+    del got, want64, scale64
+    chk = check_topk(store, q, served, k)
+    if chk.mismatches or not np.array_equal(chk.exact_ids, ids):
+        raise AssertionError(f"audit oracle: check_topk flags "
+                             f"{chk.mismatches} served rows or disagrees "
+                             "with exact_topk")
+    out["check_topk_mismatches"] = chk.mismatches
+    torch.cuda.empty_cache()
+    return out
+
+
 def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
     """The request plane over a second handle on the main path's store
     (``Index.open``, so its inserts leave the main index as it is), with
     ``PlaneConfig``'s defaults (max_queue 64, max_group_queries 64,
-    max_active_groups 4). Passes: mixed tickets (every query, in tickets of
-    PLANE_ROWS rows round-robin over PLANE_TENANTS tenants: a quarter with
-    a Deadline (tenant t1's), a quarter with an EffortBudget (t3's), half
-    raced to certification; one scheduler step traced); exact repeats (rows of
-    certified tickets, served at submit); near repeats (PLANE_NOISE
-    relative noise, seeded priors, against the same rows with the cache
-    bypassed); the mutation fence (PLANE_FENCE_ROWS rows, two epochs, an
-    insert of PLANE_FENCE_INSERTS near-copies, drained once under
-    ``on_mutation="complete"`` and once under ``"readmit"``). Every ticket
-    is held by ``plane_checks``; every session epoch makes one host
-    sync."""
+    max_active_groups 4) and the shadow δ-audit on every ticket
+    (``audit_rate=1.0``; the oracle runs only in ``audit_flush``). Passes:
+    mixed tickets (every query, in tickets of PLANE_ROWS rows round-robin
+    over PLANE_TENANTS tenants: a quarter with a Deadline (tenant t1's), a
+    quarter with an EffortBudget (t3's), half raced to certification; one
+    scheduler step traced), then the audit of its certified tickets; exact
+    repeats (rows of certified tickets, served at submit); near repeats
+    (PLANE_NOISE relative noise, seeded priors, against the same rows with
+    the cache bypassed); the mutation fence (PLANE_FENCE_ROWS rows, two
+    epochs, an insert of PLANE_FENCE_INSERTS near-copies, drained once
+    under ``on_mutation="complete"`` and once under ``"readmit"``). Then,
+    on a handle with the tune phase's winner (``Index.tune()``, served
+    from the in-process cache): the same mixed tickets with the deadline
+    tickets spread over all tenants, raced with the tuned ``round_ms``
+    and with ``use_tuned=False``; two injected failures (a duplicated
+    served id; a far live id, caught by θ alone) caught, bundled and
+    reproduced by ``tools/torch_replay_audit.py``'s ``replay_one``; the
+    recall SLO on a held clock and the recall guard's fallback → retune
+    chain, lifted by ``tune(force=True)``. Every ticket is held by
+    ``plane_checks``; every session epoch makes one host sync. After the
+    counted run, ``audit_oracle_check`` on one audited ticket."""
     import dataclasses
+    import importlib.util
+    import shutil
+    import tempfile
     import numpy as np
     import torch
-    from repro_torch.api import Deadline, EffortBudget, Index
+    from repro_torch.api import Index
     from repro_torch.api.cache import QueryCache
     from repro_torch.configs.bmo_nn import DENSE
     from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
     from repro_torch.kernels.fwht import fwht_cuda
-    from repro_torch.serve import PlaneConfig, RequestPlane
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.obs import (ObsContext, SLOEngine, default_slos,
+                                 plane_sources)
+    from repro_torch.obs.health import health_snapshot
+    from repro_torch.serve import (PlaneConfig, RecallGuardPolicy,
+                                   RequestPlane, apply_guard)
 
     (n, d), k = corpus.shape, DENSE.bmo.k
     Q = queries.shape[0]
@@ -1319,22 +1712,17 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
            "rows_per_ticket": PLANE_ROWS, "tenants": PLANE_TENANTS,
            "deadline_ms": PLANE_DEADLINE_MS,
            "budget_epochs": PLANE_BUDGET_EPOCHS,
-           "config": dataclasses.asdict(PlaneConfig())}
+           "config": dataclasses.asdict(PlaneConfig(audit_rate=1.0))}
     by_truth = lambda rows: truth[rows]
+    audited = {}        # one audited ticket: its rows and served ids
 
     def run():
         pidx = Index.open(idx.store, payload=np.arange(n))
-        plane = RequestPlane(pidx)
+        plane = RequestPlane(pidx, PlaneConfig(audit_rate=1.0))
+        offer_us = timed_offers(plane)
         # --- mixed tickets ------------------------------------------------
-        pairs = []
-        for i in range(Q // PLANE_ROWS):
-            rows = np.arange(i * PLANE_ROWS, (i + 1) * PLANE_ROWS)
-            kw = ({"deadline": Deadline(ms=PLANE_DEADLINE_MS)} if i % 4 == 1
-                  else {"budget": EffortBudget(epochs=PLANE_BUDGET_EPOCHS)}
-                  if i % 4 == 3 else {})
-            pairs.append((plane.submit(qh[rows], rng=seed + i,
-                                       tenant=f"t{i % PLANE_TENANTS}", **kw),
-                          rows))
+        pairs = mixed_tickets(plane, qh, seed,
+                              lambda i: f"t{i % PLANE_TENANTS}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps = 0
@@ -1357,12 +1745,7 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
                                    if t.reason == "certified"])
         out["mixed"] = {
             "wall_s": wall, "rows_per_s": Q / wall, "steps": steps,
-            **ticket_report(tickets),
-            "by_spec": {name: ticket_report([t for j, (t, _) in
-                                             enumerate(pairs) if j % 4 in m])
-                        for name, m in (("deadline", (1,)),
-                                        ("budget", (3,)),
-                                        ("certify", (0, 2)))},
+            **ticket_report(tickets), "by_spec": by_spec(pairs),
             **plane_checks("mixed", pairs, by_truth, n, k),
             "coord_ops_per_certified_row": float(np.mean(cert_ops)),
             "index_query_coord_ops_same_rows": float(
@@ -1371,6 +1754,22 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
                 "races", "raced_queries", "cache_hits", "cache_misses",
                 "near_hits", "plane_epochs", "plane_shed",
                 "plane_deadline_exits", "plane_budget_exits")}}
+        # --- the δ-audit of the certified tickets, off the serving path --
+        if plane.auditor._h_ms.count:
+            raise AssertionError("plane: the audit oracle ran while serving")
+        t0 = time.perf_counter()
+        plane.audit_flush()
+        out["audit"] = {**audit_report(plane, time.perf_counter() - t0),
+                        "offers": len(offer_us),
+                        "offer_us_mean": float(np.mean(offer_us)),
+                        "offer_us_max": float(np.max(offer_us))}
+        if out["audit"]["rows_audited"] != len(cert_rows):
+            raise AssertionError(f"plane audit: {out['audit']['rows_audited']}"
+                                 f" rows audited of {len(cert_rows)} "
+                                 "certified")
+        ticket, rows = next((t, r) for t, r in pairs
+                            if t.reason == "certified")
+        audited.update(rows=rows, served=ticket.result.indices.copy())
 
         # --- exact repeats: rows of certified tickets still in the LRU ----
         cached = [r for r in cert_rows.tolist()
@@ -1424,6 +1823,9 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
                 **plane_checks(f"near repeats, cache={mode}", npairs,
                                by_near, n, k)}
         out["near"] = near_out
+        t0 = time.perf_counter()
+        plane.audit_flush()
+        out["audit_all"] = audit_report(plane, time.perf_counter() - t0)
         del plane, pidx
         torch.cuda.empty_cache()
 
@@ -1466,18 +1868,158 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
             del plane, fidx
             torch.cuda.empty_cache()
         out["fence"] = fence
+
+        # --- the tuned handle: the tune phase's winner, from the cache ----
+        tpidx = Index.open(idx.store, payload=np.arange(n))
+        got = tpidx.tune(rng=seed)
+        if not got["cached"]:
+            raise AssertionError("plane: the tune phase's winner was not "
+                                 "served from the in-process cache")
+        out["tuned"] = {"config": got["config"], "store_epoch": tpidx.epoch}
+
+        # --- the deadline tickets spread over every tenant, raced with the
+        # tuned round cost and without the tuning -------------------------
+        spread = {}
+        for name, extra in (("tuned", {}), ("untuned",
+                                            {"use_tuned": False})):
+            plane = RequestPlane(tpidx)
+            spairs = mixed_tickets(
+                plane, qh, seed, lambda i: f"t{(i + i // 4) % PLANE_TENANTS}",
+                cache="bypass", **extra)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plane.drain()
+            wall = time.perf_counter() - t0
+            dl = [(t, r) for j, (t, r) in enumerate(spairs) if j % 4 == 1]
+            spread[name] = {
+                "wall_s": wall, "rows_per_s": Q / wall,
+                "deadline_tenants": sorted({t.tenant for t, _ in dl}),
+                "by_spec": by_spec(spairs),
+                "deadline_certified_positions": int(sum(
+                    int(t.result.certified_count.sum()) for t, _ in dl)),
+                **plane_checks(f"spread deadlines, {name}", spairs,
+                               by_truth, n, k)}
+            del plane
+        out["deadline_spread"] = spread
+
+        # --- an injected failure: caught, bundled, replayed ---------------
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_audit_")
+        try:
+            obs = ObsContext("audit", enabled=True)
+            plane = RequestPlane(tpidx, PlaneConfig(
+                audit_rate=1.0, audit_dir=os.path.join(tmp, "bundles")),
+                obs=obs)
+            clock = {"t": 0.0}
+            eng = SLOEngine(default_slos(DENSE.bmo.delta), obs=obs,
+                            clock=lambda: clock["t"])
+            good = plane.submit(qh[:PLANE_ROWS], rng=seed, cache="bypass")
+            plane.drain()
+            plane.audit_flush()
+            eng.observe(plane_sources(plane))
+            real_build = plane._build_result
+
+            def corrupting(corrupt):
+                def corrupted(entry, terminal, reason):
+                    res = real_build(entry, terminal, reason)
+                    if terminal and reason == "certified":
+                        corrupt(res.indices[0])
+                        plane._build_result = real_build  # one ticket only
+                    return res
+                return corrupted
+
+            def duplicate(ids):     # caught by the duplicate rule alone
+                ids[0] = ids[1]
+
+            # the row farthest from the second ticket's first query among
+            # the first 1,024: a live id far outside its true top-k
+            far_id = int(torch.argmax(((corpus[:1024].double() - queries[
+                2 * PLANE_ROWS].double()) ** 2).sum(1)))
+
+            def far(ids):           # no duplicate: only the θ comparison
+                ids[k - 1] = far_id     # can catch it
+                swapped.append(ids.copy())
+            swapped = []
+            bads = []
+            for i, corrupt in enumerate((duplicate, far)):
+                plane._build_result = corrupting(corrupt)
+                rows = np.arange((i + 1) * PLANE_ROWS, (i + 2) * PLANE_ROWS)
+                bads.append(plane.submit(qh[rows], rng=seed + 1 + i,
+                                         cache="bypass"))
+                plane.drain()
+            plane.audit_flush()
+            summ = plane.auditor.summary()
+            if (summ["mismatch_rows"] != 2 or len(summ["bundles"]) != 2
+                    or len(np.unique(swapped[0])) != k):
+                raise AssertionError(f"plane: the injected failures were not "
+                                     f"each caught once: {summ}")
+            spec = importlib.util.spec_from_file_location(
+                "torch_replay_audit",
+                os.path.join(ROOT, "tools", "torch_replay_audit.py"))
+            tool = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(tool)
+            reps = [tool.replay_one(tpidx, b) for b in summ["bundles"]]
+            if not (all(r["reproduced"] and r["epoch_match"] for r in reps)
+                    and {r["trace_id"] for r in reps}
+                    == {b.trace_id for b in bads}
+                    and good.trace_id not in {r["trace_id"] for r in reps}):
+                raise AssertionError(f"plane: the bundles did not replay: "
+                                     f"{reps}")
+            # the recall SLO on the held clock, then the guard's chain
+            clock["t"] = 1.0
+            fired = eng.observe(plane_sources(plane))
+            guard = RecallGuardPolicy(eng.sink)
+            chain = []
+            for _ in range(3):
+                decision = guard.recommend(tpidx.stats)
+                chain.append(decision.action)
+                apply_guard(tpidx, decision)
+            flags = (tpidx.serving_fallback, tpidx.retune_requested)
+            health_ok = health_snapshot(plane=plane, slo=eng)["ok"]
+            t0 = time.perf_counter()
+            tpidx.tune(rng=seed, force=True, levels=1, max_candidates=1)
+            retune_s = time.perf_counter() - t0
+            lifted = (tpidx.serving_fallback, tpidx.retune_requested)
+            if (chain != ["fallback_untuned", "retune", "none"]
+                    or flags != (True, True) or lifted != (False, False)
+                    or not fired):
+                raise AssertionError(f"plane: SLO/guard chain {chain}, "
+                                     f"flags {flags} -> {lifted}")
+            out["injected"] = {
+                "failures": ["a duplicated served id",
+                             "a live id outside the true top-k"],
+                "rows_audited": summ["sampled_rows"],
+                "mismatch_rows": summ["mismatch_rows"],
+                "contract": summ["keys"][0]["contract"],
+                "replay": [{key: rep[key] for key in (
+                    "verdict", "reproduced", "epoch_match",
+                    "mismatch_rows_recorded", "mismatch_rows_now")}
+                    for rep in reps],
+                "slo_fired": [(a.slo, a.rule, a.severity, a.burn_long)
+                              for a in fired],
+                "guard_chain": chain, "health_ok_while_burning": health_ok,
+                "retune_s": retune_s, "flags_after_retune": list(lifted)}
+            del plane
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del tpidx
+        torch.cuda.empty_cache()
         return out
 
     t0 = time.perf_counter()
     with syncs.watching():
         _, launches = counted("plane", {"fused_epoch_pull":
                                         fused_epoch_pull_cuda,
-                                        "fwht": fwht_cuda}, run)
+                                        "fwht": fwht_cuda,
+                                        "pairwise_dist": pairwise_dist_cuda},
+                              run)
     out["seconds"] = time.perf_counter() - t0
     out["launches"] = launches
     out["fused_epoch_pull_by_schedule"] = {
         "rows": fused_epoch_pull_cuda.launches_rows,
         "pair": fused_epoch_pull_cuda.launches_pair}
+    out["audit_oracle"] = audit_oracle_check(idx.store, corpus, qh, truth,
+                                             audited["rows"],
+                                             audited["served"], k)
     out["host_syncs"] = syncs.report()
     bad = {key: c for key, c in syncs.per_epoch.items() if key[1] != 1}
     if bad:
@@ -2536,15 +3078,17 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 # shape) and the launches of its paths
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
-     "src/repro/kernels/fused_race.py:89", ("main_path", "plane", "mutation")),
+     "src/repro/kernels/fused_race.py:89",
+     ("main_path", "tune", "plane", "mutation")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
-     ("main_path", "plane", "mutation")),
+     ("main_path", "tune", "plane", "mutation")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
-     "src/repro/kernels/block_pull.py:78", ("rounds",)),
+     "src/repro/kernels/block_pull.py:78", ("rounds", "tune")),
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:41", ("paper",)),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist_sm90.cu",
-     "src/repro/kernels/pairwise_dist.py:41", ("oracle", "paper", "sparse")),
+     "src/repro/kernels/pairwise_dist.py:41",
+     ("oracle", "plane", "paper", "sparse")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
 )
@@ -2575,11 +3119,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
-        print("chip_smoke: run from a checkout of the repository "
-              "(src/repro_torch is missing)", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.bmo_nn import DENSE
     from repro_torch.data.synthetic import make_knn_benchmark_data
     from repro_torch.kernels import _build
@@ -2635,6 +3174,8 @@ def main() -> int:
     Qr = args.rounds_queries
     report["rounds"] = rounds_phase(idx, queries[:Qr], truth[:Qr], args.seed)
     emit(report["rounds"])
+    report["tune"] = tune_phase(idx, corpus, queries, truth, args.seed)
+    emit(report["tune"])
     report["plane"] = plane_phase(idx, corpus, queries, truth, main_res,
                                   args.seed)
     emit({k: v for k, v in report["plane"].items() if k != "traced_step"})

@@ -9,6 +9,10 @@ Exact-repeat query rows are served from a query LRU (``CachePolicy``,
 ``api/cache.py``) at zero cost; near repeats race with CI priors seeded from
 the cached neighbour. ``Index.race`` opens an epoch-granular resumable race
 (``index/anytime.py``), which the request plane (``serve/plane.py``) drives.
+``Index.tune`` races the serving config's performance knobs on the store
+itself (``repro_torch.tune``); ``save`` persists the winner as a
+``tuned.json`` sidecar and ``load`` applies it while the store's signature
+still matches.
 
 Side payloads (e.g. kNN-LM next-token ids) attach to the handle and ride
 every slot remap (growth, compaction): ``payload[result.indices]`` is
@@ -36,13 +40,13 @@ from repro_torch.device import make_generator
 from repro_torch.index import mutable
 from repro_torch.index.batched_race import index_knn
 from repro_torch.index.builder import build_index, load_index, save_index
+from repro_torch.tune.candidates import tuned_mode
 
 log = logging.getLogger("repro_torch.api")
 
 PAYLOAD_FILE = "payload.npy"
-# sidecars of the reference that the port does not read yet
-MANIFEST_FILE = "manifest.msgpack"     # a sharded index directory
-TUNED_FILE = "tuned.json"              # an autotuned serving config
+# the sidecar of a sharded index directory, which the port does not read yet
+MANIFEST_FILE = "manifest.msgpack"
 
 
 def _sharded_not_ported(what: str) -> NotImplementedError:
@@ -65,6 +69,12 @@ class Index:
                  cache: Optional[CachePolicy] = None,
                  compaction: Optional[CompactionPolicy] = None):
         self._store = store
+        self._base_cfg = store.cfg    # pre-tuning config: the use_tuned=False
+                                      # contract races exactly this
+        self._tuned = None            # active repro_torch.tune.TunedConfig
+        self._force_untuned = False   # recall-guard fallback: serve every
+                                      # query on build-time defaults
+        self._retune_reason = None    # pending re-tune request (or None)
         self.cache_policy = cache if cache is not None else CachePolicy()
         self.compaction_policy = (compaction if compaction is not None
                                   else CompactionPolicy())
@@ -124,9 +134,10 @@ class Index:
              device=None) -> "Index":
         """Load a saved single-shard index directory onto ``device``
         (default: the GPU). A ``payload.npy`` sidecar is restored. A
-        ``tuned.json`` sidecar is not applied: the port has no tuner yet,
-        so the index serves its build-time config, and a warning says
-        so."""
+        ``tuned.json`` sidecar is applied when its signature matches the
+        store as reloaded (``repro_torch.tune.load_tuned``); otherwise the
+        index serves its build-time config and a warning names the
+        reason."""
         if os.path.exists(os.path.join(path, MANIFEST_FILE)):
             raise _sharded_not_ported(f"{path} holds a sharded index")
         if shards is not None and shards > 1:
@@ -139,10 +150,11 @@ class Index:
             buf = np.zeros((store.capacity,) + saved.shape[1:], saved.dtype)
             buf[: len(saved)] = saved
             handle._payload = buf
-        if os.path.exists(os.path.join(path, TUNED_FILE)):
-            log.warning("%s: not applied, the port has no tuner yet; the "
-                        "index serves its build-time config",
-                        os.path.join(path, TUNED_FILE))
+        from repro_torch.tune import cache_put, load_tuned, signature_of
+        tuned, _why = load_tuned(path, store)
+        if tuned is not None:
+            handle._apply_tuned(tuned, swap=False)
+            cache_put(signature_of(store), tuned)
         return handle
 
     # -- store-shape properties --------------------------------------------
@@ -156,6 +168,11 @@ class Index:
     @property
     def device(self):
         return self._store.device
+
+    @property
+    def n_shards(self) -> int:
+        """1: the port's index is single-shard (ROADMAP.md Queue 1 item 7)."""
+        return 1
 
     @property
     def capacity(self) -> int:
@@ -183,6 +200,53 @@ class Index:
         return self._epoch
 
     @property
+    def tuned(self):
+        """The active ``repro_torch.tune.TunedConfig`` (None = build-time
+        defaults). Set by ``tune()`` or a valid ``tuned.json`` sidecar at
+        ``load``; cleared only by tuning again."""
+        return self._tuned
+
+    @property
+    def serving_fallback(self) -> bool:
+        """True while the recall guard has forced ``use_tuned=False`` for
+        ALL queries (``force_untuned``) — the spec's own ``use_tuned`` is
+        then ignored until the fallback is lifted."""
+        return self._force_untuned
+
+    @property
+    def retune_requested(self) -> bool:
+        """True while a re-tune has been flagged (``request_retune``) and
+        not yet serviced by ``tune()``."""
+        return self._retune_reason is not None
+
+    @property
+    def retune_reason(self) -> Optional[str]:
+        return self._retune_reason
+
+    def force_untuned(self, on: bool = True) -> None:
+        """Recall-guard fallback (DESIGN.md §10.3): serve EVERY query on
+        the pre-tuning build config until lifted. Cost-only, not an epoch
+        event — the tuned config changes racing knobs, never which
+        neighbors are correct, so certified cached results stay valid."""
+        if on != self._force_untuned:
+            log.warning("serving fallback %s: %s the tuned config",
+                        "ENGAGED" if on else "lifted",
+                        "bypassing" if on else "restoring")
+        self._force_untuned = bool(on)
+
+    def request_retune(self, reason: str = "") -> None:
+        """Flag that the active tuning is suspect and should be re-raced
+        (``tune(force=True)`` clears the flag). Advisory — an operator or
+        the caller's policy loop decides when to pay the re-race."""
+        self._retune_reason = reason or "requested"
+
+    def _serving_tuned(self, spec: QuerySpec) -> bool:
+        """Whether THIS query races the tuned config: needs an active
+        tuning, the spec opting in, and no recall-guard fallback."""
+        return (self._tuned is not None and spec.use_tuned
+                and not self._force_untuned)
+
+    @property
     def payload(self) -> Optional[np.ndarray]:
         """(capacity,)+ slot-aligned side values; index with
         ``KNNResult.indices``."""
@@ -204,7 +268,9 @@ class Index:
             cache_misses=cache.misses if cache is not None else 0,
             cache_entries=len(cache) if cache is not None else 0,
             near_hits=self._near_hits,
-            compactions=self._compactions)
+            compactions=self._compactions,
+            serving_fallback=self._force_untuned,
+            retune_requested=self._retune_reason is not None)
 
     # -- internal plumbing --------------------------------------------------
 
@@ -215,6 +281,21 @@ class Index:
         self._epoch += 1
         if self._cache is not None:
             self._cache.clear()
+
+    def _apply_tuned(self, tuned, *, swap: bool = True) -> None:
+        """Install a ``TunedConfig``: rebind the store onto the tuned
+        racing knobs (k/δ/metric stay the store's own). ``swap=True`` goes
+        through the epoch fence — a live re-tune invalidates the query
+        cache; ``swap=False`` is the load-time path (a fresh handle,
+        nothing to fence)."""
+        new = dataclasses.replace(self._store,
+                                  cfg=tuned.bind(self._store.cfg))
+        if swap:
+            self._swap(new)
+        else:
+            # load-time: the handle is not published yet, nothing observes it
+            self._store = new
+        self._tuned = tuned
 
     def _remap(self, old_ids: np.ndarray) -> None:
         """Reindex payload and build-row map through an old→new slot map
@@ -262,9 +343,18 @@ class Index:
 
     # -- query --------------------------------------------------------------
 
+    def _query_cfg(self, spec: QuerySpec):
+        """The config a spec binds against: the served (tuned) config on
+        the fast path, the pre-tuning build config under
+        ``use_tuned=False`` or a recall-guard ``force_untuned`` fallback."""
+        base = self.cfg if (self._tuned is None
+                            or self._serving_tuned(spec)) \
+            else self._base_cfg
+        return spec.bind(base)
+
     def _bound_store(self, spec: QuerySpec):
-        """The store with the spec's k / δ / budget overrides bound."""
-        cfg = spec.bind(self._store.cfg)
+        """The store with the spec's config (``_query_cfg``) bound."""
+        cfg = self._query_cfg(spec)
         if cfg == self._store.cfg:
             return self._store
         return dataclasses.replace(self._store, cfg=cfg)
@@ -276,9 +366,11 @@ class Index:
         return make_generator(rng, self.device)
 
     def _race(self, queries, rng, spec: QuerySpec, prior_hint):
+        mode = tuned_mode(self._tuned if self._serving_tuned(spec) else None,
+                          spec.mode)
         return index_knn(self._bound_store(spec), queries, rng,
                          impl=spec.impl, eliminate=spec.eliminate,
-                         warm_start=spec.warm_start, mode=spec.mode,
+                         warm_start=spec.warm_start, mode=mode,
                          prior_hint=prior_hint)
 
     def _seeded_priors(self, hid: np.ndarray, miss):
@@ -389,9 +481,12 @@ class Index:
         (the plane pads coalesced batches to powers of two). ``obs``/``sid``
         select the observability context and trace id of the session's
         epoch spans. ``deadline_ms``: the remaining wall budget (default:
-        ``spec.deadline``'s); with no tuner in the port the per-round cost
-        is 0 and the session's round cap stays off. ``block_sampler`` /
-        ``coord_sampler`` replace the draws from ``rng``."""
+        ``spec.deadline``'s); when the race serves a tuned config, the
+        session caps each epoch's fused rounds R by what that budget can
+        still pay at the tuned ``round_ms`` (DESIGN.md §9.7), and with no
+        tuning (or ``use_tuned=False``) the cap stays off.
+        ``block_sampler`` / ``coord_sampler`` replace the draws from
+        ``rng``."""
         from repro_torch.index.anytime import make_session
         if spec is None:
             spec = QuerySpec(**overrides)
@@ -406,13 +501,14 @@ class Index:
                 "epoch-fused driver; mode='rounds' is blocking-query only")
         if deadline_ms is None and spec.deadline is not None:
             deadline_ms = spec.deadline.ms
-        store = self._store
+        round_ms = (self._tuned.round_ms if self._serving_tuned(spec)
+                    else 0.0)
         session = make_session(
-            store, queries, self._next_rng(rng), cfg=spec.bind(store.cfg),
-            impl=spec.impl, eliminate=spec.eliminate,
-            warm_start=spec.warm_start, prior_hint=spec.prior_hint,
-            chunk_rounds=chunk_rounds, obs=obs, sid=sid,
-            deadline_ms=deadline_ms, round_ms=0.0,
+            self._store, queries, self._next_rng(rng),
+            cfg=self._query_cfg(spec), impl=spec.impl,
+            eliminate=spec.eliminate, warm_start=spec.warm_start,
+            prior_hint=spec.prior_hint, chunk_rounds=chunk_rounds, obs=obs,
+            sid=sid, deadline_ms=deadline_ms, round_ms=round_ms,
             block_sampler=block_sampler, coord_sampler=coord_sampler)
         self._races += 1
         self._raced_queries += int(raced_queries if raced_queries is not None
@@ -514,13 +610,57 @@ class Index:
 
     def save(self, path: str) -> None:
         """Persist through the checkpoint layer; an attached payload is
-        written as a ``payload.npy`` sidecar inside the same atomic
-        directory publish, so ``path`` only ever holds a complete index."""
+        written as a ``payload.npy`` sidecar and an active tuning as a
+        ``tuned.json`` sidecar, both inside the same atomic directory
+        publish, so ``path`` only ever holds a complete index. The
+        checkpoint's config is the pre-tuning build config: the tuning
+        lives in the sidecar alone, so a load that rejects the sidecar
+        serves the build-time defaults (the reference writes the tuned
+        knobs into both; ROADMAP.md Queue 3)."""
         def _sidecars(tmp: str) -> None:
             if self._payload is not None:
                 np.save(os.path.join(tmp, PAYLOAD_FILE), self._payload)
+            if self._tuned is not None:
+                from repro_torch.tune import save_tuned, signature_of
+                save_tuned(tmp, signature_of(self._store), self._tuned,
+                           measured={"epoch_ms": self._tuned.epoch_ms,
+                                     "round_ms": self._tuned.round_ms})
 
-        save_index(self._store, path, extra=_sidecars)
+        store = (self._store if self._tuned is None
+                 else dataclasses.replace(self._store, cfg=self._base_cfg))
+        save_index(store, path, extra=_sidecars)
+
+    # -- admin ops -----------------------------------------------------------
+
+    def tune(self, queries=None, rng=None, *, levels: int = 2,
+             reps: int = 1, force: bool = False, apply: bool = True,
+             **kw) -> dict:
+        """Autotune the serving config for THIS store (repro_torch.tune,
+        DESIGN.md §9): enumerate the (R, P, B, floor, buffers, mode)
+        candidate grid, prune it with the analytic cost model, and race the
+        survivors with successive halving on measured wall time.
+
+        Runs as an admin op — mutations are refused while it races — and
+        installs the winner through the epoch fence (the epoch bumps, the
+        query cache clears). An equal-signature tuning from earlier in the
+        process is reused without re-racing unless ``force``. ``queries``
+        defaults to a synthetic batch drawn from the corpus (a sparse index
+        must pass real queries); ``rng`` is a seed or a ``torch.Generator``.
+        ``apply=False`` measures without installing. A fresh tuning lifts a
+        recall-guard fallback and clears a pending re-tune request. Returns
+        the tuning report dict."""
+        from repro_torch.tune import tune_store
+        with self._admin_op("tune"):
+            tuned, report = tune_store(self._store, queries, rng,
+                                       levels=levels, reps=reps,
+                                       force=force, **kw)
+            report = dict(report, applied=bool(apply))
+            if apply:
+                self._apply_tuned(tuned)
+                if self._force_untuned:
+                    self.force_untuned(False)
+                self._retune_reason = None
+        return report
 
     def __repr__(self) -> str:
         return (f"Index(kind={self.kind!r}, live={self.n_live}/"

@@ -9,16 +9,15 @@
   * ``KNNResult`` — the result schema of ``Index.query``, the reference's
     schema unchanged: host-side arrays, per-query cost counters.
   * ``ServeStats`` — the handle's and the request plane's serving counters,
-    field for field the reference's schema (v6). The audit, SLO, tuning and
-    fleet fields keep the reference's defaults until their modules are
-    ported (ROADMAP.md Queue 1 items 6 and 8).
+    field for field the reference's schema (v6). The fleet fields keep the
+    reference's defaults until the fleet is ported (ROADMAP.md Queue 1
+    item 8).
   * ``CachePolicy`` — the query LRU and near-repeat warm starts;
     ``CompactionPolicy`` — when ``Index.maybe_compact`` rebuilds the slot
     layout.
 
 The port's ``impl`` vocabulary is its own: "auto" (the CUDA kernels on the
-card, the plain versions on the CPU), "cuda", "ref". The reference's
-``use_tuned`` waits for the tuner (ROADMAP.md Queue 1 item 6).
+card, the plain versions on the CPU), "cuda", "ref".
 """
 from __future__ import annotations
 
@@ -58,6 +57,10 @@ class QuerySpec:
                                        # certified prefix at expiry
     budget: Optional[Any] = None       # stream.EffortBudget — pull-budget
                                        # cap (epochs / coord_ops)
+    use_tuned: bool = True             # serve on the autotuned config
+                                       # (repro_torch.tune) when one is
+                                       # active; False races on build-time
+                                       # defaults
 
     def __post_init__(self):
         if self.mode not in MODES:
@@ -104,7 +107,8 @@ class QuerySpec:
         return (self.k is None and self.delta is None
                 and self.max_rounds is None and self.prior_hint is None
                 and self.eliminate and self.warm_start
-                and self.deadline is None and self.budget is None)
+                and self.deadline is None and self.budget is None
+                and self.use_tuned)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,9 +137,9 @@ class ServeStats:
     field for field the reference's schema v6.
 
     ``as_dict()`` is the stable JSON schema; ``__getitem__`` also accepts
-    the reference's older string keys (``knn_cache_hits``, …). The audit,
-    SLO, tuning and fleet fields hold the reference's defaults until their
-    modules are ported (ROADMAP.md Queue 1 items 6 and 8).
+    the reference's older string keys (``knn_cache_hits``, …). The fleet
+    fields hold the reference's defaults until the fleet is ported
+    (ROADMAP.md Queue 1 item 8).
     """
 
     races: int = 0             # batched races launched
@@ -169,14 +173,16 @@ class ServeStats:
     obs_event_drops: int = 0   # events overwritten before export
     obs_epoch_ms: Optional[dict] = None    # race-epoch histogram snapshot
     obs_latency_ms: Optional[dict] = None  # ticket-latency histogram snap
-    # -- δ-audit / SLO (schema v5): the reference's defaults ----------------
-    audit_sampled: int = 0
-    audit_mismatches: int = 0
+    # -- δ-audit / SLO (schema v5, DESIGN.md §10) --------------------------
+    audit_sampled: int = 0     # query rows shadow-audited so far
+    audit_mismatches: int = 0  # audited rows violating the 1-δ contract
+    # 1.0 = "no claim yet": the Wilson bound carries no evidence until
+    # rows have actually been audited (and is 1.0 with auditing off)
     audit_err_upper: float = 1.0
-    audit_pending: int = 0
-    slo_alerts: int = 0
-    serving_fallback: bool = False
-    retune_requested: bool = False
+    audit_pending: int = 0     # sampled tickets awaiting the oracle
+    slo_alerts: int = 0        # burn-rate alerts fired (lifetime)
+    serving_fallback: bool = False  # tuned config forced off (recall guard)
+    retune_requested: bool = False  # an Index.tune() re-race is flagged
     # -- fleet rollup (schema v6): the reference's defaults -----------------
     fleet_namespaces_resident: int = 0
     fleet_namespaces_evicted: int = 0

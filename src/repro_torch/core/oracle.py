@@ -53,6 +53,57 @@ def densify(indices: torch.Tensor, values: torch.Tensor, d: int
     return flat[:r * d].view(r, d)
 
 
+def sparse_l1(qs: torch.Tensor, indices: torch.Tensor, values: torch.Tensor,
+              d: int, *, impl: str = "auto"):
+    """``dist(s, e)`` for ``running_topk``: ℓ1 distances of the dense
+    (Q, d) queries ``qs`` to rows [s, e) of a padded-CSR corpus, the rows
+    scattered to (e − s, d) and held against the queries by
+    ``pairwise_dist``."""
+    def dist(s: int, e: int) -> torch.Tensor:
+        return kops.pairwise_dist(qs, densify(indices[s:e], values[s:e], d),
+                                  metric="l1", impl=impl)
+    return dist
+
+
+def running_topk(dist, n: int, Q: int, k: int, chunk: int, *, device,
+                 alive: torch.Tensor | None = None,
+                 served: torch.Tensor | None = None):
+    """The min(k, n) smallest of the (Q, n) distances that ``dist(s, e)``
+    gives for columns [s, e), ``chunk`` columns at a time, as a running
+    top-k: (ids, distances), ascending, the lower column first among ties
+    (the kept k come first and hold lower columns, and the sort is
+    stable). ``alive`` (n,) bool reads dead columns as +inf. ``served``
+    (Q, m) int64 column ids: their distances, read from the same chunks
+    (+inf where an id is out of range or dead), come third; None without
+    ``served``."""
+    kk = min(k, n)
+    best = torch.zeros((Q, 0), dtype=torch.float32, device=device)
+    ids = torch.zeros((Q, 0), dtype=torch.int64, device=device)
+    got = ok = None
+    if served is not None:
+        ok = (served >= 0) & (served < n)
+        if alive is not None:
+            ok &= alive[torch.where(ok, served, 0)]
+        got = torch.full(served.shape, float("inf"), dtype=torch.float32,
+                         device=device)
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        dd = dist(s, e)
+        if alive is not None:
+            dd = torch.where(alive[s:e][None, :], dd, float("inf"))
+        if served is not None:
+            here = ok & (served >= s) & (served < e)
+            th = torch.gather(dd, 1, torch.where(here, served - s, 0))
+            got = torch.where(here, th, got)
+        cand = torch.cat([best, dd], 1)
+        cand_ids = torch.cat([ids, torch.arange(s, e, device=device)
+                              .expand(Q, -1)], 1)
+        keep = smallest_k(cand, kk)
+        best, ids = torch.gather(cand, 1, keep), torch.gather(cand_ids, 1,
+                                                              keep)
+    return ids, best, got
+
+
 def exact_knn_sparse(ds: SparseDataset, q_idx, q_val, q_nnz, k: int, *,
                      impl: str = "auto", chunk: int = 8192,
                      device=None) -> OracleResult:
@@ -70,21 +121,9 @@ def exact_knn_sparse(ds: SparseDataset, q_idx, q_val, q_nnz, k: int, *,
     qv = torch.as_tensor(q_val, dtype=torch.float32, device=dev)
     qn = torch.as_tensor(q_nnz, dtype=torch.int32, device=dev)
     Q = qi.shape[0]
-    qs = densify(qi, qv, d)
-    best = torch.zeros((Q, 0), dtype=torch.float32, device=dev)
-    ids = torch.zeros((Q, 0), dtype=torch.int64, device=dev)
-    for s in range(0, n, chunk):
-        x = densify(ds.indices[s:s + chunk], ds.values[s:s + chunk], d)
-        dist = kops.pairwise_dist(qs, x, metric="l1", impl=impl)
-        del x
-        # the kept k come first and hold lower indices: a stable sort keeps
-        # the lower index first among ties
-        cand = torch.cat([best, dist], 1)
-        cand_ids = torch.cat([ids, torch.arange(
-            s, s + dist.shape[1], device=dev).expand(Q, -1)], 1)
-        keep = smallest_k(cand, k)
-        best, ids = torch.gather(cand, 1, keep), torch.gather(cand_ids, 1,
-                                                              keep)
+    ids, best, _ = running_topk(
+        sparse_l1(densify(qi, qv, d), ds.indices, ds.values, d, impl=impl),
+        n, Q, k, chunk, device=dev)
     cost = (Q * torch.sum(ds.nnz, dtype=torch.float64)
             + torch.sum(qn, dtype=torch.float64) * n)
     return OracleResult(ids, best / best.new_tensor(float(d)),

@@ -262,10 +262,9 @@ class RaceSession:
         """Deadline-aware fused-round selection (DESIGN.md §9.7): with a
         wall-clock budget and a measured per-round cost (``round_ms``), the
         fused session caps the rounds fused into the next launch so one
-        epoch never overshoots the deadline. The port has no tuner yet
-        (ROADMAP.md Queue 1 item 6), so its handle passes ``round_ms`` 0
-        and the cap stays off, as in the reference without a tuned
-        config."""
+        epoch never overshoots the deadline. ``Index.race`` passes the
+        tuned config's measured ``round_ms`` (``repro_torch.tune``) when
+        the race serves it, and 0 otherwise, which keeps the cap off."""
         self._deadline_t = (None if deadline_ms is None
                             else time.perf_counter() + deadline_ms / 1e3)
         self._round_ms = float(round_ms or 0.0)

@@ -21,7 +21,12 @@ so bookkeeping scales with survivors instead of n.
 
 The fused driver's host and device meet once per epoch: one
 ``host_fetch`` (``utils/hostsync.py``) of the survivor counts, the done
-flags and the largest pull count among arms still to be pulled. The
+flags, the epoch's coordinate reads and the largest pull count among arms
+still to be pulled. Each epoch records its wall time into the
+``repro_race_epoch_ms{kind="fused_blocking"}`` histogram and one
+``fused_epoch_pull`` launch into the kernel counters of the process's obs
+context (the wide init is not counted), as the reference does; the tuner
+reads its epoch and round costs from that histogram. The
 last of these tells the host whether the next epoch can push any arm past
 MAX_PULLS, which is what gates the exact evaluation; the reference gates it
 with an on-device ``lax.cond``.
@@ -54,6 +59,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -75,6 +81,8 @@ from repro_torch.index.frontier import (FrontierState, bucket_width,
                                         compact_frontier, floor_width,
                                         pow2_floor, survivors)
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import get_obs
+from repro_torch.obs import profile as obs_profile
 from repro_torch.utils.hostsync import host_fetch
 
 
@@ -409,9 +417,10 @@ def _fused_epoch_step(x, qs, st: FrontierState, prior_pool,
 
     ``may_cross`` is False only when no selectable arm can reach MAX_PULLS
     in this epoch; the exact evaluation is skipped then. Returns the new
-    state and the (Q,) survivor counts, done flags and largest pull count
-    among arms the next epoch may select, packed in one fp64 tensor for the
-    host."""
+    state and, packed in one fp64 tensor for the host, the (Q,) survivor
+    counts, the (Q,) done flags, the epoch's coordinate reads summed over
+    the queries and the largest pull count among arms the next epoch may
+    select (last)."""
     Q, W = st.mean.shape
     k = cfg.k
     B = min(cfg.batch_arms, W)
@@ -483,7 +492,9 @@ def _fused_epoch_step(x, qs, st: FrontierState, prior_pool,
                        rounds=rounds, done=done)
     n_surv = torch.sum(st2.valid & ~st2.rejected & ~st2.done[:, None], 1)
     count_hi = torch.amax(torch.where(_need(st2), st2.count, 0.0))
+    coord_delta = torch.sum((st2.coord_ops - st.coord_ops).to(torch.float64))
     host = torch.cat([n_surv.to(torch.float64), done.to(torch.float64),
+                      coord_delta.reshape(1),
                       count_hi.to(torch.float64).reshape(1)])
     return st2, host
 
@@ -539,6 +550,10 @@ def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
     n_surv = np.full((Q,), n)
     done = np.zeros((Q,), bool)
     count_hi = float(T0)
+    obs = get_obs()
+    epoch_ms = obs.registry.histogram(
+        "repro_race_epoch_ms", "wall time of one race epoch (ms)",
+        kind="fused_blocking")
     while not done.all() and rounds_spent < max_rounds:
         need = int(n_surv[~done].max(initial=1))
         if compaction:
@@ -546,17 +561,25 @@ def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
             if W_new < st.width:
                 st = compact_frontier(st, W_new=W_new)
         R = min(R0 * pow2_floor(W0 // max(need, 1)), R_cap)
-        st, host = _fused_epoch_step(
-            x, qs, st, prior_pool, block_sampler, cfg=cfg, block=block, d=d,
-            impl=impl, eliminate=eliminate, prior_weight=prior_weight,
-            log_term=log_term, T=R * P, may_cross=count_hi + R * P >= nb)
-        rounds_spent += R
-        # the per-epoch boundary: survivor counts, done flags and the pull
-        # bound cross to the host to drive the reallocation loop
-        host = host_fetch(host)
+        t0 = time.perf_counter()
+        with obs_profile.annotate("repro.race.epoch.fused_blocking"):
+            st, host = _fused_epoch_step(
+                x, qs, st, prior_pool, block_sampler, cfg=cfg, block=block,
+                d=d, impl=impl, eliminate=eliminate,
+                prior_weight=prior_weight, log_term=log_term, T=R * P,
+                may_cross=count_hi + R * P >= nb)
+            rounds_spent += R
+            # the per-epoch boundary: survivor counts, done flags, the
+            # epoch's coordinate reads and the pull bound cross to the host
+            # in one transfer to drive the reallocation loop
+            host = host_fetch(host)
         n_surv = host[:Q].astype(np.int64)
         done = host[Q:2 * Q] > 0
         count_hi = float(host[-1])
+        epoch_ms.observe((time.perf_counter() - t0) * 1e3)
+        obs_profile.record_kernel_launch(
+            obs, "fused_epoch_pull", launches=1,
+            coord_ops=float(host[2 * Q]), pulls=float(R))
 
     topk, topk_vals, n_exact = _fused_finalize(
         st, prior_pool, cfg=cfg, log_term=log_term,

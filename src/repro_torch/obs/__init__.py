@@ -14,8 +14,15 @@ One ``ObsContext`` bundles the three primitives every layer records into:
 pass their own ``ObsContext`` to ``RequestPlane`` / ``make_session`` for
 isolation. ``REPRO_OBS=0`` disables event and span recording (the metric
 counters stay on: ``ServeStats`` reads them); ``REPRO_OBS_EVENTS`` sizes the
-default ring. The reference's audit, SLO, health, export and compile
-telemetry modules are not ported yet (ROADMAP.md Queue 1 item 6).
+default ring.
+
+Beside them: ``audit`` (the shadow δ-auditor and flight recorder),
+``slo`` (burn-rate alerting), ``export`` (Prometheus text, JSON snapshots)
+and ``health`` (one JSON health document), the reference's modules. The
+reference's ``jaxmon`` (XLA compile and recompile telemetry) has no
+counterpart: the port compiles no XLA programs, and its CUDA kernels are
+built once per source and process by ``kernels/_build.py``, which logs each
+build.
 """
 from __future__ import annotations
 
@@ -23,14 +30,28 @@ import logging
 import os
 from typing import Optional
 
+from repro_torch.obs.audit import (DeltaAuditor, FlightRecorder,
+                                   clopper_pearson_upper, exact_topk,
+                                   load_bundle, replay_bundle, wilson_upper)
+from repro_torch.obs.export import (dump_events, dump_metrics, events_doc,
+                                    json_snapshot, prometheus_text)
+from repro_torch.obs.health import dump_health, health_snapshot, print_health
 from repro_torch.obs.registry import (DEFAULT_MS_BUCKETS, Counter, EventLog,
                                       Gauge, Histogram, MetricsRegistry)
+from repro_torch.obs.slo import (SLO, Alert, AlertSink, BurnRule, SLOEngine,
+                                 default_slos, plane_sources)
 from repro_torch.obs.trace import NULL_SPAN, Span, Tracer, new_trace_id
 
 __all__ = [
-    "Counter", "DEFAULT_MS_BUCKETS", "EventLog", "Gauge", "Histogram",
-    "MetricsRegistry", "NULL_SPAN", "ObsContext", "Span", "Tracer",
-    "get_obs", "new_trace_id", "reset_obs", "set_obs",
+    "Alert", "AlertSink", "BurnRule", "Counter", "DEFAULT_MS_BUCKETS",
+    "DeltaAuditor", "EventLog", "FlightRecorder", "Gauge", "Histogram",
+    "MetricsRegistry", "NULL_SPAN", "ObsContext", "SLO", "SLOEngine",
+    "Span", "Tracer", "clopper_pearson_upper", "default_slos",
+    "dump_events", "dump_health", "dump_metrics", "events_doc",
+    "exact_topk", "get_obs", "health_snapshot", "json_snapshot",
+    "load_bundle", "new_trace_id", "plane_sources", "print_health",
+    "prometheus_text", "replay_bundle", "reset_obs", "set_obs",
+    "wilson_upper",
 ]
 
 

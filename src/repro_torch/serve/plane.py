@@ -33,9 +33,13 @@ it. ``stats`` extends the handle's ``ServeStats`` with the queue and latency
 telemetry that ``serve.scale`` policies consume.
 
 A race that cannot launch sheds its tickets with a ``rejected: …`` reason
-(never orphaned). Not ported yet: namespace routing over a fleet
-(``router=``, ROADMAP.md Queue 1 item 8) and the shadow δ-audit
-(``audit_rate > 0``, item 6); both raise ``NotImplementedError``.
+(never orphaned). With ``PlaneConfig.audit_rate > 0`` a shadow δ-auditor
+(``obs/audit.py``) samples fully certified terminal tickets at ``_finish``
+(an RNG draw and host copies) and re-answers them with the exact oracle
+only on idle steps or through ``audit_step``/``audit_flush`` — never inside
+a serving epoch. Not ported yet: namespace routing over a fleet
+(``router=``, ROADMAP.md Queue 1 item 8), which raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -68,9 +72,7 @@ _plane_seq = itertools.count()
 
 @dataclasses.dataclass(frozen=True)
 class PlaneConfig:
-    """Scheduler knobs, the reference's, with its defaults. The shadow
-    δ-auditor is not ported yet: a plane with ``audit_rate > 0`` raises,
-    and the reference's other audit fields are left out."""
+    """Scheduler knobs, the reference's, with its defaults."""
 
     max_queue: int = 64            # pending tickets per tenant before shed
     max_group_queries: int = 64    # query rows coalesced per race batch
@@ -78,7 +80,11 @@ class PlaneConfig:
     on_mutation: str = "complete"  # complete | readmit in-flight groups
     chunk_rounds: int = 0          # sparse rounds per epoch (0 = heuristic)
     latency_window: int = 4096     # terminal latencies kept for percentiles
-    audit_rate: float = 0.0        # shadow δ-audit share (DESIGN.md §10)
+    # -- shadow δ-audit (DESIGN.md §10) -----------------------------------
+    audit_rate: float = 0.0        # fraction of terminal tickets audited
+    audit_reservoir: int = 256     # pending audits per tenant before drop
+    audit_dir: Optional[str] = None   # flight-recorder bundle directory
+    audit_seed: int = 0            # sampling RNG seed (reproducible audits)
 
     def __post_init__(self):
         if self.max_queue < 1:
@@ -99,6 +105,9 @@ class PlaneConfig:
         if not 0.0 <= self.audit_rate <= 1.0:
             raise ValueError("audit_rate must be in [0, 1], got "
                              f"{self.audit_rate}")
+        if self.audit_reservoir < 1:
+            raise ValueError("audit_reservoir must be >= 1, got "
+                             f"{self.audit_reservoir}")
 
 
 class _Member(object):
@@ -167,10 +176,6 @@ class RequestPlane:
             raise ValueError("RequestPlane needs an index")
         self.index = index
         self.config = config if config is not None else PlaneConfig()
-        if self.config.audit_rate > 0.0:
-            raise NotImplementedError(
-                "PlaneConfig(audit_rate > 0): the shadow δ-auditor is not "
-                "ported yet (ROADMAP.md Queue 1 item 6)")
         self.obs = obs if obs is not None else get_obs()
         self.plane_id = f"p{next(_plane_seq)}"
         # admission queues keyed by (tenant, namespace), as the reference's
@@ -217,6 +222,19 @@ class RequestPlane:
         self._h_epoch = reg.histogram(
             "repro_plane_epoch_ms", "wall time of one scheduler epoch (ms)",
             **lbl)
+        # shadow δ-auditor (DESIGN.md §10): sampling happens at _finish
+        # (cheap — one RNG draw + host copies into a bounded reservoir);
+        # the exact oracle runs OFF the critical path, only from
+        # audit_step()/audit_flush() or an idle step()
+        self.auditor = None
+        if self.config.audit_rate > 0.0:
+            from repro_torch.obs.audit import DeltaAuditor, FlightRecorder
+            recorder = (FlightRecorder(self.config.audit_dir)
+                        if self.config.audit_dir else None)
+            self.auditor = DeltaAuditor(
+                index, rate=self.config.audit_rate, obs=self.obs,
+                recorder=recorder, seed=self.config.audit_seed,
+                reservoir=self.config.audit_reservoir, labels=lbl)
 
     def _qkey(self, entry: _Entry) -> tuple:
         # the reference's (tenant, namespace) key; no namespace without the
@@ -326,9 +344,11 @@ class RequestPlane:
     # -- scheduling ----------------------------------------------------------
 
     def _race_key(self, entry: _Entry):
+        # use_tuned picks the config the group races: a ticket that opts
+        # out of the tuning never rides a tuned group (nor the reverse)
         s = entry.spec
         return (s.k, s.mode, s.impl, s.delta, s.max_rounds, s.eliminate,
-                s.warm_start, entry.is_sparse, id(entry.index))
+                s.warm_start, s.use_tuned, entry.is_sparse, id(entry.index))
 
     def _admission_key(self, entry: _Entry):
         """Deadline-aware admission order: earliest absolute deadline
@@ -640,6 +660,11 @@ class RequestPlane:
         now = time.monotonic()
         self._fence_groups()
         self._admit_groups(now)
+        # a TRUE idle pass: the epoch began with nothing racing and nothing
+        # queued — only such passes may do shadow-audit work below, so the
+        # step that *finishes* the last ticket (drain's final iteration)
+        # never pays the oracle either
+        idle_pass = not self._groups and not self._queues
         if self._groups:
             self._epochs.inc()
         for group in list(self._groups):
@@ -663,6 +688,11 @@ class RequestPlane:
             self._h_epoch.observe((time.perf_counter() - t0) * 1e3)
         self._g_queue.set(sum(len(q) for q in self._queues.values()))
         self._g_active.set(sum(len(g.members) for g in self._groups))
+        # shadow audits use IDLE steps only: with races active or tickets
+        # queued the oracle never runs inside the serving epoch
+        if (self.auditor is not None and idle_pass
+                and not self._groups and not self._queues):
+            self.auditor.process(1)
         return self.active
 
     def drain(self, max_epochs: int = 100000) -> None:
@@ -810,6 +840,7 @@ class RequestPlane:
         self._latencies.append(t.latency_ms)
         self._h_latency.observe(t.latency_ms)
         self._fill_cache(entry, reason)
+        self._offer_audit(entry, reason)
         entry.group = entry.member = None
         if entry.queue_span is not None:     # e.g. deadline expired queued
             entry.queue_span.end(outcome=reason)
@@ -819,6 +850,40 @@ class RequestPlane:
             trace=t.trace_id, reason=reason, latency_ms=t.latency_ms,
             epochs=t.epochs, store_epoch=entry.epoch)
         self._entries.pop(t.id, None)
+
+    def _offer_audit(self, entry: _Entry, reason: str) -> None:
+        """Maybe sample this terminal ticket into the shadow-audit
+        reservoir. Only FULLY-certified answers claim the complete 1-δ
+        contract — partial deadline/budget/shed exits are counted as
+        skipped, not audited against a promise they never made."""
+        if self.auditor is None:
+            return
+        t = entry.ticket
+        res = t.result
+        if (reason != R_CERTIFIED
+                or int(np.min(res.certified_count)) < res.indices.shape[1]):
+            self.auditor.note_skip("uncertified")
+            return
+        cfg = entry.index._query_cfg(entry.spec)
+        self.auditor.offer(
+            trace_id=t.trace_id, tenant=t.tenant, store_epoch=entry.epoch,
+            contract=("tuned" if entry.index._serving_tuned(entry.spec)
+                      else "default"),
+            k=res.indices.shape[1], delta=float(cfg.delta),
+            queries=entry.queries, served_ids=res.indices,
+            served_vals=res.values, spec=entry.spec)
+
+    def audit_step(self, max_items: int = 1) -> int:
+        """Run the δ-audit oracle on up to ``max_items`` pending samples.
+        Call between serving work — never inside it; ``step()`` only does
+        this on an idle pass (no group racing, nothing queued)."""
+        return (self.auditor.process(max_items)
+                if self.auditor is not None else 0)
+
+    def audit_flush(self) -> int:
+        """Drain the whole audit reservoir through the oracle (shutdown,
+        tests). Returns the number of items processed."""
+        return self.auditor.flush() if self.auditor is not None else 0
 
     def _fill_cache(self, entry: _Entry, reason: str) -> None:
         """Fully certified default-contract answers populate the LRU —
@@ -911,6 +976,17 @@ class RequestPlane:
             obs_event_drops=self.obs.events.drops,
             obs_epoch_ms=self._h_epoch.snapshot(),
             obs_latency_ms=self._h_latency.snapshot(),
+            audit_sampled=(self.auditor.sampled_rows
+                           if self.auditor is not None else 0),
+            audit_mismatches=(self.auditor.mismatch_rows
+                              if self.auditor is not None else 0),
+            audit_err_upper=(self.auditor.err_upper()
+                             if self.auditor is not None else 1.0),
+            audit_pending=(self.auditor.pending
+                           if self.auditor is not None else 0),
+            slo_alerts=int(sum(
+                m.value for m in self.obs.registry.collect()
+                if m.name == "repro_slo_alerts_total")),
         )
 
 

@@ -13,9 +13,11 @@ replicating, because replicas multiply an imbalance instead of fixing it.
 Hysteresis comes from requiring ``sustain`` consecutive observations and a
 ``cooldown`` between actions.
 
-The reference's ``RecallGuardPolicy``, ``FleetPressurePolicy``,
-``apply_fleet`` and ``apply_guard`` need the SLO engine, the fleet and the
-tuner, and wait for them (ROADMAP.md Queue 1 items 6 and 8).
+``RecallGuardPolicy`` turns a burning recall SLO (``obs/slo.py``) into the
+correctness actions ``apply_guard`` executes on the handle: serve on
+build-time defaults, then flag a re-tune. The reference's
+``FleetPressurePolicy`` and ``apply_fleet`` wait for the fleet (ROADMAP.md
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -116,3 +118,49 @@ class QueueDepthPolicy(ScalePolicy):
                 "add_replicas", stats.replicas - 1,
                 f"idle {self.sustain} windows at {stats.replicas} replicas")
         return ScaleDecision(reason="steady")
+
+
+class RecallGuardPolicy(ScalePolicy):
+    """Correctness guard: consume the SLO engine's recall alerts
+    (DESIGN.md §10.3). A burning recall SLO means audited traffic is
+    violating the paper's 1-δ contract — overwhelmingly a suspect tuned
+    config (the build-time defaults are the conservative reference), so
+    the guard first recommends ``fallback_untuned`` (serve every query on
+    build defaults) and then ``retune`` (flag the tuned config for a
+    re-race). It never escalates past those two — a recall violation that
+    survives the fallback is a bug, not a capacity problem.
+
+    Stateless w.r.t. hysteresis on purpose: the burn-rate rules already
+    provide multi-window debouncing; duplicating it here would only slow
+    the response to served wrong answers."""
+
+    def __init__(self, sink, *, slo: str = "recall"):
+        self.sink = sink              # repro_torch.obs.slo.AlertSink
+        self.slo = slo
+
+    def recommend(self, stats: ServeStats) -> ScaleDecision:
+        burning = self.sink.active(self.slo)
+        if not burning:
+            return ScaleDecision(reason="recall SLO healthy")
+        worst = max(burning, key=lambda a: a.burn_long)
+        why = (f"recall SLO burning ({worst.rule}: "
+               f"{worst.burn_long:.1f}x of delta budget {worst.budget:g})")
+        if not stats.serving_fallback:
+            return ScaleDecision("fallback_untuned", 1, why)
+        if not stats.retune_requested:
+            return ScaleDecision("retune", 1, why + "; fallback active")
+        return ScaleDecision(
+            reason=why + "; fallback active, re-tune already flagged")
+
+
+def apply_guard(index, decision: ScaleDecision) -> bool:
+    """Execute a recall-guard decision on the live handle. Returns True
+    iff it acted. (``add_replicas``/``reshard`` stay with the caller —
+    those are capacity ops; these two are correctness ops.)"""
+    if decision.action == "fallback_untuned":
+        index.force_untuned(True)
+        return True
+    if decision.action == "retune":
+        index.request_retune(decision.reason)
+        return True
+    return False

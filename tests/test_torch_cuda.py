@@ -913,3 +913,97 @@ def test_dense_lm_on_the_card(gen):
         loss, _ = lm_loss(model, batch)
         plain, _ = lm_loss(model, batch, impl="ref")
     assert abs(float(loss) - float(plain)) <= 1e-3 * abs(float(plain))
+
+
+def test_tune_on_the_card_installs_and_round_trips(gen, tmp_path):
+    """``Index.tune()`` races real races on the card (its grid varies the
+    fused pull's ring of 2 and 4 buffers), installs the winner through the
+    epoch fence, and ``save`` → ``load`` applies it again; the tuned index
+    still returns the exact top-k."""
+    from repro_torch.tune import cache_clear
+    corpus, queries, truth = _small_truth(3)
+    cfg = BMOConfig(k=3, delta=0.01, block=64, batch_arms=16,
+                    pulls_per_round=2, metric="l2", rotate=True)
+    idx = Index.build(corpus, cfg)
+    cache_clear()
+    report = idx.tune(levels=2, max_candidates=4)
+    assert report["signature"]["backend"] == "cuda"
+    assert {m["cand"]["kernel_buffers"] for m in report["model"]} == {2, 4}
+    assert idx.epoch == 1 and idx.tuned is not None
+    assert idx.tuned.round_ms > 0 and idx.tuned.epoch_ms > 0
+    assert idx.cfg == idx.tuned.bind(cfg)
+    res = idx.query(queries, 1)
+    assert [set(r) for r in res.indices.tolist()] == truth
+    path = str(tmp_path / "idx")
+    idx.save(path)
+    cache_clear()
+    loaded = Index.load(path)
+    assert loaded.tuned == idx.tuned and loaded.cfg == idx.cfg
+    np.testing.assert_array_equal(loaded.query(queries, 1).indices,
+                                  res.indices)
+
+
+@pytest.mark.parametrize("rotate", [False, True], ids=["dense", "rotated"])
+def test_audit_oracle_on_the_card_decides_as_the_plain_version(gen, rotate):
+    """``check_topk`` on the card (one ``pairwise_dist`` of a ticket of 8
+    rows: split TF32 on the tensor cores) makes the plain version's
+    decisions on the same store, with wrong, dead and duplicate ids."""
+    from repro_torch.index.store import IndexStore
+    from repro_torch.obs import audit
+    corpus, queries = make_knn_benchmark_data("dense", 3000, 1100, 8, seed=0)
+    cfg = BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, rotate=rotate)
+    idx = Index.build(corpus, cfg)
+    idx.delete(np.arange(0, 3000, 7))
+    store = idx.store
+    cpu = IndexStore.from_arrays(
+        {k: v.cpu().numpy() for k, v in store.arrays().items()},
+        store.meta(), device="cpu")
+    ids, _ = audit.exact_topk(cpu, queries, 5)
+    served = ids.copy()
+    served[1, 1] = served[1, 0]
+    served[2, 0] = 7
+    served[3, 4] = 2999
+    served[4, 2] = -1
+    before = pairwise_dist_cuda.launches_tc
+    got = audit.check_topk(store, queries, served, 5)
+    assert pairwise_dist_cuda.launches_tc == before + 1
+    want = audit.check_topk(cpu, queries, served, 5)
+    np.testing.assert_array_equal(got.exact_ids, want.exact_ids)
+    np.testing.assert_array_equal(got.row_mismatch, want.row_mismatch)
+    np.testing.assert_array_equal(got.bad, want.bad)
+    assert got.row_mismatch.tolist()[:5] == [False, True, True, True, True]
+    # θ: the plain version's ℓ2 contract, 1e-4 relative plus
+    # 1e-6·(‖q‖² + ‖x‖²)/d (its norm expansion cancels)
+    qs = cpu.prepare_queries(queries).double()
+    norms = float((qs ** 2).sum(1).max() + (cpu.x.double() ** 2).sum(1).max())
+    np.testing.assert_allclose(got.exact_vals, want.exact_vals, rtol=1e-4,
+                               atol=1e-6 * norms / cpu.d)
+
+
+def test_audited_plane_on_the_card_runs_the_oracle_only_when_idle(gen,
+                                                                   monkeypatch):
+    from repro_torch.obs import audit
+    from repro_torch.serve import PlaneConfig, RequestPlane
+    corpus, queries, truth = _small_truth(3)
+    cfg = BMOConfig(k=3, delta=0.01, block=64, batch_arms=16, rotate=True)
+    idx = Index.build(corpus, cfg)
+    plane = RequestPlane(idx, PlaneConfig(audit_rate=1.0))
+    seen = []
+    real = audit.check_topk
+
+    def watched(*a, **kw):
+        seen.append((len(plane._groups),
+                     sum(map(len, plane._queues.values()))))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(audit, "check_topk", watched)
+    tickets = [plane.submit(queries[i:i + 1], rng=i, tenant=f"t{i}",
+                            cache="bypass") for i in range(len(queries))]
+    plane.drain()
+    assert seen == []
+    while plane.auditor.pending:
+        plane.step()
+    assert seen and set(seen) == {(0, 0)}
+    assert plane.stats.audit_sampled == len(queries)
+    assert plane.stats.audit_mismatches == 0
+    assert [set(t.result.indices[0].tolist()) for t in tickets] == truth

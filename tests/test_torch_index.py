@@ -376,8 +376,11 @@ def _imported_roots(path):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files[:-1]}
+    names = {str(p.relative_to(ROOT / "src" / "repro_torch")) for p in files}
+    tools = sorted((ROOT / "tools").glob("torch_*.py"))
+    assert {"torch_replay_audit.py", "torch_main_qps.py"} <= {
+        p.name for p in tools}
+    files += [ROOT / "chip_smoke.py", *tools]
     assert {"core/oracle.py", "core/bmo_nn.py", "core/ucb.py",
             "core/datasets.py", "index/batched_race.py",
             "kernels/block_pull.py", "kernels/pairwise_dist.py",
@@ -385,7 +388,11 @@ def test_port_imports_neither_jax_nor_the_reference():
             "index/mutable.py", "api/handle.py", "index/anytime.py",
             "api/stream.py", "api/cache.py", "api/spec.py", "serve/plane.py",
             "serve/scale.py", "obs/__init__.py", "obs/registry.py",
-            "obs/trace.py", "obs/profile.py", "utils/hostsync.py"} <= names
+            "obs/trace.py", "obs/profile.py", "utils/hostsync.py",
+            "tune/__init__.py", "tune/signature.py", "tune/candidates.py",
+            "tune/sidecar.py", "tune/seed.py", "tune/racer.py",
+            "tune/autotune.py", "obs/audit.py", "obs/slo.py",
+            "obs/export.py", "obs/health.py", "hardware.py"} <= names
     for path in files:
         bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro",
                                             "msgpack"}

@@ -510,17 +510,46 @@ def test_a_saved_sparse_index_loads_in_both_packages(tmp_path):
     np.testing.assert_array_equal(got.rounds.numpy(), np.asarray(want.rounds))
 
 
-def test_tuned_sidecar_is_logged_and_not_applied(tmp_path, caplog):
+def _saved_tuned_index(tmp_path):
+    """A small CPU index with a tuned config installed, saved with its
+    ``tuned.json``: (index, the tuned config, the build config, its path,
+    the queries)."""
+    from repro_torch.tune import TunedConfig, cache_clear
     corpus, queries = _data(64, 64, 2)
     idx = Index.build(corpus, _cfg(block=16), device="cpu")
+    build_cfg = idx.cfg
+    tuned = TunedConfig(epoch_rounds=2, pulls_per_round=1, batch_arms=4,
+                        mode="fused", round_ms=0.5)
+    idx._apply_tuned(tuned)
     path = str(tmp_path / "idx")
     idx.save(path)
-    with open(os.path.join(path, "tuned.json"), "w") as f:
-        f.write('{"config": {"batch_arms": 4, "epoch_rounds": 1}}')
-    with caplog.at_level(logging.WARNING, logger="repro_torch.api"):
-        loaded = Index.load(path, device="cpu")
-    assert any("tuned.json" in r.getMessage() and "not applied"
-               in r.getMessage() for r in caplog.records)
-    assert loaded.cfg == idx.cfg
+    cache_clear()
+    return idx, tuned, build_cfg, path, corpus, queries
+
+
+def test_tuned_sidecar_applies_when_its_signature_matches(tmp_path):
+    """A ``tuned.json`` whose signature matches the reloaded store is
+    applied: the loaded index serves the tuned config and answers as the
+    index that was saved."""
+    idx, tuned, build_cfg, path, _, queries = _saved_tuned_index(tmp_path)
+    loaded = Index.load(path, device="cpu")
+    assert loaded.tuned == tuned and loaded.cfg == tuned.bind(build_cfg)
     np.testing.assert_array_equal(loaded.query(queries, 1).indices,
                                   idx.query(queries, 1).indices)
+
+
+def test_tuned_sidecar_is_logged_and_not_applied(tmp_path, caplog):
+    """A drifted ``tuned.json`` (the sidecar of one store beside a store of
+    another scale bucket) is logged with its reason and not applied: the
+    index serves its build-time config."""
+    _, _, build_cfg, path, corpus, _ = _saved_tuned_index(tmp_path)
+    other = str(tmp_path / "other")
+    Index.build(corpus[:30], _cfg(block=16), device="cpu").save(other)
+    with open(os.path.join(path, "tuned.json")) as f, \
+            open(os.path.join(other, "tuned.json"), "w") as g:
+        g.write(f.read())
+    with caplog.at_level(logging.WARNING, logger="repro_torch.tune"):
+        drifted = Index.load(other, device="cpu")
+    assert any("tuned.json" in r.getMessage() and "signature drift"
+               in r.getMessage() for r in caplog.records)
+    assert drifted.tuned is None and drifted.cfg == build_cfg

@@ -328,12 +328,43 @@ def test_plane_config_validation_and_what_is_not_ported():
     with pytest.raises(ValueError, match="max_queue"):
         PlaneConfig(max_queue=0)
     idx, queries = _dense_index()
+    with pytest.raises(ValueError, match="audit_rate"):
+        PlaneConfig(audit_rate=1.5)
+    with pytest.raises(ValueError, match="audit_reservoir"):
+        PlaneConfig(audit_reservoir=0)
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         RequestPlane(idx, router=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        RequestPlane(idx, PlaneConfig(audit_rate=0.5))
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         RequestPlane(idx).submit(queries, namespace="users")
+
+
+def test_audited_plane_serves_what_an_unaudited_plane_serves():
+    """A plane with ``audit_rate=0.5`` answers every ticket as a plane
+    without the auditor does (sampling and the oracle change no answer);
+    its idle steps audit the sampled tickets, all clean."""
+    idx, queries = _dense_index()
+    results = []
+    for cfg in (PlaneConfig(), PlaneConfig(audit_rate=0.5, audit_seed=3)):
+        plane = RequestPlane(Index.open(idx.store), cfg)
+        tickets = [plane.submit(queries[i:i + 2], rng=i, tenant=f"t{i}",
+                                cache="bypass",
+                                **({"budget": EffortBudget(epochs=3)}
+                                   if i == 1 else {}))
+                   for i in range(3)]
+        plane.drain()
+        while plane.auditor is not None and plane.auditor.pending:
+            plane.step()                      # idle steps audit
+        results.append([(t.reason, t.result.indices.copy(),
+                         t.result.certified_count.copy()) for t in tickets])
+        if plane.auditor is not None:
+            s = plane.auditor.summary()
+            assert s["offered"] == 2 and s["skipped"]["uncertified"] == 1
+            assert plane.stats.audit_sampled == 2 * s["sampled_tickets"]
+            assert plane.stats.audit_mismatches == 0
+    for (r0, i0, c0), (r1, i1, c1) in zip(*results):
+        assert r0 == r1
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_array_equal(c0, c1)
 
 
 def test_deadline_overflow_reaches_non_head_tickets(clock):
