@@ -154,7 +154,19 @@ Run from the root of a checkout. In order it:
    forward split by call site (attention, MLP, norms, loss); then every
    layer's attention held against the plain version on its own inputs,
    and the whole forward of one sequence through the kernel and through
-   the plain version (see ``lm_forward_phase`` for what is held and why).
+   the plain version (see ``lm_forward_phase`` for what is held and why);
+7. serve: the same model served through ``serve.ServeEngine`` at full width
+   and depth: a 262,144-row datastore of its own final hidden states (16
+   cache-free forwards of 4 × 4,096 tokens through ``flash_attention``),
+   8 prompts of 1,024 tokens, 64 greedy tokens with the kNN-LM hook and
+   appends (every step's retrieval on ``fused_epoch_pull`` held to a
+   float64 brute force over the live rows, its vote to a plain recompute,
+   the appended rows and payload), 16 tokens without the hook against the
+   cache-free forward layer by layer and whole, and with the int8 cache;
+   ``fused_epoch_pull`` at the path's epoch shapes against its plain
+   version (see ``serve_phase``);
+8. serve_cli: ``python -m repro_torch.launch.serve`` at full width, called
+   through ``main`` (see ``serve_cli_phase``).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -168,6 +180,7 @@ import argparse
 import collections
 import contextlib
 import functools
+import gc
 import json
 import math
 import os
@@ -240,6 +253,32 @@ PLANE_SPARSE_FULL_EPOCHS = 2
 # rows of the store over which the audit's pairwise_dist launch is held to
 # its plain version and to float64, at full d_pad
 AUDIT_CHECK_ROWS = 16384
+# the serve phase (qwen2.5-14b at full width and depth): a datastore of the
+# model's final hidden states over SERVE_DS_STEPS batches of SERVE_DS_BATCH
+# × SERVE_DS_SEQ tokens (262,144 rows), SERVE_BATCH requests of
+# SERVE_PROMPT-token prompts, SERVE_KNN_TOKENS greedy tokens with the
+# kNN-LM hook and appends, SERVE_CHECK_TOKENS without it and with the int8
+# cache; the CLI's retrieval config; the float64 truth's rows a chunk
+SERVE_DS_BATCH = 4
+SERVE_DS_SEQ = 4096
+SERVE_DS_STEPS = 16
+SERVE_BATCH = 8
+SERVE_PROMPT = 1024
+SERVE_KNN_TOKENS = 64
+SERVE_CHECK_TOKENS = 16
+SERVE_CLI_TOKENS = 16
+SERVE_BMO = dict(k=8, delta=0.05, block=64, batch_arms=16)
+SERVE_TRUTH_CHUNK = 32768
+# the kNN run's serving config (a TunedConfig): every row of this datastore
+# ends in an exact evaluation, so each selected arm is pulled over all of
+# its d/block = 80 blocks in one epoch (R 40 × P 2) and 2,048 arms race an
+# epoch; the CLI's own config raced for SERVE_CLI_CAP_S seconds, reported
+SERVE_TUNED = dict(epoch_rounds=40, pulls_per_round=2, batch_arms=2048)
+SERVE_CLI_CAP_S = 10.0
+# the teacher-forced forward's top-two logit margin above which the cache
+# path's greedy token must be the forward's: four bf16 ulps of a logit
+# below 16
+SERVE_TOKEN_MARGIN = 0.25
 
 
 def emit(obj) -> None:
@@ -2849,12 +2888,28 @@ def call_site_breakdown(events):
     return sites
 
 
-def lm_forward_phase(seed: int) -> dict:
+def build_lm(seed: int) -> tuple:
     """qwen2.5-14b's ``CONFIG`` at full width and depth with attn_impl
     "pallas", its parameters drawn on the card from ``seed`` (bf16, norms
-    fp32): ``lm_loss`` forward under inference mode over LM_BATCH sequences
-    of LM_SEQ tokens drawn from ``seed`` over the whole vocabulary (labels:
-    the tokens shifted by one). Nothing is cut: the peak stays near 37 GB.
+    fp32): (the model, the seconds it took), shared by the lm_forward and
+    serve phases."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch(LM_ARCH).config, attn_impl="pallas")
+    t = time.perf_counter()
+    model = build_model(cfg, param_dtype=torch.bfloat16, device="cuda",
+                        rng=seed)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t
+
+
+def lm_forward_phase(model, init_s: float, seed: int) -> dict:
+    """qwen2.5-14b (``build_lm``): ``lm_loss`` forward under inference mode
+    over LM_BATCH sequences of LM_SEQ tokens drawn from ``seed`` over the
+    whole vocabulary (labels: the tokens shifted by one). Nothing is cut:
+    the peak stays near 37 GB.
 
     All 48 launches must take the tensor-core kernel. One traced forward
     carries record_function labels by call site (``call_site_labels``).
@@ -2872,25 +2927,18 @@ def lm_forward_phase(seed: int) -> dict:
     the spread of two decorrelated forwards (about 2e-3 over 4,096
     tokens). The loss of a random-init model is also checked to be finite
     and within 1 of ln(V) + 1/2."""
-    import dataclasses
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_arch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attn import flash_attention_cuda
-    from repro_torch.models import build_model
     from repro_torch.train.loss import cross_entropy, lm_loss
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH).config, attn_impl="pallas")
-    t = time.perf_counter()
-    model = build_model(cfg, param_dtype=torch.bfloat16, device="cuda",
-                        rng=seed)
-    torch.cuda.synchronize()
+    cfg = model.cfg
     out = {"phase": "lm_forward", "arch": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "n_kv_heads": cfg.n_kv_heads, "vocab": cfg.vocab_size,
            "seq_len": LM_SEQ, "seed": seed, "attn_impl": cfg.attn_impl,
-           "init_s": time.perf_counter() - t,
+           "init_s": init_s,
            "params": sum(p.numel() for p in model.parameters()),
            "param_gb": sum(p.numel() * p.element_size()
                            for p in model.parameters()) / 1e9}
@@ -3020,8 +3068,647 @@ def lm_forward_phase(seed: int) -> dict:
                              f"plain version differ by {gaps[0]} (L2)")
     if not fs["loss_rel_diff"] <= 1e-2:
         raise AssertionError(f"whole-forward loss: kernel {la}, plain {lb}")
-    del model
     torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def model_config(model, **changes):
+    """The model's config, and each attention module's, replaced by
+    ``changes`` while the context lasts (``kv_quant``, ``attn_impl``)."""
+    import dataclasses
+    saved = model.cfg
+    mods = [model] + [layer.attn for layer in model.layers]
+    for m in mods:
+        m.cfg = dataclasses.replace(saved, **changes)
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.cfg = saved
+
+
+def live_distances(store, queries):
+    """(float64 squared distances (Q, n_live), the live slot ids) of
+    ``queries`` against the store's live rows, in chunks of rows."""
+    import torch
+    live = torch.nonzero(store.alive).reshape(-1)
+    q = queries.to(torch.float64)
+    q2 = (q * q).sum(1)[:, None]
+    out = []
+    for s in range(0, live.shape[0], SERVE_TRUTH_CHUNK):
+        x = store.x[live[s:s + SERVE_TRUTH_CHUNK], :queries.shape[1]].to(
+            torch.float64)
+        out.append(q2 + (x * x).sum(1)[None] - 2.0 * (q @ x.T))
+    return torch.cat(out, 1), live
+
+
+def tie_recall(served, dist, live, k: int) -> tuple:
+    """(recall, rows below full recall) of the served (Q, k) slot ids: a
+    served slot is a hit when its float64 distance is within 1e-4 of the
+    k-th smallest, relatively (exact duplicates and near-ties at the
+    precision of an fp32 sum of d terms tie)."""
+    import torch
+    kth = torch.topk(dist, k, dim=1, largest=False).values[:, -1]
+    pos = torch.full((int(live.max()) + 1,), -1, dtype=torch.int64,
+                     device=dist.device)
+    pos[live] = torch.arange(live.shape[0], device=dist.device)
+    s = torch.as_tensor(served, dtype=torch.int64, device=dist.device)
+    if bool(((s < 0) | (s >= pos.shape[0])).any()) or \
+            bool((pos[s] < 0).any()):
+        raise AssertionError("serve: a served slot is not live")
+    if any(len(set(r)) < k for r in s.tolist()):
+        raise AssertionError("serve: a served row repeats a slot")
+    got = torch.gather(dist, 1, pos[s])
+    hits = (got <= kth[:, None] * (1 + 1e-4)).sum(1)
+    return float(hits.sum()) / s.numel(), int((hits < k).sum())
+
+
+def plain_vote(indices, values, payload, V: int, T: float, device):
+    """The kNN vote recomputed plainly in float64: each neighbour's weight
+    softmax(−value/T) added to its next token, log(p + 1e-9)."""
+    import numpy as np
+    import torch
+    vals = torch.as_tensor(np.asarray(values, np.float64), device=device)
+    w = torch.softmax(-vals / T, dim=1)
+    toks = torch.as_tensor(payload[np.asarray(indices)], dtype=torch.int64,
+                           device=device)
+    p = torch.zeros((toks.shape[0], V), dtype=torch.float64, device=device)
+    for j in range(toks.shape[1]):
+        p[torch.arange(toks.shape[0], device=device), toks[:, j]] += w[:, j]
+    return torch.log(p + 1e-9)
+
+
+def synced_timer(times: list, fn):
+    """``fn`` wrapped to append its synced wall seconds to ``times``."""
+    import torch
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        return out
+    return timed
+
+
+def serve_datastore(model, seed: int):
+    """The kNN-LM datastore of ``examples/knn_serve.py``'s flow at full
+    size: the model's cache-free forward (attn_impl "pallas": the
+    flash_attention kernel) over SERVE_DS_STEPS batches of ``lm_batch(V,
+    SERVE_DS_BATCH, SERVE_DS_SEQ)``, each position's final hidden state in
+    fp32 keyed to its next token. Returns (keys on the card, payload,
+    launches, seconds)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    cfg = model.cfg
+    rows = SERVE_DS_BATCH * SERVE_DS_SEQ
+    keys = torch.empty((SERVE_DS_STEPS * rows, cfg.d_model),
+                       device=model.device)
+    payload = np.empty((SERVE_DS_STEPS * rows,), np.int32)
+
+    def run():
+        with torch.inference_mode():
+            for s in range(SERVE_DS_STEPS):
+                b = lm_batch(cfg.vocab_size, SERVE_DS_BATCH, SERVE_DS_SEQ,
+                             seed=seed, step=s)
+                _, _, h = model({"tokens": torch.from_numpy(
+                    b["tokens"]).to(model.device)}, return_hidden=True)
+                keys[s * rows:(s + 1) * rows] = h.reshape(rows, -1)
+                payload[s * rows:(s + 1) * rows] = b["labels"].reshape(-1)
+                del h
+        torch.cuda.synchronize()
+
+    t = time.perf_counter()
+    _, launches = counted("serve datastore",
+                          {"flash_attention": flash_attention_cuda}, run)
+    return keys, payload, launches, time.perf_counter() - t
+
+
+def serve_lm_check(model, prompts) -> dict:
+    """The cache path without kNN against the cache-free forward, and the
+    int8 cache (see ``serve_phase``)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import common
+    from repro_torch.serve import ServeEngine
+    B, S0 = prompts.shape
+    n_new = SERVE_CHECK_TOKENS
+    max_seq = S0 + n_new + 8
+    out = {}
+    logits_seen = []
+    calls = [([], []) for _ in model.layers]     # each layer's (ins, outs)
+
+    def keep_logits(fn):
+        def inner(*args):
+            res = fn(*args)
+            logits_seen.append(res[0][:, -1].float())
+            return res
+        return inner
+
+    def keep_layer(i, module, args, result):
+        calls[i][0].append(args[0])
+        calls[i][1].append(result)
+
+    engine = ServeEngine(model, batch_size=B, max_seq=max_seq,
+                         device=model.device)
+    prefill_s, decode_s = [], []
+    engine.prefill_step = synced_timer(prefill_s,
+                                       keep_logits(engine.prefill_step))
+    engine.decode_step = synced_timer(decode_s,
+                                      keep_logits(engine.decode_step))
+    hooks = [layer.register_forward_hook(functools.partial(keep_layer, i))
+             for i, layer in enumerate(model.layers)]
+    try:
+        tokens, _ = engine.generate(prompts, n_new)
+    finally:
+        for h in hooks:
+            h.remove()
+    del engine
+    gc.collect()
+    got = torch.stack(logits_seen, 1)             # prefill + decode steps
+    toks = torch.from_numpy(tokens).to(got.device)
+    seq = torch.from_numpy(np.concatenate([prompts, tokens[:, :-1]], 1)
+                           ).to(device=model.device, dtype=torch.int64)
+    S = seq.shape[1]
+    positions = torch.arange(S, device=seq.device)[None].expand(B, S)
+    # one chunk of queries: prompt + new − 1 positions need not be a
+    # multiple of attn_chunk, and the chunks only partition the rows
+    def plain():
+        return model_config(model, attn_impl="auto", attn_chunk=S)
+
+    prefill_layer0 = calls[0][1][0]               # (B, S0, d)
+    # teacher-forced: each layer cache-free on the cache run's own inputs
+    layer_gaps, decode_gaps = [], []
+    with plain(), torch.inference_mode():
+        for i, layer in enumerate(model.layers):
+            x = torch.cat(calls[i][0], 1)
+            y = torch.cat(calls[i][1], 1).float()
+            want = layer(x, positions, torch.bfloat16, "auto").float()
+            layer_gaps.append(float((y - want).norm() / want.norm()))
+            decode_gaps.append(float((y[:, S0:] - want[:, S0:]).norm()
+                                     / want[:, S0:].norm()))
+            calls[i] = None
+            del x, y
+            if i < len(model.layers) - 1:
+                del want
+        h = common.rmsnorm(want, model.final_norm, model.cfg.norm_eps)
+        forced = model.embed.lm_head(h[:, S0 - 1:].to(torch.bfloat16)
+                                     ).float()
+        del want, h
+    top2 = torch.topk(forced, 2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    agree = toks == torch.argmax(forced, -1)
+    out["vs_cache_free_per_layer"] = {
+        "layer_rel_l2_max": max(layer_gaps),
+        "layer_rel_l2_decode_positions_max": max(decode_gaps),
+        "layer_rel_l2_by_layer": layer_gaps,
+        "logits_rel_l2": float((got - forced).norm() / forced.norm()),
+        "logits_max_abs_err": float((got - forced).abs().max()),
+        "greedy_agreement": float(agree.float().mean()),
+        "margin_bound": SERVE_TOKEN_MARGIN,
+        "positions_above_bound": int((margin > SERVE_TOKEN_MARGIN).sum()),
+        "disagreements_margin_max": float(margin[~agree].max())
+        if bool((~agree).any()) else None}
+    if max(layer_gaps + decode_gaps) > 1e-2:
+        raise AssertionError(f"serve: a layer of the cache path differs from "
+                             f"its cache-free run on the same inputs by "
+                             f"{max(layer_gaps + decode_gaps)} (L2)")
+    bad = (~agree) & (margin > SERVE_TOKEN_MARGIN)
+    if bool(bad.any()):
+        raise AssertionError(
+            f"serve: {int(bad.sum())} greedy tokens differ from the "
+            f"teacher-forced forward's where its top-two margin exceeds "
+            f"{SERVE_TOKEN_MARGIN}")
+    del calls, forced
+
+    # free-running: the whole cache-free forward over the same tokens
+    ref_layer0 = []
+    hook = model.layers[0].register_forward_hook(
+        lambda m, a, r: ref_layer0.append(r))
+    try:
+        with plain(), torch.inference_mode():
+            full, _ = model({"tokens": seq})
+    finally:
+        hook.remove()
+    want = full[:, S0 - 1:].float()               # (B, n_new, V)
+    del full
+    gaps = [float((got[:, t] - want[:, t]).norm() / want[:, t].norm())
+            for t in range(n_new)]
+    ref0 = ref_layer0[0][:, :S0].float()
+    l0 = float((prefill_layer0.float() - ref0).norm() / ref0.norm())
+    agree = toks == torch.argmax(want, -1)
+    out["vs_cache_free"] = {
+        "layer0_rel_l2": l0, "logits_rel_l2_by_step": gaps,
+        "logits_max_abs_err": float((got - want).abs().max()),
+        "greedy_agreement": float(agree.float().mean())}
+    del got, want, ref0, ref_layer0, prefill_layer0
+    if l0 > 1e-2:
+        raise AssertionError(f"serve: the prefill's layer-0 residual differs "
+                             f"from the cache-free forward's by {l0} (L2)")
+    out["prefill_tokens_per_s"] = B * S0 / prefill_s[0]
+    out["decode_ms_per_step"] = 1e3 * float(np.median(decode_s))
+    out["decode_tokens_per_s"] = B / float(np.median(decode_s))
+
+    # the int8 cache: every cached entry's round trip against its bf16 value
+    quantize = common.quantize_kv
+    worst = {"share_of_bound": 0.0, "calls": 0}
+
+    def checked(t):
+        q, s = quantize(t)
+        tf = t.float()
+        s32 = torch.clamp(tf.abs().amax(-1), min=0.0) / 127.0
+        s32 = torch.where(s32 > 0, s32, torch.ones_like(s32))
+        deq = common.dequantize_kv(q, s, t.dtype).float()
+        bound = (s32 / 2)[..., None] + q.float().abs() * (
+            s.float() - s32).abs()[..., None] + deq.abs() * 2.0 ** -8 \
+            + 2.0 ** -20 * (s32[..., None] + deq.abs())
+        share = float(((deq - tf).abs() / bound).max())
+        worst["share_of_bound"] = max(worst["share_of_bound"], share)
+        worst["calls"] += 1
+        return q, s
+
+    common.quantize_kv = checked
+    try:
+        with model_config(model, kv_quant=True):
+            engine = ServeEngine(model, batch_size=B, max_seq=max_seq,
+                                 device=model.device)
+            quant_tokens, _ = engine.generate(prompts, n_new)
+            del engine
+            gc.collect()
+    finally:
+        common.quantize_kv = quantize
+    out["kv_quant"] = {
+        "round_trip_share_of_bound": worst["share_of_bound"],
+        "quantize_calls": worst["calls"],
+        "token_agreement_with_bf16_cache": float(
+            (quant_tokens == tokens).mean())}
+    if worst["calls"] != model.cfg.n_layers * 2 * n_new or \
+            worst["share_of_bound"] > 1.0:
+        raise AssertionError(f"serve: int8 cache round trip {worst}")
+    out["tokens"] = tokens
+    return out
+
+
+def serve_pull_rows(store, qs, seed: int) -> list:
+    """``fused_epoch_pull`` at the serve path's epoch shapes, Q = 8 rows
+    of hidden states over the full-size store: the CLI's config (B 16, T
+    8) and the kNN run's (B 2,048, T 80), random live arms and blocks,
+    each held against the plain version at the kernel phase's tolerance
+    and timed beside its bound (its device time inside the path is the
+    traced retrieval's)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    g = torch.Generator(device=qs.device)
+    g.manual_seed(seed)
+    live = torch.nonzero(store.alive).reshape(-1).to(torch.int32)
+    block, nb = store.block, store.d_pad // store.block
+    rows = []
+    for name, B, T in (("cli", SERVE_BMO["batch_arms"], 8),
+                       ("served", SERVE_TUNED["batch_arms"],
+                        SERVE_TUNED["epoch_rounds"]
+                        * SERVE_TUNED["pulls_per_round"])):
+        arm = live[torch.randint(0, live.shape[0], (qs.shape[0], B),
+                                 generator=g, device=qs.device)]
+        blk = torch.randint(0, nb, (qs.shape[0], B, T), generator=g,
+                            device=qs.device, dtype=torch.int32)
+        run = lambda: fused_epoch_pull_cuda(store.x, qs, arm, blk,
+                                            block=block)
+        plain = lambda: ref.fused_epoch_pull_ref(store.x, qs, arm, blk,
+                                                 block)
+        row = {"kernel": "fused_epoch_pull", "case": f"serve_{name}",
+               "shape": {"Q": qs.shape[0], "B": B, "T": T, "block": block,
+                         "d_pad": store.d_pad, "n": store.capacity},
+               **compare(f"fused_epoch_pull serve {name}", run(), plain(),
+                         rtol=2e-4, atol=1e-5)}
+        row["ms"] = cuda_ms(run, reps=50, warmup=5)
+        row["plain_ms"] = cuda_ms(plain, reps=5, warmup=1)
+        row["bound_ms"], row["bound_by"] = pull_bound(store.x, arm, blk,
+                                                      block)
+        row["library_ms"] = None
+        rows.append(row)
+    return rows
+
+
+def serve_phase(model, seed: int) -> dict:
+    """qwen2.5-14b at full width and depth (``build_lm``) serving through
+    ``serve.ServeEngine`` with the kNN-LM hook. Nothing of the model, the
+    datastore or the traffic is cut:
+
+    * datastore: ``serve_datastore``, 262,144 rows × 5,120 (5.4 GB) from
+      ``--seed``; ``Index.build`` (the engine's) on the CLI's BMOConfig (k
+      8, δ 0.05, block 64, batch_arms 16, unrotated);
+    * traffic: SERVE_BATCH requests of ``lm_batch(V, 8, 1024,
+      step=SERVE_DS_STEPS)`` prompts, ``max_seq`` = prompt + new + 8 (the
+      CLI's), SERVE_KNN_TOKENS greedy tokens with ``index_append``.
+
+    Held: each step's served top-k against a float64 brute force over the
+    rows live at that step (``tie_recall``) at recall ≥ 0.99 over all
+    steps; each step's vote against ``plain_vote`` at rtol = atol = 1e-6;
+    the appended rows equal to the steps' hidden states and their payload
+    to the generated tokens; ``fused_epoch_pull`` launched on the path (the
+    ``counted`` wrapper) and no other kernel of the table; the run without
+    kNN and the int8 cache (``serve_lm_check``): the prefill's layer-0
+    residual within 1e-2 relative (L2) of the cache-free forward's (plain
+    ``sdpa``, as the cache path), greedy tokens equal to that forward's
+    wherever its top-two margin exceeds SERVE_TOKEN_MARGIN, every int8
+    cache entry's round trip within s/2 of its bf16 value plus what the
+    scale's rounding to bf16 (|q|·|s_bf16 − s|) and the bf16 output (half
+    an ulp, 2⁻⁸ of it) add, and 2⁻²⁰ of slack for the fp32 steps.
+
+    The retrieval serves a ``TunedConfig`` (SERVE_TUNED) installed
+    through the tuner's in-process cache: on this datastore every row ends
+    in an exact evaluation (its random-init hidden states are nearly
+    isotropic), and the CLI's config (B 16, T 8) takes some 160,000
+    epochs a step to get there; its race on the first step's rows is run
+    for SERVE_CLI_CAP_S seconds and reported (epochs, coordinate ops, the
+    projected seconds to certify)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import BMOConfig
+    from repro_torch.data.synthetic import lm_batch
+    from repro_torch.kernels.block_pull import (block_pull_cuda,
+                                                block_pull_multi_cuda)
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.serve import KNNLMConfig, ServeEngine
+    from repro_torch.tune import (TunedConfig, cache_clear, cache_put,
+                                  signature_of)
+    from repro_torch.utils import hostsync
+
+    cfg, dev = model.cfg, model.device
+    V, d, k = cfg.vocab_size, cfg.d_model, SERVE_BMO["k"]
+    torch.cuda.reset_peak_memory_stats()
+    out = {"phase": "serve", "arch": cfg.name, "seed": seed,
+           "datastore_rows": SERVE_DS_STEPS * SERVE_DS_BATCH * SERVE_DS_SEQ,
+           "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+           "knn_tokens": SERVE_KNN_TOKENS, "bmo": SERVE_BMO,
+           "serving_tuned": SERVE_TUNED}
+    t_phase = time.perf_counter()
+    keys, payload, ds_launches, out["datastore_forward_s"] = \
+        serve_datastore(model, seed)
+    norms = keys.norm(dim=1)
+    out["key_norm_range"] = [float(norms.min()), float(norms.max())]
+    if not bool(torch.isfinite(norms).all()):
+        raise AssertionError("serve: non-finite datastore keys")
+    prompts = lm_batch(V, SERVE_BATCH, SERVE_PROMPT, seed=seed,
+                       step=SERVE_DS_STEPS)["tokens"]
+
+    out["lm"] = serve_lm_check(model, prompts)
+    first_tokens = out["lm"].pop("tokens")
+
+    max_seq = SERVE_PROMPT + SERVE_KNN_TOKENS + 8
+    knn = KNNLMConfig(lam=0.2, bmo=BMOConfig(**SERVE_BMO))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    engine = ServeEngine(model, batch_size=SERVE_BATCH, max_seq=max_seq,
+                         knn_lm=knn, datastore=(keys, payload),
+                         index_append=True, device=dev)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t
+    del keys
+    n0 = engine.index.n_live
+
+    # the CLI's config on the first decode step's rows, capped
+    seq = torch.from_numpy(np.concatenate(
+        [prompts, first_tokens[:, :1]], 1)).to(dev)
+    with torch.inference_mode():
+        _, _, h = model({"tokens": seq}, return_hidden=True)
+    first_rows = h[:, -1].float().contiguous()
+    del h
+    sess = engine.index.race(first_rows, seed)
+    t = time.perf_counter()
+    epochs = 0
+    while not sess.done.all() and time.perf_counter() - t < SERVE_CLI_CAP_S:
+        sess.step()
+        epochs += 1
+    cap_s = time.perf_counter() - t
+    snap = sess.snapshot
+    capped = {"cfg": "CLI (R 4, P 2, B 16)", "seconds": cap_s,
+              "epochs": epochs, "ms_per_epoch": 1e3 * cap_s / max(epochs, 1),
+              "certified": snap.acc_count.tolist(),
+              "coord_ops_share_of_nd": float(np.mean(snap.coord_ops))
+              / (n0 * d),
+              "n_exact_mean": float(np.mean(snap.n_exact))}
+    del sess, snap
+
+    cache_clear()
+    cache_put(signature_of(engine.index.store),
+              TunedConfig(**SERVE_TUNED, mode="fused"))
+    report = engine.index.tune()
+    if not report.get("cached") or engine.index.cfg.batch_arms != \
+            SERVE_TUNED["batch_arms"]:
+        raise AssertionError(f"serve: the serving config was not installed: "
+                             f"{report}")
+    out["pull_rows"] = serve_pull_rows(engine.index.store, first_rows, seed)
+    del first_rows
+
+    # the kNN run: every step timed, its retrieval held and its vote redone
+    per_step = {"lm_s": [], "retrieval_s": [], "append_s": [],
+                "syncs": [], "epochs": [], "recall": [], "vote_err": []}
+    record = {"hidden": [], "res": None}
+    below = 0
+    query = engine.plane.query
+    knn_logits = engine._knn_logits
+
+    def checked_query(hidden, **kw):
+        nonlocal below
+        store = engine.index.store
+        dist, live = live_distances(store, hidden)
+        record["hidden"].append(hidden.clone())
+        syncs, launches = hostsync.syncs(), fused_epoch_pull_cuda.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = query(hidden, **kw)
+        per_step["retrieval_s"].append(time.perf_counter() - t)
+        per_step["syncs"].append(hostsync.syncs() - syncs)
+        per_step["epochs"].append(fused_epoch_pull_cuda.launches - launches)
+        rec, rows_below = tie_recall(res.indices, dist, live, k)
+        per_step["recall"].append(rec)
+        below += rows_below
+        record["res"] = res
+        return res
+
+    def checked_vote(hidden, rng):
+        logits, ops = knn_logits(hidden, rng)
+        res = record["res"]
+        want = plain_vote(res.indices, res.values, engine.index.payload, V,
+                          knn.temperature, logits.device)
+        err = (logits.double() - want).abs()
+        per_step["vote_err"].append(float(err.max()))
+        if not bool((err <= 1e-6 + 1e-6 * want.abs()).all()):
+            raise AssertionError(f"serve: the vote differs from its plain "
+                                 f"recompute by {float(err.max())}")
+        return logits, ops
+
+    engine.plane.query = checked_query
+    engine._knn_logits = checked_vote
+    engine.decode_step = synced_timer(per_step["lm_s"], engine.decode_step)
+    engine._append_to_index = synced_timer(per_step["append_s"],
+                                           engine._append_to_index)
+    prefill_s = []
+    engine.prefill_step = synced_timer(prefill_s, engine.prefill_step)
+    others = {"fwht": fwht_cuda, "block_pull": block_pull_cuda,
+              "block_pull_multi": block_pull_multi_cuda,
+              "pairwise_dist": pairwise_dist_cuda,
+              "flash_attention": flash_attention_cuda}
+    for w in others.values():
+        w.launches = 0
+    t = time.perf_counter()
+    (tokens, ops), launches = counted(
+        "serve", {"fused_epoch_pull": fused_epoch_pull_cuda},
+        lambda: engine.generate(prompts, SERVE_KNN_TOKENS, rng=seed))
+    wall = time.perf_counter() - t
+    stray = {name: w.launches for name, w in others.items() if w.launches}
+    if stray:
+        raise AssertionError(f"serve: the kNN run launched {stray}")
+    launches["flash_attention"] = ds_launches["flash_attention"]
+
+    n_steps = SERVE_KNN_TOKENS - 1
+    if len(per_step["recall"]) != n_steps:
+        raise AssertionError(f"serve: {len(per_step['recall'])} retrievals "
+                             f"for {n_steps} decode steps")
+    recall = float(np.mean(per_step["recall"]))
+    if recall < 0.99:
+        raise AssertionError(f"serve: recall {recall} < 0.99")
+    if tokens.shape != (SERVE_BATCH, SERVE_KNN_TOKENS) or \
+            not ((tokens >= 0) & (tokens < V)).all():
+        raise AssertionError("serve: malformed tokens")
+    idx = engine.index
+    new = np.arange(n0, n0 + n_steps * SERVE_BATCH)
+    new_t = torch.from_numpy(new).to(dev)
+    if not bool(idx.store.alive[new_t].all()) or \
+            idx.n_live != n0 + new.size:
+        raise AssertionError("serve: the appended rows are not the live "
+                             "slots after the datastore's")
+    if not np.array_equal(idx.payload[new], tokens[:, 1:].T.reshape(-1)):
+        raise AssertionError("serve: the appended payload is not the "
+                             "generated tokens")
+    hidden = torch.cat(record["hidden"])
+    if not torch.equal(idx.store.x[new_t, :d], hidden):
+        raise AssertionError("serve: the appended rows are not the steps' "
+                             "hidden states")
+
+    lm_s, ret_s, app_s = (float(np.sum(per_step[key]))
+                          for key in ("lm_s", "retrieval_s", "append_s"))
+    coord_per_row = ops / (n_steps * SERVE_BATCH)
+    capped["projected_s_to_certify"] = (
+        cap_s * coord_per_row / (n0 * d)
+        / max(capped["coord_ops_share_of_nd"], 1e-12))
+    out.update({
+        "launches": launches, "retrieval_cli_config_capped": capped,
+        "knn_run": {
+            "wall_s": wall, "prefill_s": prefill_s[0],
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+            / prefill_s[0],
+            "step_ms": 1e3 * (lm_s + ret_s + app_s) / n_steps,
+            "lm_ms_per_step": 1e3 * lm_s / n_steps,
+            "retrieval_ms_per_step": 1e3 * ret_s / n_steps,
+            "append_ms_per_step": 1e3 * app_s / n_steps,
+            "retrieval_ms_per_step_max": 1e3 * max(per_step["retrieval_s"]),
+            "retrieval_rows_per_s": n_steps * SERVE_BATCH / ret_s,
+            "epochs_per_step": float(np.mean(per_step["epochs"])),
+            "host_syncs_per_step": float(np.mean(per_step["syncs"])),
+            "coord_ops_per_row_share_of_nd": coord_per_row / (n0 * d),
+            "recall": recall, "rows_below_full_recall": below,
+            "vote_max_abs_err": max(per_step["vote_err"]),
+            "appended_rows": int(new.size),
+            "capacity_after": idx.capacity,
+            "stats": {key: v for key, v in engine.stats.as_dict().items()
+                      if key in ("races", "raced_queries", "cache_hits",
+                                 "near_hits", "compactions",
+                                 "plane_epochs")}},
+        "decode_floor_ms": sum(p.numel() * p.element_size()
+                               for p in model.parameters())
+        / HBM_BYTES_PER_S * 1e3,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    # one more retrieval of the last step's rows, traced, on the same
+    # serving config (the blocking fused driver the sessions share)
+    rows = record["hidden"][-1]
+    wall_ms, kernels = profiled(
+        lambda: idx.query(rows, seed, cache="bypass"))
+    busy = sum(r["device_ms"] for r in kernels)
+    out["traced_retrieval"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "top": kernels[:8]}
+    # the wrappers above close over the engine: drop every reference and
+    # collect the cycle, so that its store and cache leave the card
+    del engine, idx, hidden, record, rows, query, knn_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def serve_cli_phase() -> dict:
+    """``python -m repro_torch.launch.serve`` at full width (its own
+    qwen2.5-14b, bf16 from seed 0, and its 2,048-row random datastore),
+    called in the process through ``main``: SERVE_BATCH × 1,024-token
+    prompts, SERVE_CLI_TOKENS new tokens, the index built into and saved
+    to a fresh directory, appends, a δ-audit of every certified ticket, the
+    SLOs and a health dump. It must finish, log "0/N audited rows
+    mismatched" and both SLOs "ok", and write the health document."""
+    import logging
+    import re
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    health = os.path.join(root, "health.json")
+    argv = ["--arch", LM_ARCH, "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--new-tokens",
+            str(SERVE_CLI_TOKENS), "--knn-lm", "--index-dir",
+            os.path.join(root, "idx"), "--index-append", "--audit-rate",
+            "1.0", "--slo", "--health-dump", health]
+    logger = logging.getLogger("repro_torch.serve")
+    handler = Keep()
+    logger.addHandler(handler)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    try:
+        run = serve.main(argv)
+        with open(health) as f:
+            doc = json.load(f)
+    finally:
+        logger.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t
+    audit = [m for m in lines if "audited rows mismatched" in m]
+    slos = [m for m in lines if m.startswith("SLO ")]
+    found = re.search(r"(\d+)/(\d+) audited rows mismatched",
+                      audit[0]) if audit else None
+    out = {"phase": "serve_cli", "argv": argv, "seconds": seconds,
+           "generate_s": run["seconds"],
+           "tokens_per_s": run["tokens"].size / run["seconds"],
+           "retrieval_ops": run["retrieval_ops"], "audit_line": audit,
+           "slo_lines": slos, "health_keys": sorted(doc),
+           "audit_skipped": run["audit"]["skipped"] if run["audit"] else None,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    tokens = run["tokens"]
+    if tokens.shape != (SERVE_BATCH, SERVE_CLI_TOKENS) or \
+            not np.isfinite(run["retrieval_ops"]) or \
+            run["retrieval_ops"] <= 0:
+        raise AssertionError(f"serve_cli: malformed run {out}")
+    if found is None or found.group(1) != "0":
+        raise AssertionError(f"serve_cli: audit line {audit}")
+    if len(slos) != 2 or not all(m.endswith(" ok") for m in slos):
+        raise AssertionError(f"serve_cli: SLO lines {slos}")
     return out
 
 
@@ -3079,7 +3766,7 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
-     ("main_path", "tune", "plane", "mutation")),
+     ("main_path", "tune", "plane", "mutation", "serve")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
      ("main_path", "tune", "plane", "mutation")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
@@ -3090,7 +3777,7 @@ KERNELS = (
      "src/repro/kernels/pairwise_dist.py:41",
      ("oracle", "plane", "paper", "sparse")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
-     "src/repro/kernels/flash_attn.py:69", ("lm_forward",)),
+     "src/repro/kernels/flash_attn.py:69", ("lm_forward", "serve")),
 )
 # the other variant of a kernel with two: flash_attention's on the CUDA
 # cores (fp32, and bf16 at other head widths), which the LM path does not
@@ -3198,10 +3885,18 @@ def main() -> int:
     report["sparse"] = sparse_phase(args.seed, args.sparse_queries)
     emit(report["sparse"])
     torch.cuda.empty_cache()
-    report["lm_forward"] = lm_forward_phase(args.seed)
+    model, init_s = build_lm(args.seed)
+    report["lm_forward"] = lm_forward_phase(model, init_s, args.seed)
     emit({k: v for k, v in report["lm_forward"].items()
           if k not in ("traced", "layer_checks")})
     emit({"phase": "lm_forward_traced", **report["lm_forward"]["traced"]})
+    report["serve"] = serve_phase(model, args.seed)
+    emit(report["serve"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["serve_cli"] = serve_cli_phase()
+    emit(report["serve_cli"])
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -1,4 +1,7 @@
-"""Synthetic k-NN corpora matched to the paper's two datasets (§V): a
+"""Synthetic data. LM side: deterministic Zipf-ish token streams keyed by
+(seed, step, shard), the reference's ``lm_batch`` in numpy, bit for bit.
+
+kNN side: corpora matched to the paper's two datasets (§V): a
 Tiny-ImageNet-like clustered heavy-tail mixture (dense) and a
 10x-Genomics-like corpus, ~7% nonzero with exponential magnitudes on
 cluster-structured supports (sparse).
@@ -12,12 +15,26 @@ the sparse corpus comes as a ``SparseDataset``, never as a dense array.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.datasets import SparseDataset, place_rows
+
+
+def lm_batch(vocab: int, batch: int, seq: int, *, seed: int, step: int,
+             shard: int = 0, n_shards: int = 1) -> Dict[str, np.ndarray]:
+    """Deterministic (tokens, labels) int32 batch; labels are the tokens
+    shifted by one. A Zipf(1.3) marginal folded onto the vocabulary, with
+    each position repeating the one before it with probability 0.3."""
+    rng = np.random.default_rng(
+        np.random.SeedSequence([seed, step, shard, n_shards]))
+    ranks = rng.zipf(1.3, size=(batch, seq + 1)) % vocab
+    rep = rng.random((batch, seq + 1)) < 0.3
+    ranks[:, 1:][rep[:, 1:]] = ranks[:, :-1][rep[:, 1:]]
+    toks = ranks.astype(np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
 
 def clustered_dense(n: int, d: int, *, n_clusters: int = 64,

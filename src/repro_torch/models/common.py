@@ -1,5 +1,6 @@
-"""Shared model layers: norms, RoPE, GQA attention (cache-free), MLP
-flavours, embedding and LM head — the port of ``repro/models/common.py``.
+"""Shared model layers: norms, RoPE, GQA attention with its KV-cache
+branches, MLP flavours, embedding and LM head — the port of
+``repro/models/common.py``.
 
 Parameters keep the reference's layouts (``wq`` (d, h, hd), ``wo`` (h, hd,
 d), ``wi_gate`` (d, f), …) and its initialisation rule (``init_leaf``), so a
@@ -10,14 +11,15 @@ compute dtype with its weights cast to it; softmax and norms run in fp32 and
 cast back; the residual stream stays in the compute dtype (the reference's
 module docstring says fp32, its code does not).
 
-Not ported yet (see ROADMAP.md): the KV-cache and ``kv_quant`` branches of
-``gqa_attention`` with ``quantize_kv`` / ``dequantize_kv``, its
-bidirectional and non-RoPE uses, ``apply_mrope`` (VLM), ``layernorm`` and
+Not ported yet (see ROADMAP.md): ``gqa_attention``'s bidirectional and
+non-RoPE uses, ``apply_mrope`` (VLM), ``layernorm`` and
 ``sinusoidal_embedding`` (audio).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -103,10 +105,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _sdpa(q, k, v, *, causal: bool, q_offset: int):
+def _mask(Sq: int, kv_pos: torch.Tensor, *, causal: bool, q_offset: int,
+          kv_valid_len: Optional[int]) -> Optional[torch.Tensor]:
+    """(Sq, len(kv_pos)) True where a query may read a key: at or before its
+    own position (causal) and below ``kv_valid_len``. None: no mask."""
+    mask = None
+    if causal:
+        q_pos = torch.arange(Sq, device=kv_pos.device) + q_offset
+        mask = kv_pos[None, :] <= q_pos[:, None]
+    if kv_valid_len is not None:
+        valid = (kv_pos < kv_valid_len)[None, :]
+        mask = valid if mask is None else mask & valid
+    return mask
+
+
+def _sdpa(q, k, v, *, causal: bool, q_offset: int, kv_valid_len=None):
     """q (B,Sq,H,D), k/v (B,Sk,KV,D) -> (B,Sq,H,D). fp32 scores and softmax;
     the probabilities are cast to q's type before the product with v.
-    ``q_offset``: absolute position of q[0] for the causal mask."""
+    ``q_offset``: absolute position of q[0] for the causal mask.
+    ``kv_valid_len``: keys at or past this position are masked out (a KV
+    cache's unwritten tail)."""
     B, Sq, H, D = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -114,10 +132,9 @@ def _sdpa(q, k, v, *, causal: bool, q_offset: int):
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.to(torch.float32),
                           k.to(torch.float32))
     scores = scores / math.sqrt(D)
-    if causal:
-        Sk = k.shape[1]
-        q_pos = torch.arange(Sq, device=q.device) + q_offset
-        mask = torch.arange(Sk, device=q.device)[None, :] <= q_pos[:, None]
+    mask = _mask(Sq, torch.arange(k.shape[1], device=q.device),
+                 causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+    if mask is not None:
         scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
@@ -129,7 +146,7 @@ FLASH_THRESHOLD = 2048
 KV_CHUNK = 1024
 
 
-def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int):
+def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int, kv_valid_len=None):
     """Online-softmax (flash-style) attention over KV chunks, carrying
     (running max, normaliser, accumulator) in fp32; the (Sq, Sk) score matrix
     is never materialised. Each chunk's probabilities are cast to q's type
@@ -140,7 +157,6 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int):
     Dv = v.shape[-1]
     kv_chunk = KV_CHUNK if Sk % KV_CHUNK == 0 else Sk
     qg = q.reshape(B, Sq, KV, G, D).to(torch.float32)
-    q_pos = torch.arange(Sq, device=q.device) + q_offset
     m = torch.full((B, KV, G, Sq), -math.inf, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
@@ -150,9 +166,11 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int):
         vc = v[:, start:start + kv_chunk]
         s = torch.einsum("bqkgd,bskd->bkgqs", qg,
                          kc.to(torch.float32)) / math.sqrt(D)
-        if causal:
-            kv_pos = torch.arange(kv_chunk, device=q.device) + start
-            s = torch.where(kv_pos[None, :] <= q_pos[:, None], s, -1e30)
+        mask = _mask(Sq, torch.arange(kv_chunk, device=q.device) + start,
+                     causal=causal, q_offset=q_offset,
+                     kv_valid_len=kv_valid_len)
+        if mask is not None:
+            s = torch.where(mask, s, -1e30)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         scale = torch.exp(m - m_new)
@@ -164,18 +182,22 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
 
 
-def sdpa(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 0):
+def sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
+         kv_valid_len: Optional[int] = None, chunk: int = 0):
     """Scaled dot-product attention, the plain path of ``attn_impl`` "auto"
-    and "xla". More than FLASH_THRESHOLD keys take the online softmax over
-    KV chunks; ``chunk`` > 0 below Sq splits the queries into chunks of that
-    size, each with its own causal offset."""
+    and "xla" and of both KV-cache branches. More than FLASH_THRESHOLD keys
+    take the online softmax over KV chunks, unless there are at most 8
+    queries (a decode step); ``chunk`` > 0 below Sq splits the queries into
+    chunks of that size, each with its own causal offset."""
     Sq, Sk = q.shape[1], k.shape[1]
     use_flash = Sk > FLASH_THRESHOLD and Sq > 8
 
     def one(qc, off):
         if use_flash:
-            return _sdpa_flash(qc, k, v, causal=causal, q_offset=off)
-        return _sdpa(qc, k, v, causal=causal, q_offset=off)
+            return _sdpa_flash(qc, k, v, causal=causal, q_offset=off,
+                               kv_valid_len=kv_valid_len)
+        return _sdpa(qc, k, v, causal=causal, q_offset=off,
+                     kv_valid_len=kv_valid_len)
 
     if chunk <= 0 or Sq <= chunk:
         return one(q, q_offset)
@@ -185,11 +207,30 @@ def sdpa(q, k, v, *, causal: bool, q_offset: int = 0, chunk: int = 0):
                       for s in range(0, Sq, chunk)], dim=1)
 
 
+def quantize_kv(t: torch.Tensor):
+    """(B, S, H, D) → (int8 values, (B, S, H) bf16 scales): each (token,
+    head) row scaled by amax/127 in fp32 (1 where the row is all zeros),
+    rounded half to even and clipped to ±127."""
+    tf = t.to(torch.float32)
+    amax = torch.amax(torch.abs(tf), dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, 1.0)
+    q = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32)
+            * scale.to(torch.float32)[..., None]).to(dtype)
+
+
 class GQAAttention(nn.Module):
-    """Causal grouped-query attention with RoPE, the cache-free branches of
-    the reference's ``gqa_attention``: ``attn_impl="pallas"`` goes through
+    """Causal grouped-query attention with RoPE, the reference's
+    ``gqa_attention``. Without a cache, ``attn_impl="pallas"`` goes through
     the fused flash-attention op (``ops.flash_attention``, the CUDA kernel
-    on the card), "auto" and "xla" through the plain ``sdpa``."""
+    on the card), "auto" and "xla" through the plain ``sdpa``. With a cache
+    (bf16, or int8 with bf16 scales under ``kv_quant``), the new keys and
+    values are written into it and every ``attn_impl`` reads it through the
+    plain ``sdpa``, as the reference's cache branches do."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
@@ -229,25 +270,50 @@ class GQAAttention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
-                compute_dtype=torch.bfloat16,
-                impl: str = "auto") -> torch.Tensor:
-        """x (B, S, d) → (B, S, d) in x's type. ``impl`` picks the fused
-        op's implementation ("auto" | "cuda" | "ref", as ``kernels.ops``)."""
+                compute_dtype=torch.bfloat16, impl: str = "auto",
+                cache_kv=None, cache_index: int = 0):
+        """x (B, S, d) → (out (B, S, d) in x's type, new_kv). ``impl`` picks
+        the fused op's implementation ("auto" | "cuda" | "ref", as
+        ``kernels.ops``). ``cache_kv``: this layer's cache entries, (k, v)
+        of shape (B, max_seq, KV, hd), or ((k_q, k_s), (v_q, v_s)) under
+        ``kv_quant``; the S new positions are written into them in place at
+        ``[cache_index : cache_index + S]`` (a host int), keys from there on
+        are masked, and new_kv is the updated entries (None without a
+        cache)."""
         cfg = self.cfg
         B, S, d = x.shape
         q, k, v = self.qkv(x, positions, compute_dtype)
-        if cfg.attn_impl == "pallas":
+        chunk = cfg.attn_chunk if S > cfg.attn_chunk else 0
+        new_kv = None
+        if cache_kv is not None:
+            end = cache_index + S
+            if cfg.kv_quant:
+                (ckq, cks), (cvq, cvs) = cache_kv
+                for cq, cs, t in ((ckq, cks, k), (cvq, cvs, v)):
+                    tq, ts = quantize_kv(t)
+                    cq[:, cache_index:end] = tq
+                    cs[:, cache_index:end] = ts
+                ck = dequantize_kv(ckq, cks, compute_dtype)
+                cv = dequantize_kv(cvq, cvs, compute_dtype)
+            else:
+                ck, cv = cache_kv
+                ck[:, cache_index:end] = k.to(ck.dtype)
+                cv[:, cache_index:end] = v.to(cv.dtype)
+            new_kv = cache_kv
+            out = sdpa(q, ck.to(compute_dtype), cv.to(compute_dtype),
+                       causal=True, q_offset=cache_index, kv_valid_len=end,
+                       chunk=chunk)
+        elif cfg.attn_impl == "pallas":
             # the fused kernel reads the KV heads unrepeated: query head h
             # reads KV head h // G, as the reference's jnp.repeat arranges
             out = ops.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 causal=True, q_offset=0, impl=impl).transpose(1, 2)
         else:
-            out = sdpa(q, k, v, causal=True, q_offset=0,
-                       chunk=cfg.attn_chunk if S > cfg.attn_chunk else 0)
+            out = sdpa(q, k, v, causal=True, q_offset=0, chunk=chunk)
         proj_out = out.to(compute_dtype).reshape(B, S, -1) @ \
             self.wo.to(compute_dtype).reshape(-1, d)
-        return proj_out.to(x.dtype)
+        return proj_out.to(x.dtype), new_kv
 
 
 # ---------------------------------------------------------------------------

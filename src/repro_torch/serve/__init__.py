@@ -1,9 +1,14 @@
-"""repro_torch.serve — the request plane over the port's index and its
-autoscaling hints. The LM serving engine waits for the KV cache (ROADMAP.md
-Queue 1 item 4)."""
+"""repro_torch.serve — the serving steps (prefill, decode, the KV cache),
+the kNN-LM ``ServeEngine``, the request plane over the port's index and its
+autoscaling hints."""
+from repro_torch.serve.engine import KNNLMConfig, ServeEngine
 from repro_torch.serve.plane import PlaneConfig, RequestPlane
 from repro_torch.serve.scale import (QueueDepthPolicy, RecallGuardPolicy,
                                      ScaleDecision, ScalePolicy, apply_guard)
+from repro_torch.serve.steps import (init_cache, make_decode_step,
+                                     make_prefill_step)
 
-__all__ = ["PlaneConfig", "QueueDepthPolicy", "RecallGuardPolicy",
-           "RequestPlane", "ScaleDecision", "ScalePolicy", "apply_guard"]
+__all__ = ["KNNLMConfig", "PlaneConfig", "QueueDepthPolicy",
+           "RecallGuardPolicy", "RequestPlane", "ScaleDecision",
+           "ScalePolicy", "ServeEngine", "apply_guard", "init_cache",
+           "make_decode_step", "make_prefill_step"]

@@ -1,0 +1,249 @@
+"""Batched serving engine with the BMO-NN retrieval hook (kNN-LM
+interpolation: the paper's technique at serving time), the port of
+``repro/serve/engine.py``.
+
+A small engine (static batch of decode slots, greedy decoding): prefill,
+then each decode step's final hidden states are a k-NN query against a
+datastore of (hidden, next-token) pairs, and the neighbours' distance-
+weighted vote is interpolated into the LM's distribution.
+
+Retrieval goes through one ``repro_torch.api.Index`` handle, built at
+construction or passed in built or loaded; the next-token payload rides the
+handle. The engine owns a request plane (``serve.plane.RequestPlane``) over
+that handle, or takes one passed in: each step's retrieval is the plane's
+blocking ``query`` shim under the reserved tenant ``"__engine__"``, so
+external tickets on ``engine.plane`` share its scheduler and query cache.
+With ``index_append=True`` each step's (hidden, next-token) pairs are
+inserted back into the index, and the handle's ``CompactionPolicy``
+amortises the tombstone debt.
+
+The model is an ``nn.Module`` holding its weights (no parameter tree, no
+mesh); the engine runs on one device. Not ported yet: a sharded index
+(``index_shards > 1``, ROADMAP.md Queue 1 item 7) and a fleet's plane
+(``plane_namespace``, item 8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api import (CachePolicy, CompactionPolicy, Index, QueryCache,
+                             ServeStats)
+from repro_torch.api.handle import _sharded_not_ported
+from repro_torch.configs.base import BMOConfig, ParallelPlan
+from repro_torch.device import resolve_device
+from repro_torch.serve.plane import PlaneConfig, RequestPlane
+from repro_torch.serve.steps import (COMPUTE_DTYPE, init_cache,
+                                     make_prefill_step)
+
+__all__ = ["KNNLMConfig", "QueryCache", "ServeEngine"]
+
+# the decode loop's tenant on the plane: external backpressure can shed
+# external tickets, never this one
+ENGINE_TENANT = "__engine__"
+# seeds a step's race draws from: [0, 2**31)
+_SEED_SPAN = 2 ** 31
+
+
+@dataclasses.dataclass
+class KNNLMConfig:
+    """The kNN-LM hook's knobs, the reference's, with its defaults."""
+
+    lam: float = 0.25          # interpolation weight toward the kNN dist
+    temperature: float = 1.0
+    bmo: BMOConfig = dataclasses.field(default_factory=lambda: BMOConfig(k=8))
+    cache_size: int = 256      # query LRU entries (0 disables)
+    compact_threshold: float = 0.5  # auto-compact when tombstones cross this
+                                    # (>=1 disables)
+    index_shards: int = 0      # >1: a sharded index (not ported yet)
+    near_threshold: float = 0.95    # cosine similarity above which a cache
+                                    # miss races CI-warm-started from the
+                                    # cached neighbour (0 disables)
+    near_prior_scale: float = 0.25  # variance-prior tightening applied to
+                                    # the cached neighbour's top-k arms
+    plane: PlaneConfig = dataclasses.field(default_factory=PlaneConfig)
+
+    def cache_policy(self) -> CachePolicy:
+        return CachePolicy(capacity=self.cache_size,
+                           near_threshold=self.near_threshold,
+                           near_prior_scale=self.near_prior_scale)
+
+    def compaction_policy(self) -> CompactionPolicy:
+        return CompactionPolicy(threshold=self.compact_threshold)
+
+
+def step_seeds(rng):
+    """One race seed a decode step: from an integer seed s, step i draws
+    with ``SeedSequence([s, i])``; from a ``torch.Generator``, each step
+    takes the next integer it draws."""
+    if isinstance(rng, torch.Generator):
+        while True:
+            yield int(torch.randint(_SEED_SPAN, (1,), generator=rng,
+                                    device=rng.device))
+    seed = 0 if rng is None else int(rng)
+    step = 0
+    while True:
+        yield int(np.random.SeedSequence([seed, step]).generate_state(1)[0]
+                  % _SEED_SPAN)
+        step += 1
+
+
+class ServeEngine:
+    def __init__(self, model, plan: Optional[ParallelPlan] = None, *,
+                 batch_size: int, max_seq: int,
+                 knn_lm: Optional[KNNLMConfig] = None,
+                 datastore=None, index=None, index_append: bool = False,
+                 plane: Optional[RequestPlane] = None,
+                 plane_namespace: Optional[str] = None, device=None):
+        """``model``: a ``DenseLM`` on ``device`` (default: the GPU; raises
+        without one). ``datastore``: (keys (N, d), next-token ids (N,)),
+        preprocessed into an ``Index`` here. ``index``: a built or loaded
+        ``Index``, or a raw ``IndexStore`` wrapped on the way in (pass the
+        next-token ids as ``datastore=(None, ids)``). ``index_append``:
+        insert each decode step's (hidden, token) pairs into the index.
+        ``plane``: a ``RequestPlane`` owned elsewhere, in place of a private
+        one."""
+        device = resolve_device(device)
+        if model.device != device:
+            raise ValueError(f"the model lives on {model.device}, the engine "
+                             f"serves on {device}")
+        if knn_lm is not None and knn_lm.index_shards > 1:
+            raise _sharded_not_ported(
+                f"KNNLMConfig(index_shards={knn_lm.index_shards})")
+        if plane_namespace is not None:
+            raise NotImplementedError(
+                f"plane_namespace={plane_namespace!r}: a fleet's plane is "
+                "not ported yet (ROADMAP.md Queue 1 item 8)")
+        self.model = model
+        self.device = device
+        self.batch_size = batch_size
+        self.max_seq = max_seq
+        self.prefill_step = make_prefill_step(model, plan)
+        self.knn_lm = knn_lm
+        self.index: Optional[Index] = None
+        self.index_append = index_append
+        if knn_lm is not None and (index is not None or datastore is not None):
+            next_ids = datastore[1] if datastore is not None else None
+            if next_ids is not None:
+                next_ids = np.asarray(next_ids, np.int32)
+            if isinstance(index, Index):
+                handle = index
+                if next_ids is not None:
+                    handle.attach_payload(next_ids)
+            elif index is not None:
+                handle = Index.open(index, payload=next_ids,
+                                    cache=knn_lm.cache_policy(),
+                                    compaction=knn_lm.compaction_policy())
+            else:
+                handle = Index.build(
+                    datastore[0], knn_lm.bmo, 7, payload=next_ids,
+                    cache=knn_lm.cache_policy(),
+                    compaction=knn_lm.compaction_policy(), device=device)
+            if handle.payload is None:
+                # uncovered slots vote token 0: make that explicit
+                handle.attach_payload(np.zeros((handle.capacity,), np.int32))
+            self.index = handle
+        if plane is not None:
+            self.plane: Optional[RequestPlane] = plane
+        else:
+            self.plane = (RequestPlane(self.index, knn_lm.plane)
+                          if self.index is not None else None)
+        self.cache = init_cache(model, batch_size, max_seq)
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens):
+        """(logits, new_cache, last hidden (B, d) in fp32, or None without
+        the kNN-LM hook), in bf16."""
+        if self.knn_lm is None:
+            logits, new_cache = self.model.decode_step(
+                cache, tokens, compute_dtype=COMPUTE_DTYPE)
+            return logits, new_cache, None
+        logits, new_cache, hidden = self.model.decode_step(
+            cache, tokens, compute_dtype=COMPUTE_DTYPE, return_hidden=True)
+        return logits, new_cache, hidden[:, -1].to(torch.float32)
+
+    # -- kNN-LM hook (the paper's technique in the serving path) ------------
+
+    @property
+    def stats(self) -> ServeStats:
+        """The plane's typed serving counters (``ServeStats``, schema v2):
+        cache hits and misses, races, near-repeat warm starts, compactions,
+        queue depth, shed counts, latency percentiles, audit counts."""
+        if self.plane is not None:
+            return self.plane.stats
+        return self.index.stats if self.index is not None else ServeStats()
+
+    def _knn_logits(self, hidden, rng):
+        """(log(p_knn + 1e-9) (B, V) fp32, coordinate ops): the plane's
+        certified top-k of the rows ``hidden``, each neighbour voting its
+        next token with weight softmax(−value / T); repeated tokens add
+        up."""
+        res = self.plane.query(hidden, rng=rng, tenant=ENGINE_TENANT)
+        ops = float(np.asarray(res.coord_ops).sum())
+        B = res.indices.shape[0]
+        V = self.model.cfg.vocab_size
+        vals = torch.as_tensor(np.asarray(res.values, np.float32),
+                               device=self.device)
+        w = torch.softmax(-vals / self.knn_lm.temperature, dim=-1)
+        toks = torch.as_tensor(self.index.payload[np.asarray(res.indices)],
+                               dtype=torch.int64, device=self.device)
+        probs = torch.zeros((B, V), dtype=torch.float32, device=self.device)
+        probs.scatter_add_(1, toks, w)
+        return torch.log(probs + 1e-9), ops
+
+    def _append_to_index(self, hidden, tok):
+        """Fold this step's (hidden, next-token) pairs into the live index:
+        the handle keeps the payload aligned through growth and compaction,
+        fences the cache and applies its ``CompactionPolicy``."""
+        self.index.insert(hidden, payload=tok[:, 0].cpu().numpy())
+        self.index.maybe_compact()
+
+    @torch.no_grad()
+    def generate(self, prompts: np.ndarray, max_new_tokens: int, rng=None):
+        """prompts (B, S0) int → ((B, max_new_tokens) int32 greedy tokens,
+        retrieval coordinate ops). With the kNN-LM hook, each decode step's
+        log-probabilities are mixed with the retrieval's: log((1 − λ)·p_LM
+        + λ·p_kNN). ``rng`` (a seed, default 0, or a ``torch.Generator``)
+        gives each step's race its own seed (``step_seeds``)."""
+        B = prompts.shape[0]
+        if B != self.batch_size:
+            raise ValueError(f"{B} prompts for {self.batch_size} slots")
+        seeds = step_seeds(rng)
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64,
+                                 device=self.device)
+        logits, cache = self.prefill_step({"tokens": tokens}, self.cache)
+        tok = torch.argmax(logits[:, -1].to(torch.float32),
+                           dim=-1).to(torch.int32)[:, None]
+        out = [tok]
+        retrieval_ops = 0.0
+        for _ in range(max_new_tokens - 1):
+            logits, cache, hidden = self.decode_step(cache, tok)
+            mix, ops = self._mix(logits, hidden, seeds)
+            retrieval_ops += ops
+            tok = torch.argmax(mix, dim=-1).to(torch.int32)[:, None]
+            if self._knn_on and self.index_append:
+                self._append_to_index(hidden, tok)
+            out.append(tok)
+        self.cache = cache
+        return torch.cat(out, dim=1).cpu().numpy(), retrieval_ops
+
+    @property
+    def _knn_on(self) -> bool:
+        return self.knn_lm is not None and self.index is not None
+
+    def _mix(self, logits, hidden, seeds):
+        """A decode step's log-probabilities (B, V) in fp32 and the
+        retrieval's coordinate ops: the LM's alone, or with the hook
+        log((1 − λ)·p_LM + λ·p_kNN), its race seeded by ``next(seeds)``."""
+        mix = torch.log_softmax(logits[:, -1].to(torch.float32), dim=-1)
+        if not self._knn_on:
+            return mix, 0.0
+        knn_logits, ops = self._knn_logits(hidden, next(seeds))
+        lam = torch.tensor(self.knn_lm.lam, dtype=torch.float32,
+                           device=self.device)
+        return torch.logaddexp(
+            torch.log1p(-lam) + mix,
+            torch.log(lam) + torch.log_softmax(knn_logits, dim=-1)), ops

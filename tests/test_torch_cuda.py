@@ -1007,3 +1007,61 @@ def test_audited_plane_on_the_card_runs_the_oracle_only_when_idle(gen,
     assert plane.stats.audit_sampled == len(queries)
     assert plane.stats.audit_mismatches == 0
     assert [set(t.result.indices[0].tolist()) for t in tickets] == truth
+
+
+def test_knn_lm_engine_on_the_card_retrieves_the_exact_top_k(gen):
+    """qwen2.5-14b SMOKE served on the card with the kNN-LM hook and
+    appends: every decode step's retrieval launches ``fused_epoch_pull``,
+    its ids are the float64 brute force's top-k of that step's hidden rows
+    over the rows live at that step (computed on the CPU), the vote uses
+    the payload, and the appended rows carry the generated tokens."""
+    from repro_torch.serve import KNNLMConfig, ServeEngine
+    cfg = get_arch("qwen2.5-14b").smoke
+    model = build_model(cfg, param_dtype=torch.bfloat16, rng=0)
+    r = np.random.default_rng(0)
+    keys = r.normal(size=(512, cfg.d_model)).astype(np.float32)
+    ids = r.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    knn = KNNLMConfig(lam=0.3, bmo=BMOConfig(k=4, delta=0.05, block=32,
+                                             batch_arms=16))
+    engine = ServeEngine(model, batch_size=2, max_seq=24, knn_lm=knn,
+                         datastore=(keys, ids), index_append=True)
+    seen = []
+    query = engine.plane.query
+
+    def recorded(hidden, **kw):
+        live = engine.index.store.x[engine.index.store.alive].cpu().numpy()
+        res = query(hidden, **kw)
+        seen.append((hidden.cpu().numpy(), live, res.indices))
+        return res
+    engine.plane.query = recorded
+    prompts = r.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    before = fused_epoch_pull_cuda.launches
+    out, ops = engine.generate(prompts, 6)
+    assert fused_epoch_pull_cuda.launches > before and ops > 0
+    assert len(seen) == 5
+    alive = engine.index.store.alive.cpu().numpy()
+    for hidden, live, got in seen:
+        d = ((hidden[:, None, :].astype(np.float64)
+              - live[None].astype(np.float64)) ** 2).sum(-1)
+        want = np.argsort(d, 1, kind="stable")[:, :4]
+        # before any compaction the live rows are the slots in order
+        assert [set(g) for g in got.tolist()] == [set(w) for w in
+                                                  want.tolist()]
+    new = np.nonzero(alive)[0][512:]
+    assert sorted(engine.index.payload[new].tolist()) == sorted(
+        out[:, 1:].reshape(-1).tolist())
+
+
+def test_serving_cli_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.launch import serve
+    run = serve.main(["--arch", "qwen2.5-14b", "--smoke", "--batch", "2",
+                      "--prompt-len", "8", "--new-tokens", "4", "--knn-lm",
+                      "--datastore-size", "256", "--index-dir",
+                      str(tmp_path / "idx"), "--index-append",
+                      "--audit-rate", "1.0", "--slo", "--health-dump",
+                      str(tmp_path / "health.json")])
+    assert run["tokens"].shape == (2, 4) and run["retrieval_ops"] > 0
+    assert run["audit"]["mismatch_rows"] == 0
+    assert (tmp_path / "health.json").exists()

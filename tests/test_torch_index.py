@@ -392,7 +392,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "tune/__init__.py", "tune/signature.py", "tune/candidates.py",
             "tune/sidecar.py", "tune/seed.py", "tune/racer.py",
             "tune/autotune.py", "obs/audit.py", "obs/slo.py",
-            "obs/export.py", "obs/health.py", "hardware.py"} <= names
+            "obs/export.py", "obs/health.py", "hardware.py",
+            "serve/engine.py", "serve/steps.py", "launch/serve.py",
+            "utils/logging.py", "data/synthetic.py",
+            "models/convert.py"} <= names
     for path in files:
         bad = set(_imported_roots(path)) & {"jax", "jaxlib", "repro",
                                             "msgpack"}
