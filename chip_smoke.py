@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed S] [--queries Q] [--rounds-queries Q]
-                          [--sparse-queries Q] [--out FILE.json]
+                          [--sparse-queries Q] [--kmeans-points N]
+                          [--out FILE.json]
 
 Run from the root of a checkout. In order it:
 
@@ -122,6 +123,25 @@ Run from the root of a checkout. In order it:
      over the live slots, no dead slot returned, every kept copy found
      first, no deleted copy returned; times of each step, bytes written,
      both QPS;
+   * sharded: the same corpus as a sharded index (``Index.build(shards=
+     4)``, all four shards on the one card, views of one (4, stride,
+     d_pad) tensor): all queries (recall 1.0, QPS, per-shard coord ops and
+     rounds, ``balance``), the rounds driver on ``--rounds-queries``
+     queries, 512 inserts and 4,096 deletes through global ids,
+     ``maybe_compact`` and all queries; ``live_reshard`` to 2 shards, its
+     store bit for bit against a save at 4 and a load at 2, and all
+     queries; ``add_replicas(2)`` with two batches round-robin; an
+     ``EffortBudget`` session (stopped by its budget with some positions
+     certified) and a ``Deadline`` session through the request plane,
+     their certified prefixes in the truth, every id live and none
+     repeated; ``Index.tune()``; a δ-audit of 64 rows (0 mismatches); each
+     recall 1.0 against a float64 brute force over the live rows, no dead
+     slot; each step's seconds and the peak memory;
+   * distributed: ``core.distributed.distributed_knn`` on a 2 × 2 (data ×
+     model) grid of the card over ``--rounds-queries`` queries, recall
+     1.0; then ``block_pull_multi`` at one cell's operands (its column part
+     of its data row, a round's and the wide init's arms) against the
+     plain version;
    * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
      first 16 queries at full n and d, recall ≥ 0.99;
 5. sparse: the ``bmo-nn-sparse`` workload (§IV-A: n = 100,000, d = 28,672,
@@ -147,7 +167,15 @@ Run from the root of a checkout. In order it:
    query equal to the first), grown and widened by 512 inserted rows,
    deleted from, queried, compacted and queried; recall ≥ 0.99 each time
    against a float64 brute force over the live rows, no dead slot;
-6. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
+6. kmeans: BMO k-means at Fig. 5's configuration (``benchmarks/
+   fig5_kmeans.py``: 8,192 dimensions, 32 clusters, 2 iterations, the
+   points ``--kmeans-points``, a cut from 3,000), its coord-op gain over
+   exact Lloyd and its assignment accuracy (≥ 0.99) against the exact
+   assignment; then ``block_pull`` at the path's operands (the final
+   centroids as the arms, one point, a round's and the init's arms) and
+   ``pairwise_dist`` at the assignment oracle's and a race's exact
+   evaluation's shapes, each against the plain version;
+7. lm_forward: the dense LM's cache-free forward, ``lm_loss`` of
    qwen2.5-14b at full width and depth (bf16, random weights from
    ``--seed``) over 4 sequences of 4,096 tokens, through
    ``flash_attention``'s tensor-core kernel once per layer, with a traced
@@ -155,7 +183,7 @@ Run from the root of a checkout. In order it:
    layer's attention held against the plain version on its own inputs,
    and the whole forward of one sequence through the kernel and through
    the plain version (see ``lm_forward_phase`` for what is held and why);
-7. serve: the same model served through ``serve.ServeEngine`` at full width
+8. serve: the same model served through ``serve.ServeEngine`` at full width
    and depth: a 262,144-row datastore of its own final hidden states (16
    cache-free forwards of 4 × 4,096 tokens through ``flash_attention``),
    8 prompts of 1,024 tokens, 64 greedy tokens with the kNN-LM hook and
@@ -165,8 +193,9 @@ Run from the root of a checkout. In order it:
    cache-free forward layer by layer and whole, and with the int8 cache;
    ``fused_epoch_pull`` at the path's epoch shapes against its plain
    version (see ``serve_phase``);
-8. serve_cli: ``python -m repro_torch.launch.serve`` at full width, called
-   through ``main`` (see ``serve_cli_phase``).
+9. serve_cli: ``python -m repro_torch.launch.serve`` at full width, called
+   through ``main`` (see ``serve_cli_phase``), then at ``--smoke`` with
+   ``--index-shards 2`` (``serve_cli_sharded``).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -189,6 +218,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 sys.path.insert(0, os.path.join(ROOT, "src"))
 try:
     # NVIDIA H100 SXM (data sheet): the peaks the bounds are taken against,
@@ -206,8 +236,9 @@ FP32_SLOTS = FP32_FLOPS / 2
 LM_ARCH = "qwen2.5-14b"
 LM_BATCH = 4
 LM_SEQ = 4096
-# queries of the paper phase: one host-driven race each, a few seconds apiece
-PAPER_QUERIES = 16
+# queries of the paper phase: one host-driven race each, a few seconds
+# apiece (4 of them, to keep the whole script well inside its time limit)
+PAPER_QUERIES = 4
 # the mutation phase on the main path's index: rows inserted (the first
 # TWINS near-copies of the first queries), of which the twins of the first
 # TWINS_DELETED queries are deleted again among MUTATION_DELETES slots
@@ -222,16 +253,18 @@ MUTATION_DELETES = 40_000
 # costs (SPARSE_TRACED_ROUNDS of them traced) and the store's mutations run
 # at full size; recall is held on races run to certification over the first
 # SPARSE_RACE_ROWS rows, a check of the path and not the cell's throughput
-# (not below 768: at 256 rows, 8 a cluster, a query whose cluster holds
-# fewer than k rows races hundreds of near-equal rows to exact and takes 7×
-# the rounds). The paper step's queries; the mutation steps' inserted rows
+# (512, 16 a cluster of 32 on average, the fewest that keeps a query's
+# cluster above k rows: at 256 rows, 8 a cluster, a query whose cluster
+# holds fewer than k rows races hundreds of near-equal rows to exact and
+# takes 7× the rounds; the rounds grow with the rows, so 768 took half as
+# long again). The paper step's queries; the mutation steps' inserted rows
 # (their deletes then leave 64 under half the capacity live, so that it
 # compacts) and the queries whose true top-k is among the deletes
 SPARSE_D = 28_672
 SPARSE_ORACLE_CHUNK = 8192
 SPARSE_CAPPED_ROUNDS = 200
 SPARSE_TRACED_ROUNDS = 16
-SPARSE_RACE_ROWS = 768
+SPARSE_RACE_ROWS = 512
 SPARSE_PAPER_QUERIES = 1
 SPARSE_INSERTS = 512
 SPARSE_TOP_DELETED = 16       # queries whose true top-k is among the deletes
@@ -264,9 +297,9 @@ SERVE_DS_SEQ = 4096
 SERVE_DS_STEPS = 16
 SERVE_BATCH = 8
 SERVE_PROMPT = 1024
-SERVE_KNN_TOKENS = 64
+SERVE_KNN_TOKENS = 16
 SERVE_CHECK_TOKENS = 16
-SERVE_CLI_TOKENS = 16
+SERVE_CLI_TOKENS = 2
 SERVE_BMO = dict(k=8, delta=0.05, block=64, batch_arms=16)
 SERVE_TRUTH_CHUNK = 32768
 # the kNN run's serving config (a TunedConfig): every row of this datastore
@@ -275,13 +308,42 @@ SERVE_TRUTH_CHUNK = 32768
 # epoch; the CLI's own config raced for SERVE_CLI_CAP_S seconds, reported
 SERVE_TUNED = dict(epoch_rounds=40, pulls_per_round=2, batch_arms=2048)
 SERVE_CLI_CAP_S = 10.0
+SERVE_CLI_SHARDS = 2
 # the teacher-forced forward's top-two logit margin above which the cache
 # path's greedy token must be the forward's: four bf16 ulps of a logit
 # below 16
 SERVE_TOKEN_MARGIN = 0.25
+# the sharded phase (bmo-nn-dense as a sharded index): SHARDS shards, all
+# on the one card; the rows inserted (near-copies of the first queries, a
+# quarter of them deleted again) and the global ids deleted; the shard
+# count live_reshard goes to; the sessions' rows, effort budget and
+# deadline; the queries raced under the tuned config; the audited rows
+SHARDS = 4
+SHARD_INSERTS = 512
+SHARD_DELETES = 4096
+RESHARD_TO = 2
+SHARD_SESSION_ROWS = 64
+SHARD_BUDGET_EPOCHS = 12
+SHARD_DEADLINE_MS = 2000.0
+SHARD_TUNED_QUERIES = 256
+SHARD_AUDIT_ROWS = 64
+# queries on which a path's wide-init pull is held against its plain
+# version (the plain version gathers a (Q, n, P, block) tensor)
+REPLAY_INIT_QUERIES = 2
+# the kmeans phase (Fig. 5: benchmarks/fig5_kmeans.py): dimension,
+# clusters (= k) and Lloyd iterations; its points are --kmeans-points
+KMEANS_D = 8192
+KMEANS_K = 32
+KMEANS_ITERS = 2
+KMEANS_FIG5_POINTS = 3000
 
 
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets ``at_s``, the seconds since
+    the script started, so that a run cut at its time limit shows how far
+    it got and what each phase cost."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -364,8 +426,9 @@ def compare(what: str, got, want, *, rtol: float, atol: float,
     if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{what}: non-finite kernel output")
     err = (got - want).abs()
-    out = {"max_abs_err": float(err.max()),
-           "max_rel_err": float((err / (want.abs() + atol)).max())}
+    # (an exact zero against a zero is no relative error, not 0/0)
+    rel = torch.where(err == 0, 0.0, err / (want.abs() + atol))
+    out = {"max_abs_err": float(err.max()), "max_rel_err": float(rel.max())}
     limit = atol + rtol * want.abs()
     if allowance is not None:
         limit = limit + allowance
@@ -1041,17 +1104,48 @@ def small_input_phase() -> dict:
     return out
 
 
-def brute_force_topk(corpus, queries, k: int, chunk: int = 128):
-    """Exact top-k by float64 squared distance, in query chunks."""
+def brute_force_topk(corpus, queries, k: int, rows=None,
+                     chunk: int = 16384):
+    """Exact top-k by float64 squared distance over the corpus rows
+    ``rows`` (a tensor of row ids, default all; the result indexes it), in
+    chunks of ``chunk`` rows, so no float64 copy of the whole corpus is
+    made. ``corpus`` is a tensor or a tuple of tensors read as their
+    concatenation."""
     import torch
-    x = corpus.to(torch.float64)
-    x2 = (x * x).sum(1)
-    out = []
-    for s in range(0, queries.shape[0], chunk):
-        q = queries[s:s + chunk].to(torch.float64)
-        dist = (q * q).sum(1)[:, None] + x2[None] - 2.0 * (q @ x.T)
-        out.append(torch.topk(dist, k, dim=1, largest=False).indices)
-    return torch.cat(out).cpu().numpy()
+    parts = corpus if isinstance(corpus, tuple) else (corpus,)
+    n = sum(p.shape[0] for p in parts) if rows is None else rows.shape[0]
+    q = queries.to(torch.float64)
+    q2 = (q * q).sum(1)[:, None]
+    best_d = best_i = None
+    for s in range(0, n, chunk):
+        ids = torch.arange(s, min(s + chunk, n), device=q.device)
+        x = take_rows(parts, ids if rows is None else rows[ids]).to(
+            torch.float64)
+        dist = q2 + (x * x).sum(1)[None] - 2.0 * (q @ x.T)
+        del x
+        cand = ids[None].expand(q.shape[0], -1)
+        if best_d is not None:
+            dist = torch.cat([best_d, dist], 1)
+            cand = torch.cat([best_i, cand], 1)
+        best_d, pos = torch.topk(dist, min(k, dist.shape[1]), dim=1,
+                                 largest=False)
+        best_i = torch.gather(cand, 1, pos)
+    return best_i.cpu().numpy()
+
+
+def take_rows(parts, ids):
+    """Rows ``ids`` of the concatenation of the tensors ``parts``."""
+    import torch
+    if len(parts) == 1:
+        return parts[0][ids]
+    out = torch.empty((ids.shape[0], parts[0].shape[1]),
+                      dtype=parts[0].dtype, device=parts[0].device)
+    start = 0
+    for p in parts:
+        mine = (ids >= start) & (ids < start + p.shape[0])
+        out[mine] = p[ids[mine] - start]
+        start += p.shape[0]
+    return out
 
 
 def recall_of(what: str, indices, values, truth, n: int, k: int) -> dict:
@@ -2070,12 +2164,14 @@ def plane_phase(idx, corpus, queries, truth, main_res, seed: int) -> dict:
 def live_truth(idx, rows_of, queries, k: int):
     """Exact top-k slots of ``idx``'s live slots, by a float64 brute force
     over the rows they hold in the original space: slot s holds row
-    ``rows_of[idx.payload[s]]``."""
+    ``rows_of[idx.payload[s]]`` (``rows_of`` a tensor, or a tuple of
+    tensors read as their concatenation)."""
     import numpy as np
     import torch
+    parts = rows_of if isinstance(rows_of, tuple) else (rows_of,)
     live = np.nonzero(idx.store.alive.cpu().numpy())[0]
-    origin = torch.from_numpy(idx.payload[live]).to(rows_of.device)
-    return live[brute_force_topk(rows_of[origin], queries, k)]
+    origin = torch.from_numpy(idx.payload[live]).to(parts[0].device)
+    return live[brute_force_topk(parts, queries, k, rows=origin)]
 
 
 def mutation_checks(what: str, idx, res, rows_of, queries, n: int) -> dict:
@@ -2131,7 +2227,6 @@ def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
     import numpy as np
     import torch
     from repro_torch.api import Index
-    from repro_torch.checkpoint import manager
     from repro_torch.configs.bmo_nn import DENSE
     from repro_torch.core.datasets import next_pow2
     from repro_torch.data.synthetic import make_knn_benchmark_data
@@ -2169,11 +2264,11 @@ def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
     out["save_dir_free_bytes_before"] = shutil.disk_usage(tmp).free
     torch.cuda.reset_peak_memory_stats()
 
-    def mutation_query(what, loaded):
+    def mutation_query(what, loaded, traced=False):
         """The timed query of the mutated index, its checks, what its race
         cost (epochs: pull launches after the init; rounds; exact
-        evaluations; coordinates read against the live slots' n·d), and
-        the same query once more, traced."""
+        evaluations; coordinates read against the live slots' n·d), and,
+        if ``traced``, the same query once more under the profiler."""
         before = fused_epoch_pull_cuda.launches
         res = timed(f"query_{what}_s", lambda: loaded.query(queries, seed))
         return {**mutation_checks(f"mutation, {what}", loaded, res, rows_of,
@@ -2183,18 +2278,14 @@ def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
                 "n_exact_mean": float(np.mean(res.n_exact)),
                 "coord_ops_share_of_live_nd": float(np.mean(res.coord_ops))
                 / (loaded.n_live * d),
-                "traced": traced_query(loaded, queries, seed)}
+                **({"traced": traced_query(loaded, queries, seed)}
+                   if traced else {})}
 
     def run():
         path = os.path.join(tmp, "index")
         timed("save_s", lambda: idx.save(path))
         out["bytes_written"] = sum(os.path.getsize(os.path.join(path, f))
                                    for f in os.listdir(path))
-        # the device-to-host copy that save starts with, and the file read
-        # that load starts with, each once more alone
-        timed("save_device_to_host_s", lambda: [
-            a.cpu() for a in idx.store.arrays().values()])
-        timed("load_file_read_s", lambda: manager.load_arrays(path))
         loaded = timed("load_s", lambda: Index.load(path, device=dev))
         saved = idx.store.arrays()
         got = loaded.store.arrays()
@@ -2254,7 +2345,8 @@ def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
                                  "payload and rows disagree")
         del before, keep
         out["capacity_compacted"] = loaded.capacity
-        out["after_compact"] = mutation_query("after_compact", loaded)
+        out["after_compact"] = mutation_query("after_compact", loaded,
+                                              traced=True)
         return loaded
 
     try:
@@ -2265,8 +2357,8 @@ def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
     by_schedule = {"rows": fused_epoch_pull_cuda.launches_rows,
                    "pair": fused_epoch_pull_cuda.launches_pair}
-    if by_schedule["rows"] != 5:       # 3 queries, 2 of them traced again
-        raise AssertionError(f"mutation: {by_schedule['rows']} of the five "
+    if by_schedule["rows"] != 4:       # 3 queries, 1 of them traced again
+        raise AssertionError(f"mutation: {by_schedule['rows']} of the four "
                              "queries' inits took the rows schedule")
     want_cap = next_pow2(n + MUTATION_ROWS - MUTATION_DELETES)  # 65,536
     if out["capacity_compacted"] != want_cap:
@@ -2440,7 +2532,8 @@ def sparse_phase(seed: int, n_queries: int) -> dict:
     to certification over the first SPARSE_RACE_ROWS rows: rounds
     (``Index.query`` of ``n_queries`` copies of its rows); paper
     (``core.bmo_nn.knn`` of SPARSE_PAPER_QUERIES of them); mutation (that
-    index saved and loaded, its query equal to the rounds step's, an
+    index saved and loaded, its race equal to the built index's over the
+    first 1 + SPARSE_CAPPED_ROUNDS rounds, an
     insert that grows and widens the store, deletes, a query,
     ``maybe_compact``, a query). Recall ≥ 0.99 on every race run to
     certification, no dead slot returned."""
@@ -2707,13 +2800,18 @@ def sparse_phase(seed: int, n_queries: int) -> dict:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         same_arrays("mutation files", ridx, loaded)
-        again = timed("mutation_query_loaded_s",
-                      lambda: loaded.query(q, seed))
-        if not (np.array_equal(again.indices, built.indices)
-                and np.array_equal(again.values, built.values)):
+        # the loaded index replays the built one's race, both capped at
+        # 1 + SPARSE_CAPPED_ROUNDS rounds (to certification it takes as
+        # long as the rounds step)
+        capped = ridx.query(q, seed, max_rounds=SPARSE_CAPPED_ROUNDS)
+        again = timed("mutation_query_loaded_s", lambda: loaded.query(
+            q, seed, max_rounds=SPARSE_CAPPED_ROUNDS))
+        if not all(np.array_equal(getattr(again, f), getattr(capped, f))
+                   for f in ("indices", "values", "rounds", "coord_ops")):
             raise AssertionError("sparse mutation: the loaded index's "
                                  "query differs from the built one's")
         mut["query_loaded_equals_built"] = True
+        mut["query_loaded_capped_rounds"] = 1 + SPARSE_CAPPED_ROUNDS
         del ridx
         # the inserted rows: copies of corpus rows past the cut, and one
         # row denser than the store is wide
@@ -3709,6 +3807,456 @@ def serve_cli_phase() -> dict:
         raise AssertionError(f"serve_cli: audit line {audit}")
     if len(slos) != 2 or not all(m.endswith(" ok") for m in slos):
         raise AssertionError(f"serve_cli: SLO lines {slos}")
+    out["sharded_smoke"] = serve_cli_sharded()
+    return out
+
+
+def serve_cli_sharded() -> dict:
+    """The CLI at its small (``--smoke``) size with ``--index-shards
+    SERVE_CLI_SHARDS``: one launch builds and saves the sharded index (its
+    shards on the card), a second loads the directory and appends; both
+    must serve with per-shard telemetry for every shard."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.launch import serve
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_sharded_")
+    argv = ["--arch", LM_ARCH, "--smoke", "--batch", "2", "--prompt-len",
+            "8", "--new-tokens", "6", "--knn-lm", "--datastore-size", "256",
+            "--index-shards", str(SERVE_CLI_SHARDS), "--index-dir",
+            os.path.join(root, "idx"), "--index-append"]
+    runs = []
+    try:
+        for launch in ("build", "load"):
+            t = time.perf_counter()
+            run = serve.main(argv)
+            shard_ops = run["stats"]["shard_coord_ops"]
+            runs.append({"launch": launch,
+                         "seconds": time.perf_counter() - t,
+                         "tokens_shape": list(run["tokens"].shape),
+                         "retrieval_ops": run["retrieval_ops"],
+                         "shard_coord_ops": shard_ops})
+            if (run["tokens"].shape != (2, 6) or run["retrieval_ops"] <= 0
+                    or not np.isfinite(run["retrieval_ops"])
+                    or shard_ops is None
+                    or len(shard_ops) != SERVE_CLI_SHARDS):
+                raise AssertionError(f"serve_cli sharded: {runs[-1]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"argv": argv, "runs": runs}
+
+
+def shard_recall(what: str, idx, res, rows_of, queries, k: int) -> dict:
+    """Recall of a sharded query against ``live_truth`` (its slots are
+    global ids), which must be 1.0, with no dead slot returned."""
+    import numpy as np
+    truth = live_truth(idx, rows_of, queries, k)
+    out = recall_of(what, res.indices, res.values, truth, idx.capacity, k)
+    alive = idx.store.alive.cpu().numpy()
+    out["dead_slot_hits"] = int((~alive[res.indices]).sum())
+    if out["recall"] != 1.0 or out["dead_slot_hits"]:
+        raise AssertionError(f"{what}: {out}")
+    return out
+
+
+def sharded_phase(corpus, queries, truth, seed: int, rounds_queries: int
+                  ) -> dict:
+    """``bmo-nn-dense`` as a sharded index: ``Index.build(shards=SHARDS)``
+    with every shard on ``cuda:0`` (the reference places one a device), all
+    queries raced (recall 1.0), then each checked on the card: the rounds
+    driver on ``rounds_queries`` queries; SHARD_INSERTS inserts and
+    SHARD_DELETES deletes through global ids, ``maybe_compact`` and all
+    queries; ``live_reshard`` to RESHARD_TO shards, its store bit for bit
+    against a save at SHARDS and a load at RESHARD_TO, and all queries;
+    ``add_replicas(2)`` with two batches served round-robin; two
+    ``Index.race`` sessions through the request plane, one under an
+    ``EffortBudget`` and one under a ``Deadline``; ``Index.tune()``; and a
+    δ-audit of SHARD_AUDIT_ROWS rows on the exact oracle. Every recall is
+    against a float64 brute force over the live rows."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.api import Deadline, EffortBudget, Index
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.index.placement import balance
+    from repro_torch.kernels.block_pull import block_pull_multi_cuda
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.obs.audit import check_topk
+    from repro_torch.serve import RequestPlane
+
+    cfg, k = DENSE.bmo, DENSE.bmo.k
+    (n, d), Q = corpus.shape, queries.shape[0]
+    dev = corpus.device
+    times = {}
+    out = {"phase": "sharded", "workload": DENSE.name, "shards": SHARDS,
+           "devices": [str(dev)] * SHARDS, "queries": Q, "seed": seed}
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t
+        return result
+
+    def launched(fn):
+        """fn's result and its fused_epoch_pull and fwht launches."""
+        f0, w0 = fused_epoch_pull_cuda.launches, fwht_cuda.launches
+        result = fn()
+        return result, {"fused_epoch_pull": fused_epoch_pull_cuda.launches
+                        - f0, "fwht": fwht_cuda.launches - w0}
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 2)
+    twins = queries[:SHARD_INSERTS] + 1e-3 * torch.randn(
+        (SHARD_INSERTS, d), generator=g, device=dev)
+    rows_of = (corpus, twins)                     # payload value → its row
+
+    def run():
+        idx = timed("build_s", lambda: Index.build(
+            corpus, cfg, seed, shards=SHARDS, device=[dev] * SHARDS))
+        # (no reference to a store outlives its step: at most two
+        # full-size stores are alive at once)
+        stacked = idx.store.stacked_x
+        if stacked is None or stacked.shape[0] != SHARDS:
+            raise AssertionError("sharded: the shards' rows are not one "
+                                 "stacked tensor")
+        del stacked
+        origin = np.full(idx.capacity, -1, np.int64)
+        origin[idx.build_gids] = np.arange(n)
+        idx.attach_payload(origin)
+        out["stride"] = idx.store.stride
+        out["live_per_shard"] = idx.store.live_per_shard
+        out["balance"] = balance(out["live_per_shard"])
+
+        res, launches = launched(lambda: timed(
+            "query_s", lambda: idx.query(queries, seed, cache="bypass")))
+        out["race"] = {
+            **shard_recall("sharded race", idx, res, rows_of, queries, k),
+            "qps": Q / times["query_s"], "launches": launches,
+            "epoch_launches": launches["fused_epoch_pull"] - SHARDS,
+            "shard_coord_ops": res.shard_coord_ops,
+            "shard_rounds": res.shard_rounds,
+            "rounds_mean": float(np.mean(res.rounds)),
+            "n_exact_mean": float(np.mean(res.n_exact))}
+
+        Qr = rounds_queries
+        b0 = block_pull_multi_cuda.launches
+        res = timed("rounds_s", lambda: idx.query(
+            queries[:Qr], seed, mode="rounds", cache="bypass"))
+        out["rounds"] = {
+            **shard_recall("sharded rounds", idx, res, rows_of,
+                           queries[:Qr], k),
+            "queries": Qr, "qps": Qr / times["rounds_s"],
+            "block_pull_multi_launches": block_pull_multi_cuda.launches - b0,
+            "shard_rounds": res.shard_rounds}
+
+        gids, launches = launched(lambda: timed("insert_s", lambda: idx.insert(
+            twins, payload=n + np.arange(SHARD_INSERTS))))
+        r = np.random.default_rng(seed)
+        live = np.nonzero(idx.store.alive.cpu().numpy())[0]
+        dead = np.concatenate([gids[:SHARD_INSERTS // 4], r.choice(
+            np.setdiff1d(live, gids), SHARD_DELETES - SHARD_INSERTS // 4,
+            replace=False)])
+        timed("delete_s", lambda: idx.delete(dead))
+        old = timed("maybe_compact_s", idx.maybe_compact)
+        res = timed("query_mutated_s",
+                    lambda: idx.query(queries, seed, cache="bypass"))
+        out["mutated"] = {
+            **shard_recall("sharded, mutated", idx, res, rows_of, queries,
+                           k),
+            "inserted": SHARD_INSERTS, "deleted": SHARD_DELETES,
+            "insert_launches": launches, "compacted": old is not None,
+            "live_per_shard": idx.store.live_per_shard,
+            "balance": balance(idx.store.live_per_shard),
+            "qps": Q / times["query_mutated_s"]}
+
+        need = sum(a.numel() * a.element_size() for s in idx.store.shards
+                   for a in s.arrays().values())
+        tmp = save_dir(need)
+        try:
+            path = os.path.join(tmp, "index")
+            timed("save_s", lambda: idx.save(path))
+            timed("live_reshard_s", lambda: idx.reshard(RESHARD_TO))
+            loaded = timed("load_resharded_s", lambda: Index.load(
+                path, shards=RESHARD_TO, device=[dev] * RESHARD_TO))
+            for a, b in zip(idx.store.shards, loaded.store.shards):
+                got, want = a.arrays(), b.arrays()
+                if sorted(got) != sorted(want) or a.meta() != b.meta() or \
+                        any(not torch.equal(got[k_], want[k_]) for k_ in got):
+                    raise AssertionError("sharded: live_reshard differs from "
+                                         "save and load at the new count")
+            if not np.array_equal(idx.payload, loaded.payload):
+                raise AssertionError("sharded: the re-sharded payloads "
+                                     "differ")
+            del loaded, a, b, got, want
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        res = timed("query_resharded_s",
+                    lambda: idx.query(queries, seed, cache="bypass"))
+        out["resharded"] = {
+            **shard_recall("sharded, re-sharded", idx, res, rows_of,
+                           queries, k),
+            "shards": idx.n_shards, "stride": idx.store.stride,
+            "bit_equal_to_save_and_load": True,
+            "qps": Q / times["query_resharded_s"]}
+
+        idx.add_replicas(2)
+        rr0 = idx._rr
+        half = Q // 2
+        for i in range(2):
+            res = timed(f"replica_query_{i}_s", lambda: idx.query(
+                queries[i * half:(i + 1) * half], seed, cache="bypass"))
+            shard_recall(f"sharded, replica batch {i}", idx, res, rows_of,
+                         queries[i * half:(i + 1) * half], k)
+        out["replicas"] = {"replicas": idx.stats.replicas,
+                           "batches_routed": idx._rr - rr0,
+                           "placements_shared": idx._replica_stores[1]
+                           is idx._replica_stores[0]}
+        if idx._rr - rr0 != 2:
+            raise AssertionError("sharded: the two batches were not routed "
+                                 "round-robin")
+        idx.add_replicas(1)
+
+        plane = RequestPlane(idx)
+        sessions = {}
+        for what, rows, kw in (
+                ("effort_budget", slice(0, SHARD_SESSION_ROWS),
+                 dict(budget=EffortBudget(epochs=SHARD_BUDGET_EPOCHS))),
+                ("deadline", slice(SHARD_SESSION_ROWS,
+                                   2 * SHARD_SESSION_ROWS),
+                 dict(deadline=Deadline(ms=SHARD_DEADLINE_MS)))):
+            q = queries[rows]
+            t = time.perf_counter()
+            r_ = plane.query(q, **kw)
+            seconds = time.perf_counter() - t
+            tr = live_truth(idx, rows_of, q, k)
+            cert = np.asarray(r_.certified_count)
+            ids = np.asarray(r_.indices)
+            wrong = sum(not set(ids[i, :c].tolist()) <= set(tr[i].tolist())
+                        for i, c in enumerate(cert))
+            alive = idx.store.alive.cpu().numpy()
+            filled = bool((ids >= 0).all() and (ids < idx.capacity).all())
+            sessions[what] = {
+                "seconds": seconds, "reason": r_.reason, "epochs": r_.epochs,
+                "certified_positions": int(cert.sum()),
+                "positions": int(cert.size * k),
+                "uncertain_prefixes": wrong,
+                "rows_with_a_missing_id": int((ids < 0).any(1).sum()),
+                "dead_slot_hits": int((~alive[ids]).sum()) if filled else None,
+                "rows_with_a_repeated_id": sum(
+                    len(set(r.tolist())) < k for r in ids)}
+            s_ = sessions[what]
+            want = ("budget",) if what == "effort_budget" else (
+                "certified", "deadline")
+            if wrong or not filled or s_["dead_slot_hits"] \
+                    or s_["rows_with_a_repeated_id"] \
+                    or not s_["certified_positions"] or r_.reason not in want:
+                raise AssertionError(f"sharded session {what}: {s_}")
+        out["sessions"] = sessions
+
+        report = timed("tune_s", lambda: idx.tune(rng=seed))
+        res = timed("query_tuned_s", lambda: idx.query(
+            queries[:SHARD_TUNED_QUERIES], seed, cache="bypass"))
+        out["tune"] = {
+            "config": report["config"], "raced": report.get("raced"),
+            "winner_median_ms": report.get("winner_median_ms"),
+            "default_median_ms": report.get("default_median_ms"),
+            "signature_shards": report["signature"]["shards"],
+            **shard_recall("sharded, tuned", idx, res, rows_of,
+                           queries[:SHARD_TUNED_QUERIES], k),
+            "qps": SHARD_TUNED_QUERIES / times["query_tuned_s"]}
+
+        qa = queries[:SHARD_AUDIT_ROWS]
+        served = idx.query(qa, seed, cache="bypass")
+        check = timed("audit_s", lambda: check_topk(idx.store, qa,
+                                                    served.indices, k))
+        out["audit"] = {"rows": SHARD_AUDIT_ROWS,
+                        "mismatches": check.mismatches}
+        if check.mismatches:
+            raise AssertionError(f"sharded: {check.mismatches} audited rows "
+                                 "mismatched")
+        return idx
+
+    idx, launches = counted(
+        "sharded", {"fused_epoch_pull": fused_epoch_pull_cuda,
+                    "fwht": fwht_cuda,
+                    "block_pull_multi": block_pull_multi_cuda,
+                    "pairwise_dist": pairwise_dist_cuda}, run)
+    del idx
+    out.update(times, launches=launches,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return out
+
+
+def replay_pulls(path: str, x, qs, B: int, P: int, block: int,
+                 seed: int) -> list:
+    """One launch of a path's pull kernel at the path's own operands,
+    outside its counted run: a round's (B random arms a query, P blocks
+    each) and the wide init's (every arm, one arange expanded over the
+    queries, as the drivers pass it). ``qs`` is one query (``block_pull``,
+    the paper box) or a (Q, d) batch (``block_pull_multi``; the init's plain
+    version on its first REPLAY_INIT_QUERIES). Arm ids int64, block ids
+    int32, as the drivers give them; each held against the plain version at
+    the kernel phase's tolerance."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_pull import (block_pull_cuda,
+                                                block_pull_multi_cuda)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    n, nb = x.shape[0], x.shape[1] // block
+    one = qs.dim() == 1
+    Q = 1 if one else qs.shape[0]
+    rows = []
+    for case, Bc in (("round", min(B, n)), ("init", n)):
+        if case == "round":
+            arm = torch.randint(0, n, (Q, Bc), generator=g, device=x.device)
+        else:
+            arm = torch.arange(n, device=x.device)[None].expand(Q, n)
+        blk = torch.randint(0, nb, (Q, Bc, P), generator=g, device=x.device,
+                            dtype=torch.int32)
+        sub = Q if case == "round" else min(Q, REPLAY_INIT_QUERIES)
+        if one:
+            got = block_pull_cuda(x, qs, arm[0], blk[0], block=block)[None]
+            want = ref.block_pull_ref(x, qs, arm[0], blk[0], block)[None]
+        else:
+            got = block_pull_multi_cuda(x, qs, arm, blk, block=block)[:sub]
+            want = ref.block_pull_multi_ref(x, qs[:sub], arm[:sub],
+                                            blk[:sub], block)
+        rows.append({
+            "kernel": "block_pull" if one else "block_pull_multi",
+            "case": f"{path}_{case}",
+            "shape": {"Q": Q, "B": Bc, "P": P, "block": block,
+                      "d_pad": x.shape[1], "n": n},
+            "x_contiguous": x.is_contiguous(),
+            **({} if sub == Q else {"plain_checked_on_queries": sub}),
+            **compare(f"{path} {case} pull", got, want, rtol=2e-4,
+                      atol=1e-5)})
+        del got, want, arm, blk
+    return rows
+
+
+def distributed_phase(corpus, queries, truth, seed: int) -> dict:
+    """``core.distributed.distributed_knn`` over a 2 × 2 (data × model)
+    grid whose four cells are all ``cuda:0``: each data row races half the
+    corpus with the per-round driver, every pull averaging one block of
+    each half of the columns, the merge on the host's gather. The dense
+    box on the raw corpus (the grid splits d, so no rotation); recall 1.0
+    against the float64 brute force."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.core.distributed import distributed_knn
+    from repro_torch.kernels.block_pull import block_pull_multi_cuda
+
+    cfg = dataclasses.replace(DENSE.bmo, rotate=False)
+    dev = str(corpus.device)
+    grid = [[dev, dev], [dev, dev]]
+    Q = queries.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    res, launches = counted(
+        "distributed", {"block_pull_multi": block_pull_multi_cuda},
+        lambda: distributed_knn(corpus, queries, cfg, grid, seed))
+    seconds = time.perf_counter() - t
+    idx, vals = res.indices.cpu().numpy(), res.values.cpu().numpy()
+    out = {"phase": "distributed", "grid": "2 x 2 (data x model)",
+           "devices": grid, "queries": Q, "seconds": seconds,
+           "qps": Q / seconds,
+           **recall_of("distributed", idx, vals, truth, corpus.shape[0],
+                       cfg.k),
+           "rounds_max": int(res.rounds), "coord_ops": float(res.coord_ops),
+           "coord_ops_share_of_nd": float(res.coord_ops)
+           / (Q * corpus.shape[0] * corpus.shape[1]),
+           "launches": launches,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if out["recall"] != 1.0:
+        raise AssertionError(f"distributed: recall {out['recall']}")
+    # block_pull_multi at one grid cell's operands: its column part of its
+    # data row, and its part of the queries
+    n_loc, d_m = corpus.shape[0] // 2, corpus.shape[1] // 2
+    out["pull_rows"] = replay_pulls(
+        "distributed", corpus[:n_loc, :d_m].contiguous(),
+        queries[:, :d_m].contiguous(), cfg.batch_arms, cfg.pulls_per_round,
+        cfg.block, seed)
+    return out
+
+
+def kmeans_phase(seed: int, n: int) -> dict:
+    """BMO k-means at Fig. 5's configuration (``benchmarks/fig5_kmeans.py``:
+    ``clustered_dense(n, 8192, n_clusters=32, noise=0.1, seed=31)``, k 32,
+    2 iterations, k = 1 races with block 64, B 8, one pull a round and a
+    single-pull init), the points drawn on the card: ``core.kmeans.kmeans``
+    (each assignment ``bmo_nn.knn``, one race a point, on ``block_pull``,
+    and ``pairwise_dist`` for any arm evaluated exactly), its coord-op gain
+    over exact Lloyd and its final assignment's accuracy against
+    ``assign_exact`` (``pairwise_dist``) to the final centroids (≥ 0.99,
+    the benchmark's measure and ``tests/test_kmeans.py``'s bound)."""
+    import torch
+    from repro_torch.configs.base import BMOConfig
+    from repro_torch.core import kmeans
+    from repro_torch.core.datasets import DenseDataset
+    from repro_torch.data.synthetic import clustered_dense
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_pull import block_pull_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+
+    pts = clustered_dense(n, KMEANS_D, n_clusters=KMEANS_K, noise=0.1,
+                          seed=31, device="cuda")
+    cfg = BMOConfig(k=1, delta=0.01, block=64, batch_arms=8,
+                    pulls_per_round=1, init_pulls=1, metric="l2")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    times = {}
+
+    def run():
+        res = kmeans.kmeans(pts, KMEANS_K, KMEANS_ITERS, cfg, seed)
+        torch.cuda.synchronize()
+        times["kmeans_s"] = time.perf_counter() - t
+        return res, kmeans.assign_exact(pts, res.centroids)[0]
+
+    (res, exact), launches = counted(
+        "kmeans", {"block_pull": block_pull_cuda,
+                   "pairwise_dist": pairwise_dist_cuda}, run)
+    seconds = times["kmeans_s"]
+    acc = float((res.assignment == exact).float().mean())
+    # the path's kernels at its own operands: block_pull over the final
+    # centroids (the arms) for one point, and pairwise_dist as the
+    # assignment's oracle (every point against the centroids) and as a
+    # race's exact evaluation (one point against B centroids)
+    ds = DenseDataset.build(res.centroids, block=cfg.block)
+    q = ds.pad_query(pts[:1])[0]
+    checks = replay_pulls("kmeans", ds.x, q, cfg.batch_arms,
+                          cfg.pulls_per_round, cfg.block, seed)
+    for case, qq, xx in (("kmeans_assign_exact", pts, res.centroids),
+                         ("kmeans_exact_eval", q[None],
+                          ds.x[:cfg.batch_arms])):
+        allowance = 1e-6 * ((qq ** 2).sum(1)[:, None]
+                            + (xx ** 2).sum(1)[None])
+        checks.append({
+            "kernel": "pairwise_dist", "case": case,
+            "shape": {"Q": qq.shape[0], "n": xx.shape[0], "d": xx.shape[1]},
+            **compare(f"pairwise_dist {case}", pairwise_dist_cuda(qq, xx),
+                      ref.pairwise_dist_ref(qq, xx, "l2"), rtol=1e-4,
+                      atol=0.0, allowance=allowance)})
+    out = {"phase": "kmeans", "n": n, "d": KMEANS_D, "k": KMEANS_K,
+           "iters": KMEANS_ITERS, "seconds": seconds,
+           "seconds_per_iteration": seconds / KMEANS_ITERS,
+           "coord_ops": float(res.coord_ops),
+           "exact_ops": float(res.exact_ops),
+           "gain": float(res.exact_ops) / float(res.coord_ops),
+           "assignment_accuracy": acc, "launches": launches,
+           "kernel_checks": checks,
+           "centroids_finite": bool(torch.isfinite(res.centroids).all()),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if acc < 0.99 or not out["centroids_finite"]:
+        raise AssertionError(f"kmeans: {out}")
     return out
 
 
@@ -3766,16 +4314,17 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
-     ("main_path", "tune", "plane", "mutation", "serve")),
+     ("main_path", "tune", "plane", "mutation", "sharded", "serve")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
-     ("main_path", "tune", "plane", "mutation")),
+     ("main_path", "tune", "plane", "mutation", "sharded")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
-     "src/repro/kernels/block_pull.py:78", ("rounds", "tune")),
+     "src/repro/kernels/block_pull.py:78",
+     ("rounds", "tune", "sharded", "distributed")),
     ("block_pull", "src/repro_torch/csrc/block_pull.cu",
-     "src/repro/kernels/block_pull.py:41", ("paper",)),
+     "src/repro/kernels/block_pull.py:41", ("paper", "kmeans")),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist_sm90.cu",
      "src/repro/kernels/pairwise_dist.py:41",
-     ("oracle", "plane", "paper", "sparse")),
+     ("oracle", "plane", "paper", "sparse", "sharded", "kmeans")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward", "serve")),
 )
@@ -3793,11 +4342,17 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--queries", type=int, default=1024,
                     help="query batch of the workload (its own is 1024)")
-    ap.add_argument("--rounds-queries", type=int, default=256,
+    ap.add_argument("--rounds-queries", type=int, default=128,
                     help="queries of the rounds phase (a cut from 1024)")
-    ap.add_argument("--sparse-queries", type=int, default=64,
+    ap.add_argument("--shard-rounds-queries", type=int, default=256,
+                    help="queries of the sharded phase's rounds race and "
+                         "the distributed phase (a cut from 1024)")
+    ap.add_argument("--sparse-queries", type=int, default=32,
                     help="queries of the sparse phase's rounds step (a cut "
                          "from 1024)")
+    ap.add_argument("--kmeans-points", type=int, default=128,
+                    help="points of the kmeans phase (a cut from Fig. 5's "
+                         f"{KMEANS_FIG5_POINTS})")
     ap.add_argument("--out", help="write every detail to this JSON file")
     args = ap.parse_args()
 
@@ -3821,6 +4376,8 @@ def main() -> int:
           "allow_tf32_cudnn": False})
     for what, got in (("queries", args.queries),
                       ("rounds-phase queries", args.rounds_queries),
+                      ("sharded rounds and distributed queries",
+                       args.shard_rounds_queries),
                       ("sparse rounds-step queries", args.sparse_queries)):
         if got != 1024:
             emit({"cut": f"{what} {got} instead of the workload's 1024"})
@@ -3828,8 +4385,25 @@ def main() -> int:
                  f"1 + {SPARSE_CAPPED_ROUNDS} rounds (8.7-8.9 rounds a row a "
                  "query would make some 880,000); recall held over the "
                  f"first {SPARSE_RACE_ROWS} rows, races run to certification"})
+    emit({"cut": "sparse mutation step: the loaded index's race held to the "
+                 f"built one's over 1 + {SPARSE_CAPPED_ROUNDS} rounds, not "
+                 "to certification"})
     emit({"cut": f"sparse paper step: {SPARSE_PAPER_QUERIES} queries "
                  "instead of the workload's 1024 (one race each)"})
+    emit({"cut": f"paper: {PAPER_QUERIES} queries instead of the workload's "
+                 "1024 (one host-driven race each)"})
+    emit({"cut": f"serve_cli: {SERVE_CLI_TOKENS} new tokens (16 before the "
+                 "sharded phases)"})
+    emit({"cut": f"serve: {SERVE_KNN_TOKENS} kNN-LM tokens (64 before the "
+                 "sharded phases)"})
+    emit({"cut": f"{SHARDS} shards on one card; the reference places one a "
+                 "device"})
+    emit({"cut": "distributed: a 2 x 2 grid of cuda:0; the reference places "
+                 "one cell a device"})
+    if args.kmeans_points != KMEANS_FIG5_POINTS:
+        emit({"cut": f"kmeans: {args.kmeans_points} points instead of Fig. "
+                     f"5's {KMEANS_FIG5_POINTS} (one host-driven race a "
+                     "point an iteration)"})
 
     t = time.perf_counter()
     _build.build_all()
@@ -3872,9 +4446,18 @@ def main() -> int:
     mut = report["mutation"]
     emit({k: ({a: b for a, b in v.items() if a != "traced"}
               if k.startswith("after_") else v) for k, v in mut.items()})
-    for what in ("after_delete", "after_compact"):
-        emit({"phase": f"mutation_traced_{what}", **mut[what]["traced"]})
+    emit({"phase": "mutation_traced_after_compact",
+          **mut["after_compact"]["traced"]})
     del idx, main_res
+    torch.cuda.empty_cache()
+    Qs = args.shard_rounds_queries
+    report["sharded"] = sharded_phase(corpus, queries, truth, args.seed, Qs)
+    emit(report["sharded"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["distributed"] = distributed_phase(corpus, queries[:Qs],
+                                              truth[:Qs], args.seed)
+    emit(report["distributed"])
     torch.cuda.empty_cache()
     report["paper"] = paper_phase(corpus, queries[:PAPER_QUERIES],
                                   truth[:PAPER_QUERIES], args.seed)
@@ -3884,6 +4467,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     report["sparse"] = sparse_phase(args.seed, args.sparse_queries)
     emit(report["sparse"])
+    torch.cuda.empty_cache()
+    report["kmeans"] = kmeans_phase(args.seed, args.kmeans_points)
+    emit(report["kmeans"])
     torch.cuda.empty_cache()
     model, init_s = build_lm(args.seed)
     report["lm_forward"] = lm_forward_phase(model, init_s, args.seed)

@@ -1,5 +1,6 @@
 """``Index`` — the handle in front of the port's index (DESIGN.md §6.1):
-build, open or load a single-shard dense, rotated or sparse index, query it
+build, open or load a dense, rotated or sparse index, single-shard or
+sharded over S devices (``index/sharded.py``; a device may repeat), query it
 through the typed ``QuerySpec`` protocol, mutate it (insert, delete,
 compact) and save it. Results come back in the reference's ``KNNResult``
 schema, and a saved directory is the reference's layout: either package
@@ -15,8 +16,11 @@ itself (``repro_torch.tune``); ``save`` persists the winner as a
 still matches.
 
 Side payloads (e.g. kNN-LM next-token ids) attach to the handle and ride
-every slot remap (growth, compaction): ``payload[result.indices]`` is
-always aligned.
+every slot remap (growth, compaction, re-shard): ``payload[result.indices]``
+is always aligned. A sharded index's ids are global (shard · stride +
+local slot). ``reshard`` re-shards a live index in memory and
+``add_replicas`` sets a read fan-out over replica placements
+(``api/admin.py``).
 
 The handle is mutable, unlike the stores underneath: every mutation swaps
 in a new store and bumps ``epoch``, the fence that callers rely on in
@@ -40,23 +44,23 @@ from repro_torch.device import make_generator
 from repro_torch.index import mutable
 from repro_torch.index.batched_race import index_knn
 from repro_torch.index.builder import build_index, load_index, save_index
+from repro_torch.index.sharded import (ShardedIndexStore, build_sharded_index,
+                                       is_sharded_index_dir,
+                                       load_sharded_index, reshard,
+                                       save_sharded_index, shard_devices,
+                                       sharded_compact,
+                                       sharded_delete, sharded_insert,
+                                       sharded_maybe_compact, with_cfg)
 from repro_torch.tune.candidates import tuned_mode
+from repro_torch.utils.hostsync import host_fetch
 
 log = logging.getLogger("repro_torch.api")
 
 PAYLOAD_FILE = "payload.npy"
-# the sidecar of a sharded index directory, which the port does not read yet
-MANIFEST_FILE = "manifest.msgpack"
-
-
-def _sharded_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: the sharded index is not ported yet (ROADMAP.md Queue 1 "
-        "item 7)")
 
 
 class Index:
-    """One handle over a single-shard racing index.
+    """One handle over a single-shard or sharded racing index.
 
     Construct through ``Index.build`` (from a corpus), ``Index.load`` (from
     a saved directory) or ``Index.open`` (around an existing store). All
@@ -88,27 +92,41 @@ class Index:
         self._raced_queries = 0
         self._near_hits = 0
         self._compactions = 0
+        self._n_replicas = 1
+        self._replica_stores = None
+        self._rr = 0
+        self._reshards = 0
+        self._shard_coord_ops = None
+        self._shard_rounds = None
         self._auto_rng = 0
+        self._reset_shard_telemetry()
 
     # -- constructors -------------------------------------------------------
 
     @classmethod
     def build(cls, corpus, cfg, rng=0, *, shards: int = 1,
+              placement: str = "round_robin",
               capacity: Optional[int] = None, impl: str = "auto",
               payload=None, cache: Optional[CachePolicy] = None,
               compaction: Optional[CompactionPolicy] = None,
               device=None) -> "Index":
         """Preprocess ``corpus`` (n, d) into a served index on ``device``
         (default: the GPU; raises without one); with ``cfg.sparse`` the
-        corpus may also be a ``SparseDataset``. ``rng`` is a seed or a
-        ``torch.Generator`` on that device. ``payload``: optional
-        (n,)-row-aligned side values, kept slot-aligned through every
-        remap."""
+        corpus may also be a ``SparseDataset`` (single-shard). ``rng`` is a
+        seed or a ``torch.Generator`` on that device. ``shards > 1``
+        spreads it over that many shards by ``placement``; ``device`` is
+        then None (the first ``shards`` CUDA devices), one device for all
+        or a list of one a shard (``index.sharded.shard_devices``).
+        ``payload``: optional (n,)-row-aligned side values, kept
+        slot-aligned through every remap."""
         if shards > 1:
-            raise _sharded_not_ported(f"shards={shards}")
-        store = build_index(corpus, cfg, rng, capacity=capacity, impl=impl,
-                            device=device)
-        gids = np.arange(store.n_live, dtype=np.int64)
+            store, gids = build_sharded_index(
+                corpus, cfg, rng, shards=shards, placement=placement,
+                capacity=capacity, impl=impl, device=device)
+        else:
+            store = build_index(corpus, cfg, rng, capacity=capacity,
+                                impl=impl, device=device)
+            gids = np.arange(store.n_live, dtype=np.int64)
         handle = cls(store, build_gids=gids, cache=cache,
                      compaction=compaction)
         if payload is not None:
@@ -119,9 +137,9 @@ class Index:
     def open(cls, store, *, payload=None, payload_gids=None,
              cache: Optional[CachePolicy] = None,
              compaction: Optional[CompactionPolicy] = None) -> "Index":
-        """Wrap an existing ``IndexStore``. ``payload`` without
-        ``payload_gids`` is taken slot-aligned and must cover every live
-        slot."""
+        """Wrap an existing ``IndexStore`` or ``ShardedIndexStore``.
+        ``payload`` without ``payload_gids`` is taken slot-aligned and must
+        cover every live slot (a sharded store's whole capacity)."""
         handle = cls(store, cache=cache, compaction=compaction)
         if payload is not None:
             handle.attach_payload(payload, gids=payload_gids)
@@ -132,23 +150,33 @@ class Index:
              cache: Optional[CachePolicy] = None,
              compaction: Optional[CompactionPolicy] = None,
              device=None) -> "Index":
-        """Load a saved single-shard index directory onto ``device``
-        (default: the GPU). A ``payload.npy`` sidecar is restored. A
-        ``tuned.json`` sidecar is applied when its signature matches the
-        store as reloaded (``repro_torch.tune.load_tuned``); otherwise the
-        index serves its build-time config and a warning names the
-        reason."""
-        if os.path.exists(os.path.join(path, MANIFEST_FILE)):
-            raise _sharded_not_ported(f"{path} holds a sharded index")
-        if shards is not None and shards > 1:
-            raise _sharded_not_ported(f"shards={shards}")
-        store = load_index(path, device=device)
+        """Load a saved index directory of either layout onto ``device``
+        (default: the GPU; a sharded one as ``Index.build`` places its
+        shards); ``shards=S′`` re-shards on the way in. A ``payload.npy``
+        sidecar is restored and remapped. A ``tuned.json`` sidecar is
+        applied when its signature matches the store as reloaded
+        (``repro_torch.tune.load_tuned``); otherwise the index serves its
+        build-time config and a warning names the reason."""
+        old_ids = None
+        if is_sharded_index_dir(path):
+            store, old_ids = load_sharded_index(path, shards=shards,
+                                                device=device)
+        elif shards is not None and shards > 1:
+            store, old_ids = reshard(
+                ShardedIndexStore([load_index(path, device="cpu")]), shards,
+                device=shard_devices(shards, device))
+        else:
+            store = load_index(path, device=device)
         handle = cls(store, cache=cache, compaction=compaction)
         ppath = os.path.join(path, PAYLOAD_FILE)
         if os.path.exists(ppath):
             saved = np.load(ppath)
             buf = np.zeros((store.capacity,) + saved.shape[1:], saved.dtype)
-            buf[: len(saved)] = saved
+            if old_ids is None:
+                buf[: len(saved)] = saved
+            else:
+                live = old_ids >= 0
+                buf[live] = saved[old_ids[live]]
             handle._payload = buf
         from repro_torch.tune import cache_put, load_tuned, signature_of
         tuned, _why = load_tuned(path, store)
@@ -170,9 +198,12 @@ class Index:
         return self._store.device
 
     @property
+    def sharded(self) -> bool:
+        return hasattr(self._store, "shards")
+
+    @property
     def n_shards(self) -> int:
-        """1: the port's index is single-shard (ROADMAP.md Queue 1 item 7)."""
-        return 1
+        return self._store.n_shards if self.sharded else 1
 
     @property
     def capacity(self) -> int:
@@ -269,18 +300,51 @@ class Index:
             cache_entries=len(cache) if cache is not None else 0,
             near_hits=self._near_hits,
             compactions=self._compactions,
+            reshards=self._reshards,
+            replicas=self._n_replicas,
+            shard_coord_ops=(self._shard_coord_ops.tolist()
+                             if self._shard_coord_ops is not None else None),
+            shard_rounds=(self._shard_rounds.tolist()
+                          if self._shard_rounds is not None else None),
             serving_fallback=self._force_untuned,
             retune_requested=self._retune_reason is not None)
 
     # -- internal plumbing --------------------------------------------------
 
+    def _reset_shard_telemetry(self) -> None:
+        if self.sharded:
+            self._shard_coord_ops = np.zeros(self.n_shards)
+            self._shard_rounds = np.zeros(self.n_shards)
+        else:
+            self._shard_coord_ops = self._shard_rounds = None
+
+    def _record_shards(self, shard_coord_ops, shard_rounds) -> None:
+        """Fold one race's per-shard counters into the cumulative ones."""
+        if (self._shard_coord_ops is None or shard_coord_ops is None
+                or len(shard_coord_ops) != len(self._shard_coord_ops)):
+            return
+        self._shard_coord_ops += np.asarray(shard_coord_ops)
+        self._shard_rounds = np.maximum(self._shard_rounds,
+                                        np.asarray(shard_rounds))
+
+    def _record_session_telemetry(self, session) -> None:
+        """Fold a finished RaceSession's per-shard counters into stats
+        (the plane calls this when it drops a race group)."""
+        self._record_shards(getattr(session, "shard_coord_ops", None),
+                            getattr(session, "shard_rounds", None))
+
     def _swap(self, store) -> None:
-        """Epoch fence: install a new store and invalidate the query
-        cache."""
+        """Epoch fence: install a new store, invalidate the query cache and
+        the replica fan-out (both follow the new store lazily)."""
+        old_shards = self.n_shards if self.sharded else None
         self._store = store
         self._epoch += 1
         if self._cache is not None:
             self._cache.clear()
+        self._replica_stores = None
+        if (store.n_shards if hasattr(store, "shards") else None) \
+                != old_shards:
+            self._reset_shard_telemetry()
 
     def _apply_tuned(self, tuned, *, swap: bool = True) -> None:
         """Install a ``TunedConfig``: rebind the store onto the tuned
@@ -288,8 +352,7 @@ class Index:
         through the epoch fence — a live re-tune invalidates the query
         cache; ``swap=False`` is the load-time path (a fresh handle,
         nothing to fence)."""
-        new = dataclasses.replace(self._store,
-                                  cfg=tuned.bind(self._store.cfg))
+        new = with_cfg(self._store, tuned.bind(self._store.cfg))
         if swap:
             self._swap(new)
         else:
@@ -341,6 +404,18 @@ class Index:
                 f"{what} rejected: index is quiesced for admin op "
                 f"{self._admin_active!r}")
 
+    def _route(self):
+        """Round-robin a race over the replica fan-out (``admin.py``)."""
+        if self._n_replicas <= 1:
+            return self._store
+        if self._replica_stores is None:
+            from repro_torch.api.admin import materialize_replicas
+            self._replica_stores = materialize_replicas(self._store,
+                                                        self._n_replicas)
+        store = self._replica_stores[self._rr % len(self._replica_stores)]
+        self._rr += 1
+        return store
+
     # -- query --------------------------------------------------------------
 
     def _query_cfg(self, spec: QuerySpec):
@@ -352,12 +427,14 @@ class Index:
             else self._base_cfg
         return spec.bind(base)
 
-    def _bound_store(self, spec: QuerySpec):
-        """The store with the spec's config (``_query_cfg``) bound."""
+    def _bound_store(self, spec: QuerySpec, store=None):
+        """``store`` (default: the primary) with the spec's config
+        (``_query_cfg``) bound."""
+        store = self._store if store is None else store
         cfg = self._query_cfg(spec)
-        if cfg == self._store.cfg:
-            return self._store
-        return dataclasses.replace(self._store, cfg=cfg)
+        if cfg == store.cfg:
+            return store
+        return with_cfg(store, cfg)
 
     def _next_rng(self, rng):
         if rng is None:
@@ -368,10 +445,14 @@ class Index:
     def _race(self, queries, rng, spec: QuerySpec, prior_hint):
         mode = tuned_mode(self._tuned if self._serving_tuned(spec) else None,
                           spec.mode)
-        return index_knn(self._bound_store(spec), queries, rng,
-                         impl=spec.impl, eliminate=spec.eliminate,
-                         warm_start=spec.warm_start, mode=mode,
-                         prior_hint=prior_hint)
+        raw = index_knn(self._bound_store(spec, self._route()), queries, rng,
+                        impl=spec.impl, eliminate=spec.eliminate,
+                        warm_start=spec.warm_start, mode=mode,
+                        prior_hint=prior_hint)
+        if hasattr(raw, "shard_coord_ops"):
+            self._record_shards(*host_fetch((raw.shard_coord_ops,
+                                             raw.shard_rounds)))
+        return raw
 
     def _seeded_priors(self, hid: np.ndarray, miss):
         """Near-repeat warm starts: per-query CI variance priors for the
@@ -404,7 +485,8 @@ class Index:
         (q_idx, q_val, q_nnz) padded triplet and races on the per-round
         driver. ``rng`` is a seed or a ``torch.Generator`` on the index's
         device; by default each call takes the next seed of a per-handle
-        counter. Returns slot ids.
+        counter. Returns slot ids (global ids on a sharded index); with a
+        read fan-out, successive races round-robin over the replicas.
 
         Exact-repeat dense rows are served from the query LRU at zero
         coordinate ops unless the spec bypasses it (``cache="bypass"``;
@@ -434,6 +516,7 @@ class Index:
         rounds = np.zeros((Q,), np.int32)
         n_exact = np.zeros((Q,), np.int32)
         keys = [QueryCache.key(row) for row in hid]
+        shard_ops = shard_rounds = None
         miss = []
         for i in range(Q):
             got = None if spec.cache == "refresh" else self._cache.get(keys[i])
@@ -453,6 +536,7 @@ class Index:
                     prior_hint = np.concatenate(
                         [prior_hint, np.repeat(prior_hint[:1], pad, 0)], 0)
             raw = self._result(self._race(sub, gen, spec, prior_hint))
+            shard_ops, shard_rounds = raw.shard_coord_ops, raw.shard_rounds
             for j, i in enumerate(miss):
                 idx[i], vals[i] = raw.indices[j], raw.values[j]
                 coord_ops[i] = raw.coord_ops[j]
@@ -464,7 +548,8 @@ class Index:
             self._raced_queries += len(miss)
         return KNNResult(indices=idx, values=vals, coord_ops=coord_ops,
                          rounds=rounds, n_exact=n_exact,
-                         cache_hits=Q - len(miss))
+                         cache_hits=Q - len(miss),
+                         shard_coord_ops=shard_ops, shard_rounds=shard_rounds)
 
     def race(self, queries, rng=None, *, spec: Optional[QuerySpec] = None,
              raced_queries: Optional[int] = None, chunk_rounds: int = 0,
@@ -504,7 +589,7 @@ class Index:
         round_ms = (self._tuned.round_ms if self._serving_tuned(spec)
                     else 0.0)
         session = make_session(
-            self._store, queries, self._next_rng(rng),
+            self._route(), queries, self._next_rng(rng),
             cfg=self._query_cfg(spec), impl=spec.impl,
             eliminate=spec.eliminate, warm_start=spec.warm_start,
             prior_hint=spec.prior_hint, chunk_rounds=chunk_rounds, obs=obs,
@@ -517,11 +602,16 @@ class Index:
 
     @staticmethod
     def _result(raw) -> KNNResult:
+        shard = hasattr(raw, "shard_coord_ops")
         return KNNResult(indices=raw.indices.cpu().numpy(),
                          values=raw.values.cpu().numpy(),
                          coord_ops=raw.coord_ops.cpu().numpy(),
                          rounds=raw.rounds.cpu().numpy(),
-                         n_exact=raw.n_exact.cpu().numpy())
+                         n_exact=raw.n_exact.cpu().numpy(),
+                         shard_coord_ops=(raw.shard_coord_ops.tolist()
+                                          if shard else None),
+                         shard_rounds=(raw.shard_rounds.tolist()
+                                       if shard else None))
 
     # -- mutation ------------------------------------------------------------
 
@@ -541,6 +631,11 @@ class Index:
                     f"payload ({len(values)}) does not cover the index's "
                     f"{self.n_live} live slots — uncovered slots would "
                     "silently serve zeros")
+            if self.sharded and len(values) != self.capacity:
+                raise ValueError(
+                    f"a sharded index needs a capacity-length "
+                    f"({self.capacity}) global-id-aligned payload, got "
+                    f"{len(values)} (or pass gids=)")
         buf = np.zeros((self.capacity,) + values.shape[1:], values.dtype)
         if gids is None:
             buf[: len(values)] = values
@@ -550,12 +645,17 @@ class Index:
 
     def insert(self, rows, *, payload=None) -> np.ndarray:
         """Insert (B, d) dense rows (a sparse index compresses them and
-        widens its rows when one needs it); returns their slot ids.
-        ``payload``:
-        per-row side values written into the attached payload at those
-        slots."""
+        widens its rows when one needs it); returns their slot ids (global
+        ids on a sharded index, each row on the least-loaded shard).
+        ``payload``: per-row side values written into the attached payload
+        at those slots."""
         self._check_mutable("insert")
-        store, slots = mutable.insert(self._store, rows)
+        if self.sharded:
+            store, slots, grow_ids = sharded_insert(self._store, rows)
+            if grow_ids is not None:      # the stride grew: ids moved
+                self._remap(grow_ids)
+        else:
+            store, slots = mutable.insert(self._store, rows)
         self._grow_payload(store.capacity)
         if payload is not None:
             if self._payload is None:
@@ -567,9 +667,11 @@ class Index:
         return slots
 
     def delete(self, slot_ids) -> None:
-        """Tombstone slots; their data stays until compaction."""
+        """Tombstone slots (global ids on a sharded index); their data
+        stays until compaction."""
         self._check_mutable("delete")
-        store = mutable.delete(self._store, slot_ids)
+        store = (sharded_delete(self._store, slot_ids) if self.sharded
+                 else mutable.delete(self._store, slot_ids))
         if self._build_gids is not None:
             # a later insert may reuse a freed slot, which must not be
             # attributed to the original corpus row: −1 once deleted
@@ -583,7 +685,8 @@ class Index:
         build map are remapped. Returns the old→new slot map for any
         external side state."""
         self._check_mutable("compact")
-        store, old_ids = mutable.compact(self._store)
+        store, old_ids = (sharded_compact(self._store) if self.sharded
+                          else mutable.compact(self._store))
         self._remap(old_ids)
         self._swap(store)
         self._compactions += 1
@@ -598,7 +701,9 @@ class Index:
         self._check_mutable("compact")
         thr = threshold if threshold is not None \
             else self.compaction_policy.threshold
-        store, old_ids = mutable.maybe_compact(self._store, threshold=thr)
+        compact = (sharded_maybe_compact if self.sharded
+                   else mutable.maybe_compact)
+        store, old_ids = compact(self._store, threshold=thr)
         if old_ids is None:
             return None
         self._remap(old_ids)
@@ -609,7 +714,8 @@ class Index:
     # -- persistence ---------------------------------------------------------
 
     def save(self, path: str) -> None:
-        """Persist through the checkpoint layer; an attached payload is
+        """Persist through the checkpoint layer (per-shard checkpoints and
+        a manifest when sharded); an attached payload is
         written as a ``payload.npy`` sidecar and an active tuning as a
         ``tuned.json`` sidecar, both inside the same atomic directory
         publish, so ``path`` only ever holds a complete index. The
@@ -627,10 +733,26 @@ class Index:
                                      "round_ms": self._tuned.round_ms})
 
         store = (self._store if self._tuned is None
-                 else dataclasses.replace(self._store, cfg=self._base_cfg))
-        save_index(store, path, extra=_sidecars)
+                 else with_cfg(self._store, self._base_cfg))
+        if self.sharded:
+            save_sharded_index(store, path, extra=_sidecars)
+        else:
+            save_index(store, path, extra=_sidecars)
 
     # -- admin ops -----------------------------------------------------------
+
+    def reshard(self, n_shards: int, *, device=None) -> np.ndarray:
+        """Re-shard the live index to ``n_shards`` in memory, with no
+        checkpoint round trip (``api/admin.live_reshard``); returns the
+        old→new global-id map."""
+        from repro_torch.api.admin import live_reshard
+        return live_reshard(self, n_shards, device=device)
+
+    def add_replicas(self, n_replicas: int) -> int:
+        """Set the read fan-out to ``n_replicas`` (1: the primary only);
+        queries round-robin over the replicas. Returns the fan-out."""
+        from repro_torch.api.admin import add_replicas
+        return add_replicas(self, n_replicas)
 
     def tune(self, queries=None, rng=None, *, levels: int = 2,
              reps: int = 1, force: bool = False, apply: bool = True,
@@ -663,6 +785,7 @@ class Index:
         return report
 
     def __repr__(self) -> str:
-        return (f"Index(kind={self.kind!r}, live={self.n_live}/"
-                f"{self.capacity}, k={self.k}, epoch={self._epoch}, "
+        return (f"Index(kind={self.kind!r}, shards={self.n_shards}, "
+                f"live={self.n_live}/{self.capacity}, k={self.k}, "
+                f"epoch={self._epoch}, replicas={self._n_replicas}, "
                 f"device={self.device})")

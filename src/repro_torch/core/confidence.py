@@ -46,10 +46,11 @@ def welford_merge(mean, count, m2, b_mean, b_count, b_m2, mask):
 
 
 def welford_batch_update(mean, count, m2, batch_vals, batch_mask):
-    """Merge a (B, P) batch of raw samples per arm into running (B,) stats."""
-    P = batch_vals.shape[1]
-    b_mean = torch.mean(batch_vals, dim=1)
-    b_m2 = torch.sum(torch.square(batch_vals - b_mean[:, None]), dim=1)
+    """Merge a (..., B, P) batch of raw samples per arm into running
+    (..., B) stats."""
+    P = batch_vals.shape[-1]
+    b_mean = torch.mean(batch_vals, dim=-1)
+    b_m2 = torch.sum(torch.square(batch_vals - b_mean[..., None]), dim=-1)
     return welford_merge(mean, count, m2, b_mean, float(P), b_m2, batch_mask)
 
 

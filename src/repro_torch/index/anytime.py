@@ -42,11 +42,13 @@ driver in chunks: each round syncs once, as the blocking per-round driver
 does (the reference runs the chunk in one on-device ``while_loop``), and
 the chunk's summary once more.
 
-Sessions exist for single-shard dense/rotated stores (the epoch-fused
-frontier driver) and sparse stores (the per-round driver in bounded-round
-chunks). The sharded sessions wait for the sharded index (ROADMAP.md Queue
-1 item 7). Block and coordinate draws come from replaceable samplers, as in
-the blocking drivers, so the tests can replay the reference's.
+Sessions exist for all four store boxes: single-shard dense/rotated (the
+epoch-fused frontier driver), single-shard sparse (the per-round driver in
+bounded-round chunks), and their sharded twins (shard-local states stepped
+by one host loop, merged on the host per snapshot; the sharded fused
+session exactifies on the pulls' scale too, where the reference's divides
+by the true d). Block and coordinate draws come from replaceable samplers,
+as in the blocking drivers, so the tests can replay the reference's.
 """
 from __future__ import annotations
 
@@ -62,12 +64,13 @@ from repro_torch.core import confidence as conf
 from repro_torch.core.bmo_nn import (BlockSampler, CoordSampler,
                                      default_block_sampler,
                                      default_coord_sampler)
-from repro_torch.core.ucb import INF, smallest_k
+from repro_torch.core.ucb import (INF, BatchedRaceState, RoundsRaceFns,
+                                  smallest_k)
 from repro_torch.device import make_generator
-from repro_torch.index.batched_race import (BatchedRaceState, RoundsRaceFns,
-                                            _dense_exact_theta, _frontier_ci,
+from repro_torch.index.batched_race import (_dense_exact_theta, _frontier_ci,
                                             _fused_epoch_step, _fused_init,
                                             make_sparse_rounds_race)
+from repro_torch.index import sharded as sh
 from repro_torch.index.frontier import (FrontierState, bucket_width,
                                         compact_frontier, floor_width,
                                         pow2_floor)
@@ -115,6 +118,59 @@ def _to_host(summ: RaceSummary, scale: float = 1.0, extra=()):
     p = p._replace(**{f: getattr(p, f).astype(np.float64) * scale
                       for f in ("values", "ci", "cand_lcb_min")})
     return got[:len(extra)], p
+
+
+def _to_host_shards(summs, scale: float = 1.0, extra=()):
+    """``_to_host`` for S per-shard summaries: ONE ``host_fetch`` of the
+    ``extra`` tensors and every summary, moved to the first one's device
+    (the reference's gather over the shard axis). Returns (the extra
+    tensors as numpy, the Partial with (S, ...) fields)."""
+    dev = summs[0].ids.device
+    flat = [t.to(dev) for t in extra] + [t.to(dev) for sm in summs
+                                         for t in sm]
+    got = host_fetch(tuple(flat))
+    n, F = len(extra), len(RaceSummary._fields)
+    parts = [Partial(*got[n + i * F: n + (i + 1) * F])
+             for i in range(len(summs))]
+    p = Partial(*(np.stack(f) for f in zip(*parts)))
+    p = p._replace(**{f: getattr(p, f).astype(np.float64) * scale
+                      for f in ("values", "ci", "cand_lcb_min")})
+    return got[:n], p
+
+
+def _merge_shard_partials(p: Partial) -> Partial:
+    """Merge S per-shard partial views (fields (S, Q, …)) into one global
+    view on the host. Accepted entries, already exact, merge by (θ, global
+    id); the best-effort tail interleaves the shards' candidate
+    estimates."""
+    S, Q, k = p.ids.shape
+    ids = np.full((Q, k), -1, np.int64)
+    vals = np.full((Q, k), np.inf)
+    ci = np.zeros((Q, k))
+    acc_count = np.zeros((Q,), np.int32)
+    for q in range(Q):
+        accepted, cands = [], []
+        for s in range(S):
+            a = int(p.acc_count[s, q])
+            for i in range(k):
+                v = float(p.values[s, q, i])
+                if not np.isfinite(v):
+                    continue
+                entry = (v, int(p.ids[s, q, i]), float(p.ci[s, q, i]))
+                (accepted if i < a else cands).append(entry)
+        accepted.sort(key=lambda e: (e[0], e[1]))
+        cands.sort(key=lambda e: (e[0], e[1]))
+        for i, (v, g, c) in enumerate((accepted + cands)[:k]):
+            vals[q, i], ids[q, i], ci[q, i] = v, g, c
+        acc_count[q] = min(len(accepted), k)
+    return Partial(
+        ids=ids, values=vals, ci=ci, acc_count=acc_count,
+        cand_lcb_min=np.min(p.cand_lcb_min, axis=0),
+        done=np.all(p.done, axis=0),
+        coord_ops=np.sum(p.coord_ops, axis=0),
+        rounds=np.max(p.rounds, axis=0),
+        n_exact=np.sum(p.n_exact, axis=0),
+    )
 
 
 def _summarize(ids, mean, ci, exact, accepted, rejected, valid, done,
@@ -183,9 +239,11 @@ def _exactify_frontier(x, qs, st: FrontierState, *, k: int, metric: str,
         n_exact=st.n_exact + torch.sum(need, 1, dtype=torch.int32))
 
 
-def _rounds_partial(fns: RoundsRaceFns, st: BatchedRaceState, k: int):
+def _rounds_partial(fns: RoundsRaceFns, st: BatchedRaceState, k: int,
+                    gid_base: int = 0):
     """Exactify the accepted arms of the per-round driver's state (through
-    the box's own ``exact_fn``, at its coordinate cost) and summarize."""
+    the box's own ``exact_fn``, at its coordinate cost) and summarize, the
+    ids offset by ``gid_base`` (a shard's first global id)."""
     Q, n = st.mean.shape
     pos, need = _exact_targets(st.accepted, st.exact, st.mean, k)
     vals = fns.exact_fn(pos)
@@ -196,7 +254,7 @@ def _rounds_partial(fns: RoundsRaceFns, st: BatchedRaceState, k: int):
         coord_ops=st.coord_ops + torch.sum(
             need * torch.gather(fns.exact_cost, 1, pos), 1))
     ci = fns.ci_radius(st)
-    ids = torch.arange(n, dtype=torch.int32,
+    ids = torch.arange(gid_base, gid_base + n, dtype=torch.int32,
                        device=st.mean.device)[None].expand(Q, n)
     valid = torch.ones((Q, n), dtype=torch.bool, device=st.mean.device)
     summ = _summarize(ids, st.mean, ci, st.exact, st.accepted, st.rejected,
@@ -206,10 +264,11 @@ def _rounds_partial(fns: RoundsRaceFns, st: BatchedRaceState, k: int):
 
 
 def _fused_partial(x, qs, st: FrontierState, prior_pool, *, cfg: BMOConfig,
-                   d: int, log_term: float, prior_weight: float):
+                   d: int, log_term: float, prior_weight: float,
+                   gid_base: int = 0):
     st = _exactify_frontier(x, qs, st, k=cfg.k, metric=cfg.metric, d=d)
     ci = _frontier_ci(st, cfg, log_term, prior_pool, prior_weight)
-    summ = _summarize(st.ids, st.mean, ci, st.exact, st.accepted,
+    summ = _summarize(st.ids + gid_base, st.mean, ci, st.exact, st.accepted,
                       st.rejected, st.valid, st.done, st.coord_ops,
                       st.rounds, st.n_exact, cfg.k)
     return st, summ
@@ -511,6 +570,174 @@ class SparseRoundsSession(RaceSession):
         return not self.done.all()
 
 
+class ShardedFusedSession(RaceSession):
+    """Sharded dense/rotated: the shard-local fused race with the shared
+    host epoch loop of ``index/sharded.py``, the cross-shard pull-budget
+    reallocator included, stepped one epoch at a time; each snapshot
+    merges the shards' partial views on the host. One host sync an epoch
+    carries every stepped shard's packed vector and every shard's
+    summary."""
+
+    kind = "sharded_fused"
+
+    def __init__(self, store, queries, rng=0, *, cfg: BMOConfig,
+                 impl: str = "auto", eliminate: bool = True, priors=None,
+                 prior_weight: float = 0.0, obs=None,
+                 sid: Optional[str] = None, block_samplers=None):
+        qs = store.prepare_queries(queries, impl=impl)
+        super().__init__(qs.shape[0], cfg.k, obs=obs, sid=sid)
+        self._store, self._cfg, self._impl = store, cfg, impl
+        self._S, self._stride = store.n_shards, store.stride
+        self._qs_of = [qs.to(s.device) for s in store.shards]
+        self._samplers = (list(block_samplers) if block_samplers is not None
+                          else sh.shard_samplers(rng, store.devices,
+                                                 default_block_sampler))
+        self._eliminate, self._prior_weight = eliminate, prior_weight
+        self._plan = plan = sh.fused_plan(store, cfg)
+        self._scale = store.d_pad / store.d      # ρ/d_pad → θ = ρ/d
+        self._R0, self._max_rounds = plan.R0, plan.max_rounds
+        if priors is None:
+            priors = [s.prior_var for s in store.shards]
+        states, self._pools, self._host = sh.fused_init(
+            store, self._qs_of, priors, self._samplers, cfg=cfg, plan=plan,
+            impl=impl, prior_weight=prior_weight)
+        self._W0 = states[0].width
+        self._rounds_spent = 0
+        self._last_R = 0
+        self._launches = 0
+        self._refresh(states)
+
+    def _refresh(self, states, hosts=()) -> None:
+        """Exactify and summarize every shard, then cross to the host once
+        with the epoch's packed vectors (``hosts``)."""
+        summs = []
+        self._st = []
+        for s, shard in enumerate(self._store.shards):
+            st, summ = _fused_partial(
+                shard.x, self._qs_of[s], states[s], self._pools[s],
+                cfg=self._cfg, d=shard.d, log_term=self._plan.log_term,
+                prior_weight=self._prior_weight, gid_base=s * self._stride)
+            self._st.append(st)
+            summs.append(summ)
+        stepped = [h for h in hosts if h is not None]
+        got, per_shard = _to_host_shards(summs, self._scale, stepped)
+        if hosts:
+            self._host = sh.take_hosts(self._host, hosts, got)
+        self.shard_coord_ops = per_shard.coord_ops.sum(axis=1)
+        self.shard_rounds = per_shard.rounds.max(axis=1)
+        self._snap = _merge_shard_partials(per_shard)
+
+    @property
+    def _n_surv(self) -> np.ndarray:
+        return self._host[:, :self.Q].astype(np.int64)
+
+    def _apply_force_done(self, mask) -> None:
+        self._st = [_force_done(st, mask) for st in self._st]
+        self._host[:, :self.Q] = np.where(self._retired[None], 0,
+                                          self._host[:, :self.Q])
+
+    def _epoch_extra(self) -> dict:
+        return {"width": int(self._st[0].width),
+                "n_surv": int(self._n_surv.max(initial=0)),
+                "R": self._last_R, "shards": self._S}
+
+    def _epoch_launches(self, d_rounds: int) -> int:
+        return self._launches      # one a stepped shard
+
+    def _step_impl(self) -> bool:
+        active_q = ~self.done
+        n_surv = self._n_surv
+        need = int(n_surv[:, active_q].max(initial=1))
+        W = self._st[0].width
+        # at most halving, as FusedSession.step
+        W_new = max(bucket_width(need, floor=self._plan.floor_w, current=W),
+                    W // 2)
+        states = self._st
+        if W_new < W:
+            states = [compact_frontier(st, W_new=W_new) for st in states]
+        R = sh.realloc_R(self._plan, self._W0, n_surv,
+                      np.broadcast_to(active_q, n_surv.shape))
+        R = self._deadline_R(R)
+        states, hosts = sh.fused_epoch(
+            self._store, self._qs_of, states, self._pools, self._samplers,
+            self._host, cfg=self._cfg, plan=self._plan, R=R,
+            impl=self._impl, eliminate=self._eliminate,
+            prior_weight=self._prior_weight)
+        self._launches = sum(h is not None for h in hosts)
+        self._rounds_spent += R
+        self._last_R = R
+        self.epochs += 1
+        self._refresh(states, hosts)
+        return not self.done.all()
+
+
+class ShardedSparseSession(RaceSession):
+    """Sharded sparse: the per-round driver at δ/S on every shard, in
+    bounded-round chunks (one chunk = one scheduler epoch); each snapshot
+    merges the shards' partial views."""
+
+    kind = "sharded_sparse"
+    kernel = "block_pull_multi"
+
+    def __init__(self, store, queries, rng=0, *, cfg: BMOConfig,
+                 eliminate: bool = True, priors=None,
+                 prior_weight: float = 0.0, chunk_rounds: int = 0,
+                 obs=None, sid: Optional[str] = None, coord_samplers=None):
+        q_idx, q_val, q_nnz = queries
+        cfg = sh._shard_delta(cfg, store.n_shards)
+        samplers = (list(coord_samplers) if coord_samplers is not None
+                    else sh.shard_samplers(rng, store.devices,
+                                           default_coord_sampler))
+        if priors is None:
+            priors = [s.prior_var for s in store.shards]
+        self._fns = [
+            make_sparse_rounds_race(
+                sh_.indices, sh_.values, sh_.nnz, sh_.alive, priors[s],
+                q_idx, q_val, q_nnz, samplers[s], cfg=cfg, d=store.d,
+                eliminate=eliminate, prior_weight=prior_weight)
+            for s, sh_ in enumerate(store.shards)]
+        super().__init__(int(self._fns[0].exact_cost.shape[0]), cfg.k,
+                         obs=obs, sid=sid)
+        self._cfg, self._S, self._stride = cfg, store.n_shards, store.stride
+        self._chunk = chunk_rounds or 2 * max(cfg.epoch_rounds, 1)
+        self._max_rounds = self._fns[0].max_rounds
+        self._rounds_spent = 0
+        self._ingest([fns.init() for fns in self._fns])
+
+    def _ingest(self, states) -> None:
+        summs, self._st = [], []
+        for s, (fns, st) in enumerate(zip(self._fns, states)):
+            st, summ = _rounds_partial(fns, st, self._cfg.k,
+                                       gid_base=s * self._stride)
+            self._st.append(st)
+            summs.append(summ)
+        _, per_shard = _to_host_shards(summs)
+        self.shard_coord_ops = per_shard.coord_ops.sum(axis=1)
+        self.shard_rounds = per_shard.rounds.max(axis=1)
+        self._snap = _merge_shard_partials(per_shard)
+
+    def _apply_force_done(self, mask) -> None:
+        self._st = [_force_done(st, mask) for st in self._st]
+
+    def _epoch_extra(self) -> dict:
+        return {"R": self._chunk, "shards": self._S}
+
+    def _epoch_launches(self, d_rounds: int) -> int:
+        return max(int(d_rounds), 1) * self._S
+
+    def _step_impl(self) -> bool:
+        states = []
+        for fns, st in zip(self._fns, self._st):
+            limit = st.round_no + self._chunk
+            while fns.active(st) and st.round_no < limit:
+                st = fns.body(st)
+            states.append(st)
+        self._rounds_spent += self._chunk
+        self.epochs += 1
+        self._ingest(states)
+        return not self.done.all()
+
+
 # ---------------------------------------------------------------------------
 # factory
 # ---------------------------------------------------------------------------
@@ -524,26 +751,37 @@ def make_session(store, queries, rng=0, *, cfg: Optional[BMOConfig] = None,
                  deadline_ms: Optional[float] = None,
                  round_ms: Optional[float] = None,
                  block_sampler: Optional[BlockSampler] = None,
-                 coord_sampler: Optional[CoordSampler] = None
-                 ) -> RaceSession:
-    """The resumable session for ``store``'s box — the anytime twin of
-    ``index_knn`` (same priors, same δ accounting). ``rng`` (a seed or a
-    ``torch.Generator`` on the store's device) feeds the default samplers;
-    ``block_sampler`` / ``coord_sampler`` replace them. ``obs``/``sid``
-    select the observability context and trace id of the session's epoch
-    spans. ``deadline_ms`` with ``round_ms`` turns on deadline-aware round
-    selection (``RaceSession.set_deadline``)."""
-    if hasattr(store, "shards"):
-        raise NotImplementedError(
-            "anytime sessions over a sharded store: the sharded index is not "
-            "ported yet (ROADMAP.md Queue 1 item 7)")
+                 coord_sampler: Optional[CoordSampler] = None,
+                 block_samplers=None, coord_samplers=None) -> RaceSession:
+    """The resumable session for ``store``'s box and layout — the anytime
+    twin of ``index_knn`` (same priors, same δ accounting). ``rng`` (a seed
+    or a ``torch.Generator`` on the store's device) feeds the default
+    samplers; ``block_sampler`` / ``coord_sampler`` replace them, and on a
+    sharded store ``block_samplers`` / ``coord_samplers`` give shard s's at
+    s. ``obs``/``sid`` select the observability context and trace id of
+    the session's epoch spans. ``deadline_ms`` with ``round_ms`` turns on
+    deadline-aware round selection (``RaceSession.set_deadline``)."""
     cfg = cfg if cfg is not None else store.cfg
     if cfg.k > store.n_live:
         raise ValueError(
             f"k={cfg.k} exceeds the index's {store.n_live} live slots — "
             "tombstoned slots can never be returned")
     w = store.prior_weight if (warm_start or prior_hint is not None) else 0.0
-    if store.kind == "sparse":
+    if hasattr(store, "shards"):
+        Q = (queries[0] if isinstance(queries, tuple) else queries).shape[0]
+        priors = (None if prior_hint is None
+                  else sh.shard_priors(store, prior_hint, Q))
+        if store.kind == "sparse":
+            sess = ShardedSparseSession(
+                store, queries, rng, cfg=cfg, eliminate=eliminate,
+                priors=priors, prior_weight=w, chunk_rounds=chunk_rounds,
+                obs=obs, sid=sid, coord_samplers=coord_samplers)
+        else:
+            sess = ShardedFusedSession(
+                store, queries, rng, cfg=cfg, impl=impl, eliminate=eliminate,
+                priors=priors, prior_weight=w, obs=obs, sid=sid,
+                block_samplers=block_samplers)
+    elif store.kind == "sparse":
         sess = SparseRoundsSession(
             store, queries, rng, cfg=cfg, eliminate=eliminate,
             prior=prior_hint, prior_weight=w, chunk_rounds=chunk_rounds,

@@ -5,9 +5,10 @@ the per-round one for sparse stores.
 (Q, n) arm state with one ``block_pull_multi`` launch per round: the B
 lowest-LCB candidates of every active query take P pulls each, arms past
 MAX_PULLS are evaluated exactly, and the Alg. 1 acceptance step runs every
-round. Its pieces (``RoundsRaceFns``) are generic over ``pull_fn`` /
-``exact_fn`` closures, so other boxes and resumable sessions can drive
-them. The host meets the device once per round: one ``host_fetch`` of
+round. Its pieces (``RoundsRaceFns``, from ``core/ucb.make_rounds_race``,
+which the paper path's one-query race shares) are generic over
+``pull_fn`` / ``exact_fn`` closures, so other boxes and resumable sessions
+can drive them. The host meets the device once per round: one ``host_fetch`` of
 the all-done flag and the pull slack that gates the next round's exact
 evaluation.
 
@@ -60,7 +61,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,8 +73,8 @@ from repro_torch.core.bmo_nn import (BlockSampler, CoordSampler, KNNResult,
                                      default_coord_sampler,
                                      sparse_exact_theta, sparse_queries)
 from repro_torch.core.datasets import SparseDataset
-from repro_torch.core.ucb import (INF, acceptance_step,
-                                  acceptance_step_masked, per_arm, pull_slack,
+from repro_torch.core.ucb import (INF, RoundsRaceFns, _prior2,
+                                  acceptance_step_masked, make_rounds_race,
                                   smallest_k, topk_from_state,
                                   topk_from_state_masked)
 from repro_torch.device import make_generator
@@ -84,195 +85,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.obs import get_obs
 from repro_torch.obs import profile as obs_profile
 from repro_torch.utils.hostsync import host_fetch
-
-
-class BatchedRaceState(NamedTuple):
-    mean: torch.Tensor        # (Q, n)
-    count: torch.Tensor       # (Q, n)
-    m2: torch.Tensor          # (Q, n)
-    exact: torch.Tensor       # (Q, n) bool
-    accepted: torch.Tensor    # (Q, n) bool
-    rejected: torch.Tensor    # (Q, n) bool
-    coord_ops: torch.Tensor   # (Q,)
-    rounds: torch.Tensor      # (Q,) int32 rounds spent while the query was active
-    done: torch.Tensor        # (Q,) bool
-    round_no: int             # rounds run (host-side)
-    all_done: bool            # every query done (host-side, from the round's sync)
-    slack: float              # pull slack of the next round (host-side, gates
-                              # its exact evaluation; ``ucb.pull_slack``)
-
-
-class RoundsRaceFns(NamedTuple):
-    """The per-round driver's pieces, exposed so callers can drive the race
-    in bounded chunks instead of to certification. All members are closures
-    over the box's pull/exact functions."""
-    init: Callable        # () -> BatchedRaceState
-    body: Callable        # state -> state (one racing round)
-    active: Callable      # state -> bool (queries left AND round cap unhit)
-    ci_radius: Callable   # state -> (Q, n) CI half-widths
-    exact_fn: Callable    # (sel (Q, B)) -> (Q, B) exact θ
-    exact_cost: torch.Tensor  # (Q, n) coordinate-op cost of an exact eval
-    max_rounds: int
-
-
-def _prior2(prior_var: torch.Tensor, Q: int, n: int) -> torch.Tensor:
-    """(n,) build-time per-arm priors or (Q, n) per-query seeded priors
-    (near-repeat warm starts), as (Q, n)."""
-    return prior_var[None].expand(Q, n) if prior_var.dim() == 1 else prior_var
-
-
-def make_rounds_race(
-    pull_fn: Callable,          # (sel (Q, B)) -> (Q, B, P) samples
-    exact_fn: Callable,         # (sel (Q, B)) -> (Q, B) exact θ
-    n: int,
-    Q: int,
-    max_pulls,                  # pulls that constitute an exact evaluation:
-                                # scalar, (n,) or (Q, n)
-    pull_cost: float,
-    exact_cost,                 # coordinate-ops per exact evaluation:
-                                # scalar, (n,) or (Q, n)
-    cfg: BMOConfig,
-    *,
-    device: torch.device,
-    eliminate: bool = True,
-    dead: Optional[torch.Tensor] = None,       # (n,) bool tombstones
-    prior_var: Optional[torch.Tensor] = None,  # (n,) or (Q, n) variance prior
-    prior_weight: float = 0.0,
-    max_pulls_static: int = 0,  # upper bound of max_pulls (0: its maximum)
-) -> RoundsRaceFns:
-    """The per-round driver (DESIGN.md §3.2) as init/body/active pieces.
-    ``pull_fn`` draws its own randomness (the caller's sampler) and gets
-    arm id −1 for a lane whose result is discarded: dead arms at the init,
-    and selections that are not valid candidates. The union bound and the
-    round cap take ``max_pulls_static``, else the largest ``max_pulls``."""
-    k = cfg.k
-    B = min(cfg.batch_arms, n)
-    P = cfg.pulls_per_round
-    max_pulls, max_pulls_hi = per_arm(max_pulls, (Q, n), device,
-                                      max_pulls_static)
-    exact_cost, _ = per_arm(exact_cost, (Q, n), device)
-    log_term = math.log(2.0 / conf.delta_prime(cfg.delta, n, max_pulls_hi))
-    max_rounds = cfg.max_rounds or int(
-        2 * math.ceil(n * max_pulls_hi / max(B * P, 1)) + n + 16)
-
-    alive = (torch.ones((n,), dtype=torch.bool, device=device) if dead is None
-             else ~dead)
-    alive_f = alive.to(torch.float32)
-    n_alive = torch.sum(alive_f)
-    if prior_var is None:
-        prior_var = torch.zeros((n,), dtype=torch.float32, device=device)
-        prior_weight = 0.0
-    prior2 = _prior2(prior_var, Q, n)
-    prior_pool = torch.sum(prior2 * alive_f[None], 1) / torch.clamp(
-        n_alive, min=1.0)
-
-    def ci_radius(st: BatchedRaceState) -> torch.Tensor:
-        if cfg.sigma is not None:
-            sig_sq = torch.full((Q, n), float(cfg.sigma) ** 2,
-                                dtype=torch.float32, device=device)
-        else:
-            # per-query pooled variance, warm-started by the prior
-            num = torch.sum(st.m2 * alive_f, 1) + prior_weight * prior_pool
-            den = (torch.sum(torch.clamp(st.count - 1.0, min=0.0) * alive_f, 1)
-                   + prior_weight)
-            global_var = num / torch.clamp(den, min=1.0)          # (Q,)
-            sig_sq = conf.empirical_sigma_sq_prior(
-                st.m2, st.count, 1e-12, global_var[:, None], prior2,
-                prior_weight)
-        c = conf.hoeffding_radius(sig_sq, st.count, log_term)
-        return torch.where(st.exact, 0.0, c)
-
-    def need(st: BatchedRaceState) -> torch.Tensor:
-        """(Q, n) bool — arms the next round may select for pulls."""
-        return (~st.accepted & ~st.rejected & ~st.exact
-                & ~st.done[:, None])
-
-    def sync(st: BatchedRaceState) -> BatchedRaceState:
-        # the round's one host sync: the stop rule and the exact-eval gate
-        host = torch.stack([torch.all(st.done).to(torch.float32),
-                            pull_slack(st.count, max_pulls, need(st))])
-        all_done, slack = host_fetch(host).tolist()
-        return st._replace(all_done=bool(all_done), slack=slack)
-
-    def init_state() -> BatchedRaceState:
-        # wide init (paper App. D-A): every alive arm of every query gets
-        # init_pulls samples, as reps of ONE (Q, n, P) launch
-        reps = max(1, max(cfg.init_pulls, 2) // P)
-        flat = torch.zeros((Q * n,), dtype=torch.float32, device=device)
-        mean, count, m2 = flat, flat, flat
-        all_arms = torch.where(alive, torch.arange(n, device=device),
-                               -1)[None].expand(Q, n)
-        mask = alive_f[None].expand(Q, n).reshape(-1)
-        for _ in range(reps):
-            vals = pull_fn(all_arms)                             # (Q, n, P)
-            mean, count, m2 = conf.welford_batch_update(
-                mean, count, m2, vals.reshape(Q * n, P), mask)
-        no = torch.zeros((Q, n), dtype=torch.bool, device=device)
-        return sync(BatchedRaceState(
-            mean=mean.reshape(Q, n), count=count.reshape(Q, n),
-            m2=m2.reshape(Q, n), exact=no, accepted=no,
-            rejected=(~alive)[None].expand(Q, n),
-            coord_ops=torch.full((Q,), float(reps * P * pull_cost),
-                                 device=device) * n_alive,
-            rounds=torch.zeros((Q,), dtype=torch.int32, device=device),
-            done=torch.zeros((Q,), dtype=torch.bool, device=device),
-            round_no=0, all_done=False, slack=-INF))
-
-    def active(st: BatchedRaceState) -> bool:
-        return not st.all_done and st.round_no < max_rounds
-
-    def body(st: BatchedRaceState) -> BatchedRaceState:
-        ci = ci_radius(st)
-        sel_need = need(st)
-
-        # ---- selection: per query, B lowest-LCB candidates ---------------
-        sel = smallest_k(torch.where(sel_need, st.mean - ci, INF), B)  # (Q, B)
-        sel_valid = torch.gather(sel_need, 1, sel)
-
-        vals = pull_fn(torch.where(sel_valid, sel, -1))          # (Q, B, P)
-        nm, nc, n2 = conf.welford_batch_update(
-            torch.gather(st.mean, 1, sel).reshape(-1),
-            torch.gather(st.count, 1, sel).reshape(-1),
-            torch.gather(st.m2, 1, sel).reshape(-1),
-            vals.reshape(Q * B, P), sel_valid.reshape(-1).to(torch.float32))
-        nm, nc, n2 = nm.reshape(Q, B), nc.reshape(Q, B), n2.reshape(Q, B)
-        coord_ops = st.coord_ops + torch.sum(sel_valid, 1) * P * pull_cost
-
-        # ---- lazy exact evaluation for arms that crossed MAX_PULLS -------
-        sel_exact = torch.gather(st.exact, 1, sel)
-        crossed = (nc >= torch.gather(max_pulls, 1, sel)) & sel_valid \
-            & ~sel_exact
-        if st.slack + P >= 0:
-            nm = torch.where(crossed, exact_fn(sel), nm)
-        coord_ops = coord_ops + torch.sum(
-            crossed * torch.gather(exact_cost, 1, sel), 1)
-        st2 = st._replace(
-            mean=st.mean.scatter(1, sel, nm), count=st.count.scatter(1, sel, nc),
-            m2=st.m2.scatter(1, sel, n2),
-            exact=st.exact.scatter(1, sel, sel_exact | crossed),
-            coord_ops=coord_ops)
-
-        # ---- per-query acceptance / rejection (shared Alg. 1 step) -------
-        accept_new, rejected = acceptance_step(
-            st2.mean, ci_radius(st2), st2.exact, st2.accepted, st2.rejected,
-            k, epsilon=cfg.epsilon, eliminate=eliminate)
-        # freeze finished queries
-        frozen = st.done[:, None]
-        accepted = torch.where(frozen, st.accepted, st2.accepted | accept_new)
-        rejected = torch.where(frozen, st.rejected, rejected)
-
-        # done at k certified arms — or when no candidate is left at all
-        # (reachable only in a race over fewer than k live slots)
-        no_candidates = torch.sum(~accepted & ~rejected, 1) == 0
-        done = st.done | (torch.sum(accepted, 1) >= k) | no_candidates
-        rounds = torch.where(st.done, st.rounds, st.rounds + 1)
-        return sync(st2._replace(accepted=accepted, rejected=rejected,
-                                 rounds=rounds, done=done,
-                                 round_no=st.round_no + 1))
-
-    return RoundsRaceFns(init=init_state, body=body, active=active,
-                         ci_radius=ci_radius, exact_fn=exact_fn,
-                         exact_cost=exact_cost, max_rounds=max_rounds)
 
 
 def run_to_certification(fns: RoundsRaceFns, k: int) -> KNNResult:
@@ -594,30 +406,60 @@ def fused_race_topk(x, qs, alive, prior_var, generator=None, *,
     return res
 
 
+def local_dense_race(x_parts: Sequence[torch.Tensor],
+                     q_parts: Sequence[torch.Tensor], alive, prior,
+                     samplers: Sequence[BlockSampler], *, cfg: BMOConfig,
+                     block: int, exact_cost: float, impl: str,
+                     eliminate: bool, prior_weight: float):
+    """The per-round driver's dense race over one store's (or one shard's)
+    slots, one ``block_pull_multi`` launch a round and part. The slots'
+    columns may be split over M model parts (``core/distributed.py``): a
+    pull then takes one block of each part, drawn by that part's sampler,
+    and averages the M partial block means (the reference's ``pmean``); an
+    exact evaluation sums the parts' distances over the pulls' width, the
+    total width of the parts (d_pad for an index shard). Results land on
+    the first part's device."""
+    dev = x_parts[0].device
+    n_loc, d_m = x_parts[0].shape
+    nb_loc = d_m // block
+    width = float(sum(x.shape[1] for x in x_parts))
+    M = len(x_parts)
+    P = cfg.pulls_per_round
+
+    def pull(sel):
+        vals = []
+        for x, q, sample in zip(x_parts, q_parts, samplers):
+            blk = sample(tuple(sel.shape) + (P,), nb_loc)
+            vals.append(kops.block_pull_multi(
+                x, q, sel.to(x.device), blk.to(x.device), block=block,
+                metric=cfg.metric, impl=impl).to(dev))
+        return vals[0] if M == 1 else sum(vals) / M
+
+    def exact(sel):
+        th = [_dense_exact_theta(x, q, sel.to(x.device), cfg.metric,
+                                 width).to(dev)
+              for x, q in zip(x_parts, q_parts)]
+        return th[0] if M == 1 else sum(th)
+
+    return batched_race_topk(
+        pull, exact, n=n_loc, Q=q_parts[0].shape[0], max_pulls=float(nb_loc),
+        pull_cost=float(block), exact_cost=exact_cost, cfg=cfg, device=dev,
+        eliminate=eliminate, dead=~alive, prior_var=prior,
+        prior_weight=prior_weight)
+
+
 def _dense_index_knn(x, qs, alive, prior_var, sample_blocks: BlockSampler, *,
                      cfg: BMOConfig, block: int, d: int, impl: str,
                      eliminate: bool, prior_weight: float) -> KNNResult:
     """The per-round driver on a dense/rotated store: one
     ``block_pull_multi`` launch per round. Races on the pulls' ρ/d_pad
     scale and reports θ = ρ/d."""
-    n, d_pad = x.shape
-    nb = d_pad // block
-
-    def pull(sel):
-        blk = sample_blocks(tuple(sel.shape) + (cfg.pulls_per_round,), nb)
-        return kops.block_pull_multi(x, qs, sel, blk, block=block,
-                                     metric=cfg.metric, impl=impl)
-
-    def exact(sel):
-        return _dense_exact_theta(x, qs, sel, cfg.metric, d_pad)
-
-    res = batched_race_topk(
-        pull, exact, n=n, Q=qs.shape[0], max_pulls=float(nb),
-        pull_cost=float(block), exact_cost=float(d), cfg=cfg,
-        device=x.device, eliminate=eliminate, dead=~alive,
-        prior_var=prior_var, prior_weight=prior_weight)
+    res = local_dense_race([x], [qs], alive, prior_var, [sample_blocks],
+                           cfg=cfg, block=block, exact_cost=float(d),
+                           impl=impl, eliminate=eliminate,
+                           prior_weight=prior_weight)
     # from the race's ρ/d_pad to θ = ρ/d (exactly 1.0 when d_pad = d)
-    return res._replace(values=res.values * (d_pad / d))
+    return res._replace(values=res.values * (x.shape[1] / d))
 
 
 def make_sparse_rounds_race(indices, values, nnz, alive, prior_var,
@@ -671,7 +513,15 @@ def index_knn(store, queries, generator=None, *, k=None, impl: str = "auto",
     place of the store's build-time per-arm priors (the near-repeat warm
     start); a seeded prior implies warm start. ``generator`` (a
     ``torch.Generator`` on the store's device, or a seed) feeds the default
-    samplers; ``block_sampler`` and ``coord_sampler`` replace them."""
+    samplers; ``block_sampler`` and ``coord_sampler`` replace them.
+
+    A ``ShardedIndexStore`` goes to ``sharded.sharded_index_knn`` (global
+    slot ids), whose per-shard samplers come from ``generator``."""
+    if hasattr(store, "shards"):
+        from repro_torch.index.sharded import sharded_index_knn
+        return sharded_index_knn(store, queries, generator, k=k, impl=impl,
+                                 eliminate=eliminate, warm_start=warm_start,
+                                 mode=mode, prior_hint=prior_hint)
     cfg = store.cfg if k is None else dataclasses.replace(store.cfg, k=k)
     n_live = store.n_live
     if cfg.k > n_live:

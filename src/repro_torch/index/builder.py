@@ -47,20 +47,22 @@ def _sparse_prior(values: torch.Tensor, nnz: torch.Tensor, d: int):
 
 def build_index(corpus, cfg: BMOConfig, rng=0, *,
                 capacity: Optional[int] = None, impl: str = "auto",
-                device=None) -> IndexStore:
+                device=None, signs: Optional[torch.Tensor] = None
+                ) -> IndexStore:
     """Preprocess ``corpus`` into an IndexStore on ``device`` (default: the
     GPU). ``corpus``: a dense (n, d) numpy array or tensor, or, with
     ``cfg.sparse``, also a ``SparseDataset``. ``cfg.rotate`` and
     ``cfg.sparse`` select the §IV box; ``rng`` (a seed or a
-    ``torch.Generator`` on the device) draws the rotated box's signs.
-    ``capacity`` defaults to the next power of two."""
+    ``torch.Generator`` on the device) draws the rotated box's signs;
+    ``signs`` (d_pad,) gives them instead (the shards of a sharded index
+    share one rotation). ``capacity`` defaults to the next power of two."""
     dev = resolve_device(device)
     if cfg.sparse:
         return _build_sparse(corpus, cfg, capacity, dev)
     x = torch.as_tensor(corpus, dtype=torch.float32, device=dev)
     n, d = x.shape
     kind = "rotated" if cfg.rotate else "dense"
-    signs = None
+    given, signs = signs, None
     if cfg.rotate:
         if cfg.metric != "l2":
             raise ValueError("rotation preserves only ℓ2")
@@ -68,7 +70,8 @@ def build_index(corpus, cfg: BMOConfig, rng=0, *,
             raise ValueError("the rotated box needs a power-of-two block")
         dp = max(next_pow2(d), cfg.block)
         x = torch.nn.functional.pad(x, (0, dp - d))
-        signs = _rademacher(dp, make_generator(rng, dev), dev)
+        signs = (_rademacher(dp, make_generator(rng, dev), dev)
+                 if given is None else given[:dp].to(dev))
         x = kops.fwht(x * signs[None, :], impl=impl)
     # blocked layout
     pad = (-x.shape[1]) % cfg.block

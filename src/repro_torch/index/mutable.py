@@ -40,8 +40,12 @@ def _pad_rows(t: torch.Tensor, extra: int, fill=0) -> torch.Tensor:
 def _grow(store: IndexStore, need: int) -> IndexStore:
     cap = store.capacity
     new_cap = max(2 * cap, next_pow2(cap + need))
-    extra = new_cap - cap
     log.info("growing index capacity %d -> %d", cap, new_cap)
+    return _grow_rows(store, new_cap - cap)
+
+
+def _grow_rows(store: IndexStore, extra: int) -> IndexStore:
+    """``store`` with ``extra`` dead slots appended."""
     kw = dict(alive=_pad_rows(store.alive, extra),
               prior_var=_pad_rows(store.prior_var, extra))
     if store.kind == "sparse":

@@ -13,8 +13,9 @@ next-token payload rides its sidecar) and builds and saves one when it does
 not; a directory written by the JAX package's CLI loads too.
 ``--index-append`` grows the datastore during decode; ``--tune`` races the
 index's serving knobs after build or load and saves the winner beside it.
-Not ported yet: ``--index-shards > 1`` (ROADMAP.md Queue 1 item 7),
-``--fleet-root`` (item 8), ``--data`` or ``--model > 1`` (item 9).
+``--index-shards S`` builds a sharded index with its S shards on the
+serving device. Not ported yet: ``--fleet-root`` (ROADMAP.md Queue 1 item
+8), ``--data`` or ``--model > 1`` (item 9).
 """
 from __future__ import annotations
 
@@ -56,7 +57,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="insert each decode step's (hidden, token) pairs "
                          "back into the index")
     ap.add_argument("--index-shards", type=int, default=0,
-                    help=">1: a sharded index (not ported yet)")
+                    help=">1: a sharded index, its shards on the serving "
+                         "device")
     ap.add_argument("--tune", action="store_true",
                     help="autotune the retrieval index after build/load "
                          "(repro_torch.tune) and serve the winner; with "
@@ -75,8 +77,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "telemetry after serving and log its "
                          "recommendation")
     ap.add_argument("--autoscale-apply", action="store_true",
-                    help="apply the recall guard's decision (replicas are "
-                         "not ported yet)")
+                    help="apply the add_replicas recommendation to the "
+                         "live handle and the recall guard's decision "
+                         "(reshard stays advisory)")
     ap.add_argument("--audit-rate", type=float, default=0.0,
                     help="shadow δ-audit: re-answer this fraction of "
                          "certified tickets exactly, off the critical path, "
@@ -103,10 +106,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise for the flags whose machinery is not ported yet."""
-    if args.index_shards > 1:
-        raise NotImplementedError(
-            f"--index-shards {args.index_shards}: the sharded index is not "
-            "ported yet (ROADMAP.md Queue 1 item 7)")
     if args.fleet_root:
         raise NotImplementedError(
             "--fleet-root: the namespace fleet is not ported yet (ROADMAP.md "
@@ -131,8 +130,9 @@ def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
         log.info("loaded index from %s (%d live slots, %d shard(s))",
                  args.index_dir, index.n_live, index.n_shards)
     else:
-        index = Index.build(keys, knn_cfg.bmo, 7, payload=next_ids,
-                            device=device, **policies)
+        index = Index.build(keys, knn_cfg.bmo, 7,
+                            shards=max(args.index_shards, 1),
+                            payload=next_ids, device=device, **policies)
         if args.index_dir:
             index.save(args.index_dir)
             log.info("built + saved index to %s (%d shard(s))",
@@ -182,9 +182,9 @@ def report_after_serving(args, engine: ServeEngine) -> dict:
                  decision.action, decision.value,
                  decision.reason or "no signal")
         if args.autoscale_apply and decision.action == "add_replicas":
-            raise NotImplementedError(
-                "--autoscale-apply add_replicas: replicas are not ported "
-                "yet (ROADMAP.md Queue 1 item 7)")
+            engine.index.add_replicas(decision.value)
+            log.info("applied: read fan-out now %d replicas",
+                     engine.stats.replicas)
     if args.slo and plane is not None:
         from repro_torch.obs import (AlertSink, SLOEngine, default_slos,
                                      plane_sources)

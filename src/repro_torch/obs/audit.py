@@ -186,13 +186,42 @@ def clopper_pearson_upper(failures: int, n: int,
 
 # -- exact oracle over every store box ---------------------------------------
 
+def _scan_sharded(store, queries, k: int, served_ids=None, *,
+                  impl: str = "auto"):
+    """``_scan`` over a sharded store: each shard's exact candidates with
+    their global ids (shard · stride + local), merged by θ with the lower
+    global id first among ties, as the serving merge does; a served id is
+    read from its own shard."""
+    stride = store.stride
+    served = (None if served_ids is None
+              else np.asarray(served_ids, np.int64))
+    ids_all, vals_all, got = [], [], None
+    for s, shard in enumerate(store.shards):
+        local = None
+        if served is not None:
+            mine = (served >= s * stride) & (served < (s + 1) * stride)
+            local = np.where(mine, served - s * stride, -1)
+        ids, vals, g = _scan(shard, queries, k, local, impl=impl)
+        ids_all.append(np.where(np.isfinite(vals), ids + s * stride, -1))
+        vals_all.append(vals)
+        if g is not None:
+            got = g if got is None else np.minimum(got, g)
+    ids, vals = np.concatenate(ids_all, 1), np.concatenate(vals_all, 1)
+    order = np.argsort(vals, axis=1, kind="stable")[:, :min(k, ids.shape[1])]
+    return (np.take_along_axis(ids, order, 1),
+            np.take_along_axis(vals, order, 1), got)
+
+
 def _scan(store, queries, k: int, served_ids=None, *, impl: str = "auto"):
     """One pass of the exact oracle over ``store``'s slots: (exact ids,
     exact θ, served θ) as host arrays — (Q, min(k, capacity)) int64 ids of
     the k smallest θ in ascending order (the lower slot first among ties),
     their θ, and the (Q, k') θ of ``served_ids`` (inf where an id is −1,
     out of range or dead), read from the same distance rows; the last is
-    None without ``served_ids``. θ = distance / ``store.d``."""
+    None without ``served_ids``. θ = distance / ``store.d``. A sharded
+    store's ids are global (``_scan_sharded``)."""
+    if hasattr(store, "shards"):
+        return _scan_sharded(store, queries, k, served_ids, impl=impl)
     dev = store.device
     if store.kind == "sparse":
         q_idx, q_val, _q_nnz = queries

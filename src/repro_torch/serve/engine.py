@@ -18,9 +18,9 @@ inserted back into the index, and the handle's ``CompactionPolicy``
 amortises the tombstone debt.
 
 The model is an ``nn.Module`` holding its weights (no parameter tree, no
-mesh); the engine runs on one device. Not ported yet: a sharded index
-(``index_shards > 1``, ROADMAP.md Queue 1 item 7) and a fleet's plane
-(``plane_namespace``, item 8).
+mesh); the engine runs on one device, and a sharded index
+(``index_shards > 1``) puts its shards on that device. Not ported yet: a
+fleet's plane (``plane_namespace``, ROADMAP.md Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -32,7 +32,6 @@ import torch
 
 from repro_torch.api import (CachePolicy, CompactionPolicy, Index, QueryCache,
                              ServeStats)
-from repro_torch.api.handle import _sharded_not_ported
 from repro_torch.configs.base import BMOConfig, ParallelPlan
 from repro_torch.device import resolve_device
 from repro_torch.serve.plane import PlaneConfig, RequestPlane
@@ -58,7 +57,8 @@ class KNNLMConfig:
     cache_size: int = 256      # query LRU entries (0 disables)
     compact_threshold: float = 0.5  # auto-compact when tombstones cross this
                                     # (>=1 disables)
-    index_shards: int = 0      # >1: a sharded index (not ported yet)
+    index_shards: int = 0      # >1: a sharded index (its shards on the
+                               # engine's device)
     near_threshold: float = 0.95    # cosine similarity above which a cache
                                     # miss races CI-warm-started from the
                                     # cached neighbour (0 disables)
@@ -110,9 +110,6 @@ class ServeEngine:
         if model.device != device:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"serves on {device}")
-        if knn_lm is not None and knn_lm.index_shards > 1:
-            raise _sharded_not_ported(
-                f"KNNLMConfig(index_shards={knn_lm.index_shards})")
         if plane_namespace is not None:
             raise NotImplementedError(
                 f"plane_namespace={plane_namespace!r}: a fleet's plane is "
@@ -139,7 +136,8 @@ class ServeEngine:
                                     compaction=knn_lm.compaction_policy())
             else:
                 handle = Index.build(
-                    datastore[0], knn_lm.bmo, 7, payload=next_ids,
+                    datastore[0], knn_lm.bmo, 7,
+                    shards=max(knn_lm.index_shards, 1), payload=next_ids,
                     cache=knn_lm.cache_policy(),
                     compaction=knn_lm.compaction_policy(), device=device)
             if handle.payload is None:

@@ -573,6 +573,9 @@ class RequestPlane:
                       if g.store_epoch != g.index.epoch]:
             epoch = group.index.epoch
             self._groups.remove(group)
+            # the epochs paid against the old store are real load: keep
+            # them in the per-shard telemetry
+            group.index._record_session_telemetry(group.session)
             for member in group.members:
                 entry = member.entry
                 if entry.ticket.terminal:
@@ -629,6 +632,7 @@ class RequestPlane:
             mask[retire_rows] = True
             group.session.retire(mask)
         if not group.members:
+            group.index._record_session_telemetry(group.session)
             self._groups.remove(group)
 
     def _trace_ticket_epoch(self, entry: _Entry, member: _Member,

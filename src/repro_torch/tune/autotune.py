@@ -13,6 +13,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.device import make_generator
+from repro_torch.index.sharded import rows_of
 from repro_torch.kernels import ops as kops
 from repro_torch.tune import sidecar
 from repro_torch.tune.candidates import TunedConfig, candidate_grid
@@ -43,7 +44,7 @@ def synth_queries(store, rng, Q: int = TUNE_QUERIES) -> torch.Tensor:
     alive = torch.nonzero(store.alive).reshape(-1)
     pick = torch.randint(int(alive.shape[0]), (Q,), generator=g,
                          device=store.device)
-    x = store.x[alive[pick]]
+    x = rows_of(store, alive[pick])
     if store.kind == "rotated":
         x = kops.fwht(x) * store.signs[None, :]
     noise = 0.1 * torch.randn((Q, store.d_pad), generator=g,

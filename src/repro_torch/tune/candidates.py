@@ -147,8 +147,10 @@ def _dedup(cands: List[TunedConfig]) -> List[TunedConfig]:
 
 
 def bind_store(store, cfg: BMOConfig):
-    """Rebind a store onto ``cfg`` without touching its arrays."""
-    return dataclasses.replace(store, cfg=cfg)
+    """Rebind a store onto ``cfg`` without touching its arrays (every
+    shard's config, for a sharded store)."""
+    from repro_torch.index.sharded import with_cfg
+    return with_cfg(store, cfg)
 
 
 def tuned_mode(tuned: Optional["TunedConfig"], spec_mode: str) -> str:

@@ -34,7 +34,7 @@ from repro_torch.tune.candidates import TunedConfig, bind_store
 from repro_torch.utils.hostsync import host_fetch
 
 #: histogram kinds the blocking drivers record epoch walls under (the
-#: sharded kind is the reference's; no port driver records it yet)
+#: single-shard and the sharded fused drivers)
 _EPOCH_KINDS = ("fused_blocking", "sharded_fused_blocking")
 
 

@@ -87,7 +87,8 @@ def seed_candidates(store, cands: List[TunedConfig], *,
     if store.kind == "sparse":
         return list(cands), [{"cand": c.to_dict(), "e": None}
                              for c in cands]
-    dtype = str(store.x.dtype).replace("torch.", "")
+    dtype = str(getattr(store, "shards", [store])[0].x.dtype).replace(
+        "torch.", "")
     scored: List[Tuple[float, TunedConfig]] = []
     report = []
     for c in cands:

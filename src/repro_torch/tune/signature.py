@@ -57,9 +57,10 @@ def backend_of(store) -> str:
 
 
 def signature_of(store, backend: str = "") -> StoreSignature:
-    """Signature of an ``IndexStore`` as served (``backend`` defaults to
-    the store's device type)."""
-    arr = store.x if store.x is not None else store.values
+    """Signature of an ``IndexStore`` or ``ShardedIndexStore`` as served
+    (``backend`` defaults to the store's device type)."""
+    leaf = store.shards[0] if hasattr(store, "shards") else store
+    arr = leaf.x if leaf.x is not None else leaf.values
     return StoreSignature(
         scheme=SIGNATURE_SCHEME,
         n_bucket=next_pow2(max(store.n_live, 1)),
@@ -67,6 +68,6 @@ def signature_of(store, backend: str = "") -> StoreSignature:
         dtype=str(arr.dtype).replace("torch.", ""),
         kind=store.kind,
         backend=backend or backend_of(store),
-        shards=1,
+        shards=store.n_shards if hasattr(store, "shards") else 1,
         block=store.block,
     )

@@ -183,10 +183,15 @@ def test_make_session_guards():
     with pytest.raises(ValueError, match="live slots"):
         make_session(store, queries, cfg=BMOConfig(k=10_000))
 
-    class Sharded:
-        shards = ()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        make_session(Sharded(), queries)
+    # a sharded store (once refused as Queue 1 item 7) opens its own
+    # session, under the same k guard
+    from repro_torch.index.sharded import build_sharded_index
+    sharded, _ = build_sharded_index(store.x[:300].numpy(), store.cfg,
+                                     shards=2, device="cpu")
+    sess = make_session(sharded, queries, 1)
+    assert sess.kind == "sharded_fused" and sess.Q == len(queries)
+    with pytest.raises(ValueError, match="live slots"):
+        make_session(sharded, queries, cfg=BMOConfig(k=10_000))
 
 
 def test_host_fetch_is_one_copy_of_any_dtypes():

@@ -1065,3 +1065,84 @@ def test_serving_cli_on_the_card(tmp_path):
     assert run["tokens"].shape == (2, 4) and run["retrieval_ops"] > 0
     assert run["audit"]["mismatch_rows"] == 0
     assert (tmp_path / "health.json").exists()
+
+
+def test_sharded_index_on_the_card_certifies_with_one_sync_an_epoch(gen):
+    """A sharded index with both shards on ``cuda:0`` (rotated box, d = 1100
+    padded to 2048): the blocking race returns the exact top-k with one
+    ``host_fetch`` an epoch, and a session over it crosses to the host once
+    an epoch (one ``host_fetch``, one synchronizing CUDA call by torch's
+    sync debug mode) and certifies the exact top-k."""
+    import warnings
+    from repro_torch.index.sharded import sharded_index_knn
+    from repro_torch.obs import ObsContext, set_obs
+    from repro_torch.utils import hostsync
+    corpus, queries = make_knn_benchmark_data("dense", 3000, 1100, 8, seed=0)
+    cfg = BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, rotate=True)
+    idx = Index.build(corpus, cfg, shards=2, device=["cuda:0"] * 2)
+    assert idx.store.stacked_x.shape == (2, 2048, 2048)
+    c, q = corpus.astype(np.float64), queries.astype(np.float64)
+    dist = (q * q).sum(1)[:, None] + (c * c).sum(1)[None] - 2.0 * q @ c.T
+    truth = [set(r) for r in np.argsort(dist, 1, kind="stable")[:, :5]
+             .tolist()]
+    row_of = np.full(idx.capacity, -1)
+    row_of[idx.build_gids] = np.arange(len(corpus))
+
+    ctx = ObsContext("t", enabled=True)
+    old = set_obs(ctx)
+    try:
+        before = fused_epoch_pull_cuda.launches
+        hostsync.reset_syncs()
+        res = sharded_index_knn(idx.store, queries, 0)
+        syncs = hostsync.syncs()
+    finally:
+        set_obs(old)
+    epochs = ctx.registry.histogram(
+        "repro_race_epoch_ms", "wall time of one race epoch (ms)",
+        kind="sharded_fused_blocking").count
+    assert epochs > 0 and syncs == epochs
+    assert fused_epoch_pull_cuda.launches - before >= 2 + epochs
+    assert [set(r) for r in row_of[res.indices.cpu().numpy()].tolist()] \
+        == truth
+
+    sess = idx.race(queries, 0)
+    per_epoch = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        while True:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                before = hostsync.syncs()
+                going = sess.step()
+            per_epoch.append((hostsync.syncs() - before, sum(
+                "synchroniz" in str(w.message) for w in caught)))
+            if not going:
+                break
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert per_epoch == [(1, 1)] * len(per_epoch)
+    snap = sess.snapshot
+    assert snap.done.all() and (snap.acc_count == 5).all()
+    assert [set(r) for r in row_of[snap.ids].tolist()] == truth
+
+
+def test_kmeans_on_the_card(gen):
+    """BMO k-means on the card: the assignment races on ``block_pull``,
+    the exact assignment runs on ``pairwise_dist``; the final assignment
+    agrees with ``assign_exact`` to the final centroids on ≥ 99% of the
+    points, at fewer coordinate reads than exact Lloyd."""
+    from repro_torch.core import kmeans
+    from repro_torch.data.synthetic import clustered_dense
+    pts = clustered_dense(256, 2048, n_clusters=8, noise=0.1, seed=3,
+                          device="cuda")
+    cfg = BMOConfig(k=1, delta=0.01, block=64, batch_arms=8,
+                    pulls_per_round=1, init_pulls=1)
+    b0, p0 = block_pull_cuda.launches, pairwise_dist_cuda.launches
+    res = kmeans.kmeans(pts, 8, 2, cfg, 0)
+    assert block_pull_cuda.launches > b0
+    exact, _ = kmeans.assign_exact(pts, res.centroids)
+    assert pairwise_dist_cuda.launches > p0
+    assert float((res.assignment == exact).float().mean()) >= 0.99
+    assert torch.isfinite(res.centroids).all()
+    assert 0 < float(res.coord_ops) < float(res.exact_ops)

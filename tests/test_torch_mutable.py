@@ -462,17 +462,31 @@ def test_mutations_leave_the_old_store_unchanged(rotate):
 # ---------------------------------------------------------------------------
 
 def test_sharded_index_raises_not_implemented(tmp_path):
-    corpus, _ = _data(64, 64, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Index.build(corpus, _cfg(block=16), device="cpu", shards=2)
+    """Once a refusal pin (Queue 1 item 7); the sharded index is ported:
+    ``build(shards=2)``, a single-shard directory loaded at two shards, and
+    a sharded directory read back, each answering the brute-force top-k
+    (``tests/test_torch_sharded.py`` and ``test_torch_admin.py`` hold them
+    to the reference)."""
+    corpus, queries = _data(64, 64, 2)
+    truth = [set(r) for r in np.argsort(
+        ((queries[:, None] - corpus[None]) ** 2).sum(-1), 1)[:, :3].tolist()]
+    idx = Index.build(corpus, _cfg(block=16), device="cpu", shards=2)
+    assert idx.n_shards == 2
+    row_of = np.full(idx.capacity, -1)
+    row_of[idx.build_gids] = np.arange(64)
+    assert [set(r) for r in row_of[idx.query(queries).indices].tolist()] \
+        == truth
     path = str(tmp_path / "idx")
     Index.build(corpus, _cfg(block=16), device="cpu").save(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        Index.load(path, shards=2, device="cpu")
-    with open(os.path.join(path, "manifest.msgpack"), "wb") as f:
-        f.write(b"\x80")                  # what marks a sharded directory
-    with pytest.raises(NotImplementedError, match="sharded"):
-        Index.load(path, device="cpu")
+    resharded = Index.load(path, shards=2, device="cpu")
+    assert resharded.n_shards == 2 and resharded.n_live == 64
+    spath = str(tmp_path / "sharded")
+    idx.save(spath)
+    assert os.path.exists(os.path.join(spath, "manifest.msgpack"))
+    back = Index.load(spath, device="cpu")
+    assert back.n_shards == 2
+    assert [set(r) for r in row_of[back.query(queries).indices].tolist()] \
+        == truth
 
 
 def test_a_saved_sparse_index_loads_in_both_packages(tmp_path):

@@ -555,9 +555,15 @@ def test_engine_raises_without_a_gpu_and_for_what_is_not_ported(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(tm, batch_size=1, max_seq=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ServeEngine(tm, batch_size=1, max_seq=8, device="cpu",
-                    knn_lm=KNNLMConfig(index_shards=2))
+    # a sharded retrieval index (once refused as Queue 1 item 7) serves
+    keys, ids = _datastore(64)
+    sharded = ServeEngine(tm, batch_size=1, max_seq=8, device="cpu",
+                          knn_lm=KNNLMConfig(index_shards=2,
+                                             bmo=BMOConfig(k=4, block=64)),
+                          datastore=(keys, ids))
+    assert sharded.index.n_shards == 2
+    out, ops = sharded.generate(np.ones((1, 3), np.int32), 2)
+    assert out.shape == (1, 2) and ops > 0
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         ServeEngine(tm, batch_size=1, max_seq=8, device="cpu",
                     plane_namespace="default")
@@ -629,6 +635,12 @@ def test_cli_serves_an_index_dir_written_by_the_reference(tmp_path):
                                           "item 8"),
     (["--data", "2"], "item 9"), (["--model", "2"], "item 9")])
 def test_cli_flags_not_ported_raise(flags, item):
+    if item == "item 7":
+        # ported since this case was a refusal pin: two index shards serve
+        run = serve_cli.main(CLI + flags)
+        assert run["tokens"].shape == (2, 4) and run["retrieval_ops"] > 0
+        assert len(run["stats"]["shard_coord_ops"]) == 2
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
         serve_cli.main(CLI + flags)
 

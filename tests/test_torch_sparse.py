@@ -497,6 +497,9 @@ def test_sparse_index_finds_the_exact_neighbours_through_the_handle():
     assert by_csr.kind == "sparse"
     with pytest.raises(ValueError, match="sparse"):
         by_csr.query(q, 1, mode="fused")
-    with pytest.raises(NotImplementedError, match="sharded"):
-        Index.build(corpus, cfg, device="cpu", shards=2)
+    # a sharded sparse index (once refused: ROADMAP.md Queue 1 item 7)
+    sharded = Index.build(corpus, cfg, device="cpu", shards=2)
+    row_of = np.full(sharded.capacity, -1)
+    row_of[sharded.build_gids] = np.arange(len(corpus))
+    assert sets(row_of[sharded.query(q, 1).indices]) == sets(truth)
     assert by_csr.query(q, 2, k=2).indices.shape == (4, 2)
