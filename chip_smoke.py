@@ -65,7 +65,7 @@ Run from the root of a checkout. In order it:
      launch on the tensor-core variant, its flagged pairs counted, and the
      unrepaired form's error on the clustered corpus under gamma(d);
    * rounds: ``Index.query(mode="rounds")`` on the same index, the per-round
-     driver (``--rounds-queries`` of the queries; the default 256 is a cut:
+     driver (``--rounds-queries`` of the queries; the default 128 is a cut:
      1,024 takes over 150 s), recall ≥ 0.99;
    * tune: ``Index.tune()`` over a second handle on the same store with
      the reference's defaults (8 synthetic queries, 2 halving levels, 1
@@ -143,7 +143,14 @@ Run from the root of a checkout. In order it:
      of its data row, a round's and the wide init's arms) against the
      plain version;
    * paper: ``core.bmo_nn.knn`` (Algorithm 2, one race per query) of the
-     first 16 queries at full n and d, recall ≥ 0.99;
+     first ``PAPER_QUERIES`` queries at full n and d, recall ≥ 0.99;
+   * fleet, once the main corpus is freed: 64 tenant namespaces of 16,384
+     × 4,096 rows (``repro_torch.fleet``) under an LRU budget of 8
+     resident, evicted to checkpoints and reloaded on touch, FLEET_REQUESTS
+     requests of 4 rows through the shared request plane, the crash-safe
+     save, the keep-last-N ``CheckpointManager`` and the recovery from
+     ``fleet.json``
+     (see ``fleet_phase``);
 5. sparse: the ``bmo-nn-sparse`` workload (§IV-A: n = 100,000, d = 28,672,
    7% nonzero, ℓ1, k = 5, block 1, 1,024 queries that copy corpus rows),
    drawn on the card as CSR from ``--seed``: ``Index.build``;
@@ -186,8 +193,8 @@ Run from the root of a checkout. In order it:
 8. serve: the same model served through ``serve.ServeEngine`` at full width
    and depth: a 262,144-row datastore of its own final hidden states (16
    cache-free forwards of 4 × 4,096 tokens through ``flash_attention``),
-   8 prompts of 1,024 tokens, 64 greedy tokens with the kNN-LM hook and
-   appends (every step's retrieval on ``fused_epoch_pull`` held to a
+   8 prompts of 1,024 tokens, SERVE_KNN_TOKENS greedy tokens with the kNN-LM
+   hook and appends (every step's retrieval on ``fused_epoch_pull`` held to a
    float64 brute force over the live rows, its vote to a plain recompute,
    the appended rows and payload), 16 tokens without the hook against the
    cache-free forward layer by layer and whole, and with the int8 cache;
@@ -195,7 +202,8 @@ Run from the root of a checkout. In order it:
    version (see ``serve_phase``);
 9. serve_cli: ``python -m repro_torch.launch.serve`` at full width, called
    through ``main`` (see ``serve_cli_phase``), then at ``--smoke`` with
-   ``--index-shards 2`` (``serve_cli_sharded``).
+   ``--index-shards 2`` (``serve_cli_sharded``) and twice with
+   ``--fleet-root`` (``serve_cli_fleet``: create, then recover).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -238,7 +246,7 @@ LM_BATCH = 4
 LM_SEQ = 4096
 # queries of the paper phase: one host-driven race each, a few seconds
 # apiece (4 of them, to keep the whole script well inside its time limit)
-PAPER_QUERIES = 4
+PAPER_QUERIES = 2
 # the mutation phase on the main path's index: rows inserted (the first
 # TWINS near-copies of the first queries), of which the twins of the first
 # TWINS_DELETED queries are deleted again among MUTATION_DELETES slots
@@ -297,7 +305,7 @@ SERVE_DS_SEQ = 4096
 SERVE_DS_STEPS = 16
 SERVE_BATCH = 8
 SERVE_PROMPT = 1024
-SERVE_KNN_TOKENS = 16
+SERVE_KNN_TOKENS = 8
 SERVE_CHECK_TOKENS = 16
 SERVE_CLI_TOKENS = 2
 SERVE_BMO = dict(k=8, delta=0.05, block=64, batch_arms=16)
@@ -332,6 +340,23 @@ SHARD_AUDIT_ROWS = 64
 REPLAY_INIT_QUERIES = 2
 # the kmeans phase (Fig. 5: benchmarks/fig5_kmeans.py): dimension,
 # clusters (= k) and Lloyd iterations; its points are --kmeans-points
+# the fleet phase: tools/bench_fleet.py's structure (64 namespaces, 8
+# resident, 4-query requests, two hot namespaces taking 70%) at 16,384 ×
+# 4,096 fp32 rows a namespace
+FLEET_NAMESPACES = 64
+FLEET_ROWS = 16384
+FLEET_DIM = 4096
+FLEET_POOL = 16               # queries drawn with each namespace
+FLEET_REQUEST_ROWS = 4
+FLEET_REQUESTS = 96
+FLEET_HOT = 2                 # the most recently created namespaces
+FLEET_HOT_SHARE = 0.7
+FLEET_MAX_RESIDENT = 8
+FLEET_SHARDS = 2
+FLEET_SHARDED = (62, 63)
+FLEET_CLIENTS = 8             # closed loop: requests in flight
+FLEET_CKPT_STEPS = 3
+FLEET_PLAN_DEVICES = 4        # the rebalance's plan: a four-card host's
 KMEANS_D = 8192
 KMEANS_K = 32
 KMEANS_ITERS = 2
@@ -375,26 +400,45 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, symbol: str, reps: int = 5) -> float:
+# device_ms calls whose traces held none of the kernel they were asked
+# for, each timed with CUDA events instead (reported as "profiler_misses")
+PROFILER_MISSES = []
+
+
+def device_ms(fn, symbol: str, reps: int = 5, expect: bool = True) -> float:
     """Mean device time per call of the CUDA kernels whose name contains
     ``symbol``, over ``reps`` calls under torch.profiler. Where a call's
     host work (the wrapper in Python, the launch) outlasts its kernel,
-    ``cuda_ms`` measures the host and this measures the kernel."""
+    ``cuda_ms`` measures the host and this measures the kernel.
+
+    The profiler now and then delivers a trace without the kernels that
+    ran. Where ``fn`` is ``expect``-ed to launch ``symbol``, a trace with
+    none of it is taken twice more, and then the calls are timed with CUDA
+    events (host gaps included), recorded in PROFILER_MISSES. A kernel that
+    may launch no time (``expect=False``) reads 0 then."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0.0))
-             for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA
-             and symbol in ev.key)
-    return us / reps / 1e3
+    for _ in range(3 if expect else 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and symbol in ev.key)
+        if us > 0 or not expect:
+            return us / reps / 1e3
+    ms = cuda_ms(fn, reps=reps, warmup=0)
+    PROFILER_MISSES.append({"symbol": symbol, "traces": 3,
+                            "cuda_event_ms": ms})
+    print(f"device_ms: 3 traces held no {symbol!r} kernel; timed with CUDA "
+          f"events instead ({ms} ms)", file=sys.stderr, flush=True)
+    return ms
 
 
 def kernels_per_call(fn, reps: int = 20) -> float:
@@ -1050,7 +1094,7 @@ def kernel_phase(seed: int, Q: int, n_build: int) -> dict:
             row["device_ms"] = device_ms(run, "pairwise_", reps=min(reps, 20))
             if which == "tensor_cores":
                 row["repair_ms"] = device_ms(run, "pairwise_repair_flagged",
-                                             reps=5)
+                                             reps=5, expect=False)
                 row["sass"] = sass_check("pairwise_dist_sm90")
             if case == "exact_eval":
                 row["host_us_per_call"] = (row["ms"] - row["device_ms"]) * 1e3
@@ -1285,7 +1329,8 @@ def oracle_phase(corpus, queries, truth) -> dict:
     # the unrepaired form's error on the clustered corpus
     batch = lambda: pairwise_dist_cuda(queries[:256], corpus)
     batch_ms = device_ms(batch, "pairwise_", reps=3)
-    repair_ms = device_ms(batch, "pairwise_repair_flagged", reps=3)
+    repair_ms = device_ms(batch, "pairwise_repair_flagged", reps=3,
+                          expect=False)
     raw = pairwise_dist_cuda(queries[:256], corpus, repair=False)
     exact, scale = float64_l2(queries[:256], corpus)
     unrepaired = float(((raw.double() - exact).abs() / scale).max())
@@ -2197,21 +2242,21 @@ def mutation_checks(what: str, idx, res, rows_of, queries, n: int) -> dict:
     return out
 
 
-def save_dir(need: int) -> str:
+def save_dir(need: int, copies: int = 2) -> str:
     """A fresh ``tempfile.mkdtemp()`` directory on a file system with room
-    for ``need`` bytes twice: the default temporary directory, else one in
-    the checkout's ``build/``."""
+    for ``need`` bytes ``copies`` times: the default temporary directory,
+    else one in the checkout's ``build/``."""
     import shutil
     import tempfile
     for parent in (None, os.path.join(ROOT, "build")):
         if parent is not None:
             os.makedirs(parent, exist_ok=True)
         path = tempfile.mkdtemp(prefix="chip_smoke_index_", dir=parent)
-        if shutil.disk_usage(path).free >= 2 * need:
+        if shutil.disk_usage(path).free >= copies * need:
             return path
         os.rmdir(path)
-    raise RuntimeError(f"no file system with {2 * need} bytes free for the "
-                       "mutation phase's index")
+    raise RuntimeError(f"no file system with {copies * need} bytes free for "
+                       "an index's files")
 
 
 def mutation_phase(idx, main_res, corpus, queries, truth, seed: int) -> dict:
@@ -2405,6 +2450,583 @@ def paper_phase(corpus, queries, truth, seed: int) -> dict:
             "coord_ops_share_of_nd": float(res.coord_ops.mean()) / (n * d),
             "n_exact_mean": float(res.n_exact.float().mean()),
             "launches": launches}
+
+
+def fleet_store_bytes(store) -> int:
+    """Device bytes of a (single-shard or sharded) store's arrays."""
+    shards = store.shards if hasattr(store, "shards") else [store]
+    return sum(a.numel() * a.element_size()
+               for s in shards for a in s.arrays().values())
+
+
+def recording_shapes(seen: dict):
+    """A context that wraps the three ops of the fleet path
+    (``kernels.ops``) to keep, for each kernel and kind of launch, the
+    widest operand shape it was given: ``fused_epoch_pull`` by (store
+    capacity, schedule, shared arms) → (Q, B, T), ``fwht`` by corpus or
+    query rows → (rows, d), ``pairwise_dist`` by variant → (Q, n, d).
+    Shapes only: no tensor is kept."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels.fused_race import N_BUF
+    from repro_torch.kernels.pairwise_dist import variant
+    from repro_torch.kernels.pull_schedule import fused_schedule, shares_arms
+    real = {n: getattr(kops, n)
+            for n in ("fused_epoch_pull", "fwht", "pairwise_dist")}
+
+    def widest(kernel, key, shape):
+        if shape > seen.get((kernel, key), ()):
+            seen[(kernel, key)] = shape
+
+    def pull(x, qs, arm_idx, blk_idx, **kw):
+        Q, B, T = blk_idx.shape
+        shared = shares_arms(arm_idx)
+        sched = fused_schedule(Q, B, T, x.shape[1], kw["block"],
+                               kw.get("n_buf", N_BUF), shared).name
+        widest("fused_epoch_pull", (x.shape[0], sched, shared), (Q, B, T))
+        return real["fused_epoch_pull"](x, qs, arm_idx, blk_idx, **kw)
+
+    def transform(x, **kw):
+        rows = x.numel() // x.shape[-1]
+        widest("fwht", "corpus" if rows > FLEET_POOL else "queries",
+               (rows, x.shape[-1]))
+        return real["fwht"](x, **kw)
+
+    def dist(qs, x, **kw):
+        widest("pairwise_dist",
+               variant(kw.get("metric", "l2"), qs.shape[0], qs.shape[1]),
+               (qs.shape[0], x.shape[0], qs.shape[1]))
+        return real["pairwise_dist"](qs, x, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        kops.fused_epoch_pull, kops.fwht, kops.pairwise_dist = pull, \
+            transform, dist
+        try:
+            yield
+        finally:
+            for n, fn in real.items():
+                setattr(kops, n, fn)
+    return ctx()
+
+
+def fleet_kernel_rows(stores: dict, seen: dict, seed: int) -> list:
+    """Each kernel of the fleet path launched once more, outside the
+    counted run, at the widest operands that run gave it (``seen``), on a
+    namespace's store or shard of that capacity (``stores``: capacity →
+    (store, the namespace's query pool)): random live arms (one shared
+    vector where the run's were) and blocks for ``fused_epoch_pull``, the
+    pool's queries in the store's layout for it and ``pairwise_dist`` (over
+    the first n rows), normal rows for ``fwht``. Each held against its
+    plain version at the kernel phase's tolerance: pulls at rtol 2e-4 /
+    atol 1e-5, the fp32 transform at 1e-5, ℓ2 distances at 1e-4·|want| +
+    1e-6·(‖q‖² + ‖x‖²)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    rows = []
+    for (kernel, key), shape in sorted(seen.items(), key=str):
+        if kernel == "fwht":
+            x = torch.randn(shape, generator=g, device="cuda")
+            row = {"case": f"fleet_{key}",
+                   "shape": {"rows": shape[0], "d": shape[1]},
+                   **compare(f"fwht fleet {key}", fwht_cuda(x),
+                             ref.fwht_ref(x), rtol=1e-5, atol=1e-5)}
+        elif kernel == "fused_epoch_pull":
+            (cap, sched, shared), (Q, B, T) = key, shape
+            st, pool = stores[cap]
+            qs = st.prepare_queries(np.resize(pool, (Q, pool.shape[1])))
+            live = torch.nonzero(st.alive).reshape(-1)
+            if shared:
+                vec = (live[torch.randperm(live.numel(), generator=g,
+                                           device="cuda")[:B]]
+                       if B <= live.numel()
+                       else torch.arange(B, device="cuda"))
+                arm = vec[None].expand(Q, B)
+            else:
+                arm = live[torch.randint(0, live.numel(), (Q, B),
+                                         generator=g, device="cuda")]
+            blk = torch.randint(0, st.d_pad // st.block, (Q, B, T),
+                                generator=g, device="cuda", dtype=torch.int32)
+            row = {"case": f"fleet_{'shard' if cap < FLEET_ROWS else 'store'}"
+                           f"_{sched}_{'init' if shared else 'epoch'}",
+                   "shape": {"Q": Q, "B": B, "T": T, "block": st.block,
+                             "d_pad": st.d_pad, "n": cap,
+                             "shared_arms": shared},
+                   **compare(f"fused_epoch_pull fleet {sched}",
+                             fused_epoch_pull_cuda(st.x, qs, arm, blk,
+                                                   block=st.block),
+                             ref.fused_epoch_pull_ref(st.x, qs, arm, blk,
+                                                      st.block),
+                             rtol=2e-4, atol=1e-5)}
+        else:
+            Q, n, d = shape
+            st, pool = stores[FLEET_ROWS]
+            qq = st.prepare_queries(np.resize(pool, (Q, pool.shape[1])))
+            xx = st.x[:n]
+            allowance = 1e-6 * ((qq ** 2).sum(1)[:, None]
+                                + (xx ** 2).sum(1)[None])
+            row = {"case": f"fleet_{key}", "shape": {"Q": Q, "n": n, "d": d},
+                   **compare(f"pairwise_dist fleet {key}",
+                             pairwise_dist_cuda(qq, xx),
+                             ref.pairwise_dist_ref(qq, xx, "l2"), rtol=1e-4,
+                             atol=0.0, allowance=allowance)}
+        rows.append({"kernel": kernel, **row})
+    missing = {"fused_epoch_pull", "fwht", "pairwise_dist"} - {
+        r["kernel"] for r in rows}
+    if missing:
+        raise AssertionError(f"fleet: no operands recorded for {missing}")
+    return rows
+
+
+def policy_applied(fleet, plane, hot, cold, pools, root, seed: int) -> dict:
+    """``FleetPressurePolicy`` fed a drained plane's stats with skewed
+    ``ns_queue_depth`` for ``sustain`` windows, each decision executed by
+    ``apply_fleet``: spread demand evicts the least-demanded namespace (a
+    resident cold one), one namespace's half of the demand rebalances the
+    plan over FLEET_PLAN_DEVICES devices. On one card a sharded window that
+    moved keeps its tensors (the offset is recorded in the store and the
+    manifest, through the epoch fence) and answers as before."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.fleet.manifest import load_manifest
+    from repro_torch.fleet.placement import plan_placement
+    from repro_torch.serve import FleetPressurePolicy, apply_fleet
+
+    def decide(depth):
+        policy = FleetPressurePolicy()
+        stats = dataclasses.replace(plane.stats, ns_queue_depth=depth)
+        for _ in range(policy.sustain):
+            decision = policy.recommend(stats)
+        return decision
+
+    out = {}
+    victim = cold[0]
+    fleet.get(victim)
+    spread = {victim: 1, hot[0]: 4, hot[1]: 4, cold[1]: 4}
+    d = decide(spread)
+    out["evict"] = {"depth": spread, "action": d.action, "target": d.target,
+                    "acted": apply_fleet(fleet, d),
+                    "target_resident_after": d.target in fleet.resident}
+    if (d.action, d.target) != ("evict_namespace", victim) \
+            or not out["evict"]["acted"] or out["evict"]["target_resident_after"]:
+        raise AssertionError(f"fleet: policy eviction {out['evict']}")
+    sharded = [n for n in hot if fleet.get(n).sharded]
+    q = {n: pools[n][:FLEET_REQUEST_ROWS] for n in sharded}
+    before = {n: plane.query(q[n], rng=seed + 5, namespace=n, cache="bypass")
+              for n in sharded}
+    epochs = {n: fleet.peek(n).epoch for n in sharded}
+    skewed = {hot[0]: 6, hot[1]: 1, cold[1]: 1}
+    d = decide(skewed)
+    want = plan_placement(fleet.footprints(), FLEET_PLAN_DEVICES)
+    acted = apply_fleet(fleet, d, n_devices=FLEET_PLAN_DEVICES)
+    records = load_manifest(root)["namespaces"]
+    offsets = {n: int(r.get("device_offset", 0)) for n, r in records.items()}
+    moved = [n for n in sharded if want[n] != 0]
+    rows = {}
+    for n in sharded:
+        idx = fleet.peek(n)
+        got = plane.query(q[n], rng=seed + 5, namespace=n, cache="bypass")
+        rows[n] = {"offset": want[n], "store_offset": idx.store.device_offset,
+                   "fenced": idx.epoch == epochs[n] + (n in moved),
+                   "devices": sorted({str(v) for v in idx.store.devices}),
+                   "answers_as_before": bool(
+                       np.array_equal(got.indices, before[n].indices)
+                       and np.array_equal(got.values, before[n].values))}
+    out["rebalance"] = {"depth": skewed, "action": d.action,
+                        "target": d.target, "acted": acted,
+                        "n_devices": FLEET_PLAN_DEVICES,
+                        "offsets_nonzero": {n: o for n, o in want.items() if o},
+                        "manifest_matches_plan": offsets == want,
+                        "sharded": rows}
+    if (d.action != "rebalance" or not acted or offsets != want or not moved
+            or any(r["store_offset"] != r["offset"] or not r["fenced"]
+                   or r["devices"] != ["cuda:0"] or not r["answers_as_before"]
+                   for r in rows.values())):
+        raise AssertionError(f"fleet: policy rebalance {out['rebalance']}")
+    return out
+
+
+def fleet_phase(seed: int) -> dict:
+    """The namespace fleet (``repro_torch.fleet``) on the card, after the
+    reference's own bench (``tools/bench_fleet.py``: 64 namespaces, 8
+    resident, 4-query requests, a hot set of two namespaces taking 70% of
+    them) at a tenant size users would call real: FLEET_NAMESPACES
+    namespaces of FLEET_ROWS × FLEET_DIM fp32 rows (rotated box,
+    ``DENSE.bmo``'s race settings), namespace i drawn by
+    ``make_knn_benchmark_data`` from ``seed + 1 + i``, the last two at 2
+    shards on the one card; ``FleetConfig(max_resident=8)`` over a root in
+    ``save_dir``, deleted at the end. Each create checkpoints at once.
+
+    Checks, in order: evict → reload bit-identical (a single-shard and a
+    sharded namespace, same seed, same ids and values); FLEET_REQUESTS
+    requests through ``fleet.serve()`` (a router-only plane with the
+    δ-audit on every certified ticket, ``audit_flush`` between steps),
+    closed loop with FLEET_CLIENTS in flight, ``cache="bypass"``, 70% to
+    the hot pair, ``enforce_residency()`` after every step and a
+    ``FleetPressurePolicy`` consulted on ``plane.stats`` every step (its
+    decisions executed by ``apply_fleet``): every ticket certified at
+    recall ≥ 0.99 against its namespace's float64 brute force; one vector
+    in two namespaces (each its own answer, no cache hit across them) and
+    its exact repeat (from the cache, free, the same answer); a sharded
+    save killed mid-publish (``checkpoint.manager.save`` patched) leaves
+    the previous checkpoint whole, no tmp left, and it answers as before;
+    after the queues drain the resident count ≤ 8 and the device memory
+    within 10% of the resident stores plus what was allocated before the
+    phase; 0 audit mismatches; the health document's ``fleet`` section; a
+    ``CheckpointManager(keep=2, async_save=True)`` over one namespace's
+    store tensors from the card (3 steps, 2 left, the last restored onto
+    the card equal, no tmp); then ``flush()``, the fleet dropped, and
+    ``Fleet.open(root)``: all namespaces back, none materialized, no device
+    memory taken, and the namespaces of the first check answering as before
+    the restart. After the traffic, ``policy_applied`` runs the policy's
+    two decisions; after the counted run, ``fleet_kernel_rows`` holds each
+    of the path's kernels against its plain version at the widest operands
+    the run gave it."""
+    import shutil
+    import numpy as np
+    import torch
+    import repro_torch.checkpoint.manager as ckpt
+    from repro_torch.api import Index
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.data.synthetic import make_knn_benchmark_data
+    from repro_torch.fleet import Fleet, FleetConfig
+    from repro_torch.kernels.fused_race import fused_epoch_pull_cuda
+    from repro_torch.kernels.fwht import fwht_cuda
+    from repro_torch.kernels.pairwise_dist import pairwise_dist_cuda
+    from repro_torch.obs.health import health_snapshot
+    from repro_torch.serve import (FleetPressurePolicy, PlaneConfig,
+                                   RequestPlane, apply_fleet)
+
+    cfg, k, R = DENSE.bmo, DENSE.bmo.k, FLEET_REQUEST_ROWS
+    names = [f"t{i:02d}" for i in range(FLEET_NAMESPACES)]
+    hot, cold = names[-FLEET_HOT:], names[:-FLEET_HOT]
+    x_bytes = FLEET_ROWS * FLEET_DIM * 4
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    parent = save_dir((FLEET_NAMESPACES + 2) * x_bytes, copies=1)
+    root = os.path.join(parent, "fleet")
+    out = {"phase": "fleet", "namespaces": FLEET_NAMESPACES,
+           "rows": FLEET_ROWS, "dim": FLEET_DIM, "k": k, "delta": cfg.delta,
+           "block": cfg.block, "batch_arms": cfg.batch_arms,
+           "rotate": cfg.rotate, "sharded": [names[i] for i in FLEET_SHARDED],
+           "max_resident": FLEET_MAX_RESIDENT, "requests": FLEET_REQUESTS,
+           "rows_per_request": R, "hot": hot, "hot_share": FLEET_HOT_SHARE,
+           "clients": FLEET_CLIENTS,
+           "disk_free_gb": shutil.disk_usage(parent).free / 1e9}
+    pools, truths, row_of, cross = {}, {}, {}, {}
+    ckpt_s, reload_ms, decisions = [], [], []
+
+    def rows(name, ids):
+        ids = np.asarray(ids)
+        return row_of[name][ids] if name in row_of else ids
+
+    def same(a, b):
+        return (np.array_equal(a.indices, b.indices)
+                and np.array_equal(a.values, b.values))
+
+    def run():
+        fleet = Fleet(root, FleetConfig(max_resident=FLEET_MAX_RESIDENT))
+        real_ckpt, real_reload = fleet._checkpoint, fleet._reload
+
+        def timed_ckpt(st):
+            t = time.perf_counter()
+            wrote = real_ckpt(st)
+            if wrote:
+                ckpt_s.append(time.perf_counter() - t)
+            return wrote
+
+        def timed_reload(st):
+            t = time.perf_counter()
+            real_reload(st)
+            torch.cuda.synchronize()
+            reload_ms.append((time.perf_counter() - t) * 1e3)
+
+        fleet._checkpoint, fleet._reload = timed_ckpt, timed_reload
+        res = {}
+        # --- build: every namespace created and checkpointed at once -----
+        t0 = time.perf_counter()
+        for i, name in enumerate(names):
+            corpus, queries = make_knn_benchmark_data(
+                "dense", FLEET_ROWS, FLEET_DIM, FLEET_POOL,
+                seed=seed + 1 + i, device="cuda")
+            truths[name] = brute_force_topk(corpus, queries, k)
+            pools[name] = queries.cpu().numpy()
+            if name == hot[1]:      # the hot pair's shared vector
+                cross[name] = brute_force_topk(
+                    corpus, torch.from_numpy(pools[hot[0]][:R]).cuda(), k)
+            idx = fleet.create(name, corpus, cfg, seed + i,
+                               shards=FLEET_SHARDS if i in FLEET_SHARDED
+                               else 1)
+            if idx.sharded:
+                m = np.full(idx.capacity, -1, np.int64)
+                m[idx.build_gids] = np.arange(FLEET_ROWS)
+                row_of[name] = m
+            del corpus, queries, idx
+        torch.cuda.synchronize()
+        res["build_s"] = time.perf_counter() - t0
+        res["checkpoint_s"] = sum(ckpt_s)
+        res["checkpoint_gb_per_s"] = (FLEET_NAMESPACES * x_bytes / 1e9
+                                      / max(sum(ckpt_s), 1e-9))
+        res["ns_bytes"] = fleet_store_bytes(fleet.peek(names[-1]).store)
+        plane = fleet.serve(PlaneConfig(audit_rate=1.0))
+        # --- evict → reload, bit for bit ----------------------------------
+        answers = {}
+        for name in (names[0], hot[0]):
+            q = pools[name][:R]
+            a = plane.query(q, rng=seed, namespace=name, cache="bypass")
+            if not fleet.evict(name):
+                raise AssertionError(f"fleet: {name} could not be evicted")
+            b = plane.query(q, rng=seed, namespace=name, cache="bypass")
+            if not same(a, b) or fleet.peek(name) is None:
+                raise AssertionError(f"fleet: {name} answered differently "
+                                     "after evict → reload")
+            answers[name] = a
+        plane.audit_flush()
+        res["reload_bit_identical"] = sorted(answers)
+        # --- closed-loop traffic -------------------------------------------
+        r = np.random.default_rng(seed)
+        plan = []
+        for _ in range(FLEET_REQUESTS):
+            name = (hot[int(r.integers(FLEET_HOT))]
+                    if r.random() < FLEET_HOT_SHARE
+                    else cold[int(r.integers(len(cold)))])
+            plan.append((name, int(r.integers(FLEET_POOL // R)) * R))
+        policy = FleetPressurePolicy()
+        inflight, done = [], []
+        peak = fleet.resident_count
+        reloads0, evictions0 = fleet.reload_count, fleet.eviction_count
+        t0 = time.perf_counter()
+        nxt = steps = 0
+        while nxt < len(plan) or inflight:
+            while nxt < len(plan) and len(inflight) < FLEET_CLIENTS:
+                name, w = plan[nxt]
+                t = plane.submit(pools[name][w:w + R], namespace=name,
+                                 rng=seed + 1000 + nxt, cache="bypass",
+                                 tenant=f"c{nxt % FLEET_CLIENTS}")
+                inflight.append((t, name, w))
+                nxt += 1
+                peak = max(peak, fleet.resident_count)
+            plane.step()
+            steps += 1
+            inflight, finished = ([e for e in inflight if not e[0].terminal],
+                                  [e for e in inflight if e[0].terminal])
+            done += finished
+            if finished:
+                plane.audit_flush()     # while their namespaces are resident
+            fleet.enforce_residency()
+            decision = policy.recommend(plane.stats)
+            if decision.action != "none":
+                decisions.append({"step": steps, "action": decision.action,
+                                  "target": decision.target,
+                                  "reason": decision.reason,
+                                  "acted": apply_fleet(fleet, decision)})
+        traffic_s = time.perf_counter() - t0
+        res["traffic_s"] = traffic_s
+        res["rows_per_s"] = FLEET_REQUESTS * R / traffic_s
+        res["steps"] = steps
+        res["resident_peak"] = peak
+        res["reloads"] = fleet.reload_count - reloads0
+        res["evictions"] = fleet.eviction_count - evictions0
+        bad = [(t.id, t.reason) for t, _, _ in done
+               if t.status != "done" or t.reason != "certified"]
+        if bad:
+            raise AssertionError(f"fleet: tickets not certified: {bad[:5]}")
+        res["recall"] = recall_of(
+            "fleet traffic",
+            np.concatenate([rows(n, t.result.indices) for t, n, _ in done]),
+            np.concatenate([t.result.values for t, _, _ in done]),
+            np.concatenate([truths[n][w:w + R] for _, n, w in done]),
+            FLEET_ROWS, k)
+        for label, group in (("hot", [t for t, n, _ in done if n in hot]),
+                             ("cold", [t for t, n, _ in done
+                                       if n not in hot])):
+            lat = [t.latency_ms for t in group]
+            res[f"{label}_tickets"] = len(lat)
+            res[f"{label}_p50_ms"] = float(np.percentile(lat, 50))
+            res[f"{label}_p99_ms"] = float(np.percentile(lat, 99))
+        # --- the policy's two decisions, executed -------------------------
+        # (the closed loop never queues FLEET_CLIENTS deep enough in one
+        # namespace for the policy to act: it is fed skewed queue depths)
+        res["policy_applied"] = policy_applied(fleet, plane, hot, cold, pools,
+                                               root, seed)
+        # --- one vector in two namespaces, and its exact repeat -------------
+        v = pools[hot[0]][:R]
+        a1 = plane.query(v, rng=seed + 7, namespace=hot[0])
+        hits = fleet._cache.hits
+        b1 = plane.query(v, rng=seed + 7, namespace=hot[1])
+        if fleet._cache.hits != hits or np.array_equal(a1.indices,
+                                                       b1.indices):
+            raise AssertionError("fleet: two namespaces exchanged a vector's "
+                                 "answer")
+        a2 = plane.query(v, rng=seed + 8, namespace=hot[0])
+        if (fleet._cache.hits != hits + R or not same(a1, a2)
+                or float(np.sum(a2.coord_ops)) != 0.0):
+            raise AssertionError("fleet: the exact repeat was not served "
+                                 "from the cache")
+        res["isolation"] = {
+            hot[0]: recall_of("fleet isolation", rows(hot[0], a1.indices),
+                              a1.values, truths[hot[0]][:R], FLEET_ROWS, k),
+            hot[1]: recall_of("fleet isolation", rows(hot[1], b1.indices),
+                              b1.values, cross[hot[1]], FLEET_ROWS, k),
+            "repeat_cache_hits": R}
+        # --- a sharded save killed mid-publish -----------------------------
+        name = hot[1]
+        q = pools[name][:R]
+        before = plane.query(q, rng=seed + 9, namespace=name, cache="bypass")
+        keep = set(truths[name].ravel().tolist())
+        far = next(i for i in range(FLEET_ROWS - 1, -1, -1) if i not in keep)
+        idx = fleet.get(name)
+        idx.delete([int(np.nonzero(row_of[name] == far)[0][0])])
+        del idx                             # the namespace is now dirty
+        calls, real_save = [0], ckpt.save
+
+        def boom(path, state, **kw):
+            calls[0] += 1
+            if calls[0] == 2:               # after shard 0 was staged
+                raise OSError("killed mid-publish")
+            return real_save(path, state, **kw)
+
+        ckpt.save = boom
+        try:
+            fleet.evict(name)
+            raise AssertionError("fleet: the patched save did not fail")
+        except OSError:
+            pass
+        finally:
+            ckpt.save = real_save
+        ns_root = os.path.dirname(fleet._dir(name))
+        left = [p for p in os.listdir(ns_root) if ".tmp-" in p]
+        old = Index.load(fleet._dir(name), device="cuda")   # shards repeat it
+        again = RequestPlane(old).query(q, rng=seed + 9, cache="bypass")
+        after = plane.query(q, rng=seed + 9, namespace=name, cache="bypass")
+        res["killed_save"] = {"namespace": name, "calls": calls[0],
+                              "tmp_left": left, "old_n_live": old.n_live,
+                              "old_answers_as_before": same(again, before),
+                              "resident_ids_as_before": np.array_equal(
+                                  after.indices, before.indices)}
+        del old, again
+        if (left or res["killed_save"]["old_n_live"] != FLEET_ROWS
+                or not res["killed_save"]["old_answers_as_before"]
+                or not res["killed_save"]["resident_ids_as_before"]
+                or fleet.peek(name) is None):
+            raise AssertionError(f"fleet: killed save {res['killed_save']}")
+        # --- residency and device memory once the queues drain -------------
+        fleet.enforce_residency()
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - base
+        want = sum(fleet_store_bytes(fleet.peek(n).store)
+                   for n in fleet.resident)
+        res["memory"] = {"resident": fleet.resident_count,
+                         "held_gb": held / 1e9, "resident_stores_gb":
+                         want / 1e9}
+        if (fleet.resident_count > FLEET_MAX_RESIDENT
+                or abs(held - want) > 0.1 * want):
+            raise AssertionError(f"fleet: memory after eviction "
+                                 f"{res['memory']}")
+        # --- audit and health ----------------------------------------------
+        plane.audit_flush()
+        a = plane.auditor.summary()
+        res["audit"] = {"sampled_rows": a["sampled_rows"],
+                        "mismatch_rows": a["mismatch_rows"],
+                        "skipped": a["skipped"], "keys": len(a["keys"])}
+        if a["sampled_rows"] == 0 or a["mismatch_rows"] != 0:
+            raise AssertionError(f"fleet: audit {res['audit']}")
+        doc = health_snapshot(plane=plane)
+        if doc.get("fleet", {}).get("namespaces") != FLEET_NAMESPACES:
+            raise AssertionError("fleet: health document without its fleet "
+                                 "section")
+        res["health_fleet"] = doc["fleet"]
+        # --- the keep-last-N checkpoint manager from the card ---------------
+        arrays = fleet.get(names[0]).store.arrays()
+        mdir = os.path.join(parent, "manager")
+        mgr = ckpt.CheckpointManager(mdir, keep=2, async_save=True)
+        t = time.perf_counter()
+        for step in range(1, FLEET_CKPT_STEPS + 1):
+            state = {"store": arrays,
+                     "step": torch.full((1,), float(step), device="cuda")}
+            mgr.save(step, state, meta={"namespace": names[0]})
+        mgr.wait()
+        save_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back, meta = mgr.restore_latest(state, device="cuda")
+        torch.cuda.synchronize()
+        res["manager"] = {
+            "steps": mgr.all_steps(), "save_s": save_s,
+            "restore_s": time.perf_counter() - t, "meta": meta,
+            "tmp_left": [p for p in os.listdir(mdir) if ".tmp" in p],
+            "restored_equal": all(torch.equal(back["store"][n], x)
+                                  for n, x in arrays.items())
+            and float(back["step"][0]) == FLEET_CKPT_STEPS
+            and back["step"].device.type == "cuda"}
+        del back, state, arrays
+        if (res["manager"]["steps"] != [FLEET_CKPT_STEPS - 1,
+                                        FLEET_CKPT_STEPS]
+                or res["manager"]["tmp_left"]
+                or not res["manager"]["restored_equal"]):
+            raise AssertionError(f"fleet: manager {res['manager']}")
+        # --- flush, restart, recover ---------------------------------------
+        t = time.perf_counter()
+        res["flush_wrote"] = fleet.flush()
+        res["flush_s"] = time.perf_counter() - t
+        plane = fleet = None
+        gc.collect()
+        torch.cuda.synchronize()
+        freed = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        fleet = Fleet.open(root)
+        res["open_s"] = time.perf_counter() - t
+        res["open_memory_growth_bytes"] = torch.cuda.memory_allocated() - freed
+        if (len(fleet) != FLEET_NAMESPACES or fleet.resident_count != 0
+                or res["open_memory_growth_bytes"] != 0):
+            raise AssertionError(f"fleet: Fleet.open recovered {fleet}")
+        plane = fleet.serve()
+        for name, a in answers.items():
+            got = plane.query(pools[name][:R], rng=seed, namespace=name,
+                              cache="bypass")
+            if not same(got, a):
+                raise AssertionError(f"fleet: {name} answered differently "
+                                     "after the restart")
+        res["recovered_as_before"] = sorted(answers)
+        return res, fleet
+
+    t = time.perf_counter()
+    seen = {}
+    try:
+        with recording_shapes(seen):
+            (res, fleet), launches = counted(
+                "fleet", {"fused_epoch_pull": fused_epoch_pull_cuda,
+                          "fwht": fwht_cuda,
+                          "pairwise_dist": pairwise_dist_cuda}, run)
+        schedules = {s: getattr(fused_epoch_pull_cuda, f"launches_{s}")
+                     for s in ("rows", "pair")}
+        # the path's kernels at its own operands: a single-shard namespace's
+        # store and a shard of a sharded one
+        one, two = fleet.get(names[0]).store, fleet.get(hot[0]).store
+        stores = {one.capacity: (one, pools[names[0]]),
+                  two.shards[0].capacity: (two.shards[0], pools[hot[0]])}
+        res["kernel_checks"] = fleet_kernel_rows(stores, seen, seed)
+        del fleet, one, two, stores
+    finally:
+        shutil.rmtree(parent, ignore_errors=True)
+    out.update(res)
+    out["fused_epoch_pull_schedules"] = schedules
+    out["reload_count"] = len(reload_ms)
+    if reload_ms:
+        out["reload_p50_ms"] = float(np.percentile(reload_ms, 50))
+        out["reload_p99_ms"] = float(np.percentile(reload_ms, 99))
+        out["reload_gb_per_s"] = (res["ns_bytes"] * len(reload_ms) / 1e9
+                                  / (sum(reload_ms) / 1e3))
+    out["policy_decisions"] = decisions
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t
+    return out
 
 
 def l1_truth(indices, values, q_idx, q_val, d: int, k: int,
@@ -3808,7 +4430,64 @@ def serve_cli_phase() -> dict:
     if len(slos) != 2 or not all(m.endswith(" ok") for m in slos):
         raise AssertionError(f"serve_cli: SLO lines {slos}")
     out["sharded_smoke"] = serve_cli_sharded()
+    out["fleet_smoke"] = serve_cli_fleet()
     return out
+
+
+def serve_cli_fleet() -> dict:
+    """The CLI at ``--smoke`` with ``--fleet-root``: the first launch
+    creates the fleet's ``default`` namespace, the second recovers it from
+    ``fleet.json``; both serve through the fleet's plane with a δ-audit of
+    every certified ticket (0 mismatches) and log their ``fleet stats``
+    line, which is printed here."""
+    import logging
+    import shutil
+    import tempfile
+    from repro_torch.launch import serve
+
+    lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_fleet_")
+    argv = ["--arch", LM_ARCH, "--smoke", "--batch", "2", "--prompt-len",
+            "8", "--new-tokens", "6", "--knn-lm", "--datastore-size", "256",
+            "--fleet-root", os.path.join(root, "fleet"), "--max-resident",
+            "2", "--audit-rate", "1.0"]
+    logger = logging.getLogger("repro_torch.serve")
+    handler = Keep()
+    logger.addHandler(handler)
+    runs = []
+    try:
+        for launch in ("create", "recover"):
+            del lines[:]
+            t = time.perf_counter()
+            run = serve.main(argv)
+            stats_line = [m for m in lines if m.startswith("fleet stats")]
+            opened = [m for m in lines if "namespace 'default'" in m]
+            print(stats_line[0] if stats_line else "fleet stats: missing",
+                  flush=True)
+            runs.append({"launch": launch,
+                         "seconds": time.perf_counter() - t,
+                         "tokens_shape": list(run["tokens"].shape),
+                         "retrieval_ops": run["retrieval_ops"],
+                         "fleet": run["fleet"], "opened": opened,
+                         "audit_mismatches": run["audit"]["mismatch_rows"],
+                         "audit_rows": run["audit"]["sampled_rows"]})
+            want = "created" if launch == "create" else "recovered"
+            if (run["tokens"].shape != (2, 6) or run["retrieval_ops"] <= 0
+                    or not stats_line or len(opened) != 1
+                    or want not in opened[0]
+                    or run["fleet"]["namespaces"] != 1
+                    or run["audit"]["mismatch_rows"] != 0
+                    or run["audit"]["sampled_rows"] == 0):
+                raise AssertionError(f"serve_cli fleet: {runs[-1]}")
+    finally:
+        logger.removeHandler(handler)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"argv": argv, "runs": runs}
 
 
 def serve_cli_sharded() -> dict:
@@ -4314,9 +4993,10 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
-     ("main_path", "tune", "plane", "mutation", "sharded", "serve")),
+     ("main_path", "tune", "plane", "mutation", "sharded", "fleet",
+      "serve")),
     ("fwht", "src/repro_torch/csrc/fwht.cu", "src/repro/kernels/fwht.py:30",
-     ("main_path", "tune", "plane", "mutation", "sharded")),
+     ("main_path", "tune", "plane", "mutation", "sharded", "fleet")),
     ("block_pull_multi", "src/repro_torch/csrc/block_pull.cu",
      "src/repro/kernels/block_pull.py:78",
      ("rounds", "tune", "sharded", "distributed")),
@@ -4324,7 +5004,7 @@ KERNELS = (
      "src/repro/kernels/block_pull.py:41", ("paper", "kmeans")),
     ("pairwise_dist", "src/repro_torch/csrc/pairwise_dist_sm90.cu",
      "src/repro/kernels/pairwise_dist.py:41",
-     ("oracle", "plane", "paper", "sparse", "sharded", "kmeans")),
+     ("oracle", "plane", "paper", "fleet", "sparse", "sharded", "kmeans")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward", "serve")),
 )
@@ -4344,13 +5024,13 @@ def main() -> int:
                     help="query batch of the workload (its own is 1024)")
     ap.add_argument("--rounds-queries", type=int, default=128,
                     help="queries of the rounds phase (a cut from 1024)")
-    ap.add_argument("--shard-rounds-queries", type=int, default=256,
+    ap.add_argument("--shard-rounds-queries", type=int, default=128,
                     help="queries of the sharded phase's rounds race and "
                          "the distributed phase (a cut from 1024)")
     ap.add_argument("--sparse-queries", type=int, default=32,
                     help="queries of the sparse phase's rounds step (a cut "
                          "from 1024)")
-    ap.add_argument("--kmeans-points", type=int, default=128,
+    ap.add_argument("--kmeans-points", type=int, default=64,
                     help="points of the kmeans phase (a cut from Fig. 5's "
                          f"{KMEANS_FIG5_POINTS})")
     ap.add_argument("--out", help="write every detail to this JSON file")
@@ -4391,15 +5071,21 @@ def main() -> int:
     emit({"cut": f"sparse paper step: {SPARSE_PAPER_QUERIES} queries "
                  "instead of the workload's 1024 (one race each)"})
     emit({"cut": f"paper: {PAPER_QUERIES} queries instead of the workload's "
-                 "1024 (one host-driven race each)"})
+                 "1024 (one host-driven race each; 16, then 4 before the "
+                 "fleet phase)"})
     emit({"cut": f"serve_cli: {SERVE_CLI_TOKENS} new tokens (16 before the "
                  "sharded phases)"})
     emit({"cut": f"serve: {SERVE_KNN_TOKENS} kNN-LM tokens (64 before the "
-                 "sharded phases)"})
+                 "sharded phases, then 16 before the fleet phase)"})
     emit({"cut": f"{SHARDS} shards on one card; the reference places one a "
                  "device"})
     emit({"cut": "distributed: a 2 x 2 grid of cuda:0; the reference places "
                  "one cell a device"})
+    emit({"cut": "fleet: closed loop with 8 requests in flight; the "
+                 "reference's bench also drives open-loop arrivals, which "
+                 "the port has no load generator for yet"})
+    emit({"cut": f"fleet: {FLEET_REQUESTS} requests instead of the 160 of "
+                 "its design, to keep the script's time on slow hosts"})
     if args.kmeans_points != KMEANS_FIG5_POINTS:
         emit({"cut": f"kmeans: {args.kmeans_points} points instead of Fig. "
                      f"5's {KMEANS_FIG5_POINTS} (one host-driven race a "
@@ -4463,6 +5149,11 @@ def main() -> int:
                                   truth[:PAPER_QUERIES], args.seed)
     emit(report["paper"])
     del corpus, queries, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["fleet"] = fleet_phase(args.seed)
+    emit(report["fleet"])
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     report["sparse"] = sparse_phase(args.seed, args.sparse_queries)
@@ -4483,6 +5174,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["serve_cli"] = serve_cli_phase()
     emit(report["serve_cli"])
+    report["profiler_misses"] = PROFILER_MISSES
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -4502,7 +5194,8 @@ def main() -> int:
             summary[-1].update({"variant": row["variant"],
                                 "other_variant_source":
                                     OTHER_VARIANT_SOURCE[name]})
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "profiler_misses": PROFILER_MISSES})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

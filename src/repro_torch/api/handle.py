@@ -8,7 +8,9 @@ loads it.
 
 Exact-repeat query rows are served from a query LRU (``CachePolicy``,
 ``api/cache.py``) at zero cost; near repeats race with CI priors seeded from
-the cached neighbour. ``Index.race`` opens an epoch-granular resumable race
+the cached neighbour. A fleet's handles share one cache: each keys, looks
+up and fences only its own namespace (``_cache_ns``, set by
+``repro_torch.fleet``). ``Index.race`` opens an epoch-granular resumable race
 (``index/anytime.py``), which the request plane (``serve/plane.py``) drives.
 ``Index.tune`` races the serving config's performance knobs on the store
 itself (``repro_torch.tune``); ``save`` persists the winner as a
@@ -84,6 +86,8 @@ class Index:
                                   else CompactionPolicy())
         self._cache = (QueryCache(self.cache_policy.capacity)
                        if self.cache_policy.capacity > 0 else None)
+        self._cache_ns: Optional[str] = None  # set by a fleet: a shared
+                                              # cache keys and fences on it
         self._payload = payload
         self._build_gids = build_gids
         self._epoch = 0
@@ -340,7 +344,9 @@ class Index:
         self._store = store
         self._epoch += 1
         if self._cache is not None:
-            self._cache.clear()
+            # a standalone handle (_cache_ns None) owns the whole cache; a
+            # fleet's handle shares it and fences only its own namespace
+            self._cache.clear(self._cache_ns)
         self._replica_stores = None
         if (store.n_shards if hasattr(store, "shards") else None) \
                 != old_shards:
@@ -466,7 +472,8 @@ class Index:
         base = self._store.prior_var.cpu().numpy()
         rows, found = [], False
         for i in miss:
-            near = self._cache.get_near(hid[i], pol.near_threshold)
+            near = self._cache.get_near(hid[i], pol.near_threshold,
+                                        self._cache_ns)
             if near is None:
                 rows.append(base)
             else:
@@ -515,7 +522,7 @@ class Index:
         coord_ops = np.zeros((Q,), np.float32)
         rounds = np.zeros((Q,), np.int32)
         n_exact = np.zeros((Q,), np.int32)
-        keys = [QueryCache.key(row) for row in hid]
+        keys = [QueryCache.key(row, self._cache_ns) for row in hid]
         shard_ops = shard_rounds = None
         miss = []
         for i in range(Q):
@@ -543,7 +550,7 @@ class Index:
                 rounds[i] = raw.rounds[j]
                 n_exact[i] = raw.n_exact[j]
                 self._cache.put(keys[i], (idx[i].copy(), vals[i].copy()),
-                                vec=hid[i])
+                                vec=hid[i], namespace=self._cache_ns)
             self._races += 1
             self._raced_queries += len(miss)
         return KNNResult(indices=idx, values=vals, coord_ops=coord_ops,

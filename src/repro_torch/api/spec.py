@@ -9,9 +9,8 @@
   * ``KNNResult`` — the result schema of ``Index.query``, the reference's
     schema unchanged: host-side arrays, per-query cost counters.
   * ``ServeStats`` — the handle's and the request plane's serving counters,
-    field for field the reference's schema (v6). The fleet fields keep the
-    reference's defaults until the fleet is ported (ROADMAP.md Queue 1
-    item 8).
+    field for field the reference's schema (v6); the fleet fields are
+    filled by a plane behind a fleet (``repro_torch.fleet``).
   * ``CachePolicy`` — the query LRU and near-repeat warm starts;
     ``CompactionPolicy`` — when ``Index.maybe_compact`` rebuilds the slot
     layout.
@@ -138,8 +137,8 @@ class ServeStats:
 
     ``as_dict()`` is the stable JSON schema; ``__getitem__`` also accepts
     the reference's older string keys (``knn_cache_hits``, …). The fleet
-    fields hold the reference's defaults until the fleet is ported
-    (ROADMAP.md Queue 1 item 8).
+    fields are filled by a plane behind a router (``repro_torch.fleet``)
+    and hold their defaults elsewhere.
     """
 
     races: int = 0             # batched races launched
@@ -183,7 +182,7 @@ class ServeStats:
     slo_alerts: int = 0        # burn-rate alerts fired (lifetime)
     serving_fallback: bool = False  # tuned config forced off (recall guard)
     retune_requested: bool = False  # an Index.tune() re-race is flagged
-    # -- fleet rollup (schema v6): the reference's defaults -----------------
+    # -- fleet rollup (schema v6), behind a router --------------------------
     fleet_namespaces_resident: int = 0
     fleet_namespaces_evicted: int = 0
     fleet_reloads: int = 0

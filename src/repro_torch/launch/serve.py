@@ -14,8 +14,12 @@ not; a directory written by the JAX package's CLI loads too.
 ``--index-append`` grows the datastore during decode; ``--tune`` races the
 index's serving knobs after build or load and saves the winner beside it.
 ``--index-shards S`` builds a sharded index with its S shards on the
-serving device. Not ported yet: ``--fleet-root`` (ROADMAP.md Queue 1 item
-8), ``--data`` or ``--model > 1`` (item 9).
+serving device. ``--fleet-root DIR`` serves retrieval from a namespace
+fleet (``repro_torch.fleet``): the index is the fleet's ``default``
+namespace, created on the first launch and recovered from ``fleet.json``
+afterwards, the engine shares the fleet's request plane, and the fleet is
+flushed on exit; ``--max-resident`` is its residency budget. Not ported
+yet: ``--data`` or ``--model > 1`` (ROADMAP.md Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -66,9 +70,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "to the checkpoint so later launches serve it "
                          "without racing again")
     ap.add_argument("--fleet-root", default=None, metavar="DIR",
-                    help="serve from a namespace fleet (not ported yet)")
+                    help="serve retrieval from a namespace fleet rooted "
+                         "here: the index is the fleet's 'default' "
+                         "namespace (created on the first launch, "
+                         "recovered from the manifest afterwards) and the "
+                         "engine shares the fleet's request plane; "
+                         "overrides --index-dir")
     ap.add_argument("--max-resident", type=int, default=8,
-                    help="with --fleet-root: the fleet's residency budget")
+                    help="with --fleet-root: the LRU residency budget "
+                         "(namespaces beyond it are checkpointed and "
+                         "evicted, and reload on their next touch)")
     ap.add_argument("--datastore-size", type=int, default=2048)
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--model", type=int, default=1)
@@ -106,10 +117,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def check_ported(args: argparse.Namespace) -> None:
     """Raise for the flags whose machinery is not ported yet."""
-    if args.fleet_root:
-        raise NotImplementedError(
-            "--fleet-root: the namespace fleet is not ported yet (ROADMAP.md "
-            "Queue 1 item 8)")
     if args.data > 1 or args.model > 1:
         raise NotImplementedError(
             f"--data {args.data} --model {args.model}: the port serves on one "
@@ -119,7 +126,7 @@ def check_ported(args: argparse.Namespace) -> None:
 def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
     """The retrieval index: loaded from ``--index-dir`` when it exists
     (the payload attached when it holds none), else built from ``keys``
-    and saved there; tuned under ``--tune`` unless it carries a tuning."""
+    and saved there."""
     from repro_torch.api import Index
     policies = dict(cache=knn_cfg.cache_policy(),
                     compaction=knn_cfg.compaction_policy())
@@ -137,6 +144,13 @@ def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
             index.save(args.index_dir)
             log.info("built + saved index to %s (%d shard(s))",
                      args.index_dir, index.n_shards)
+    return index
+
+
+def maybe_tune(args, index) -> None:
+    """Under ``--tune``, race the index's serving knobs unless it carries
+    a tuning; with ``--index-dir`` the winner's sidecar is saved there (a
+    fleet's namespace keeps it through ``Fleet.flush``)."""
     if args.tune and index.tuned is None:
         t0 = time.time()
         report = index.tune(rng=13)
@@ -146,7 +160,7 @@ def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
                  report.get("winner_median_ms", float("nan")),
                  report.get("default_median_ms", float("nan")),
                  report.get("raced", 0))
-        if args.index_dir:
+        if args.index_dir and not args.fleet_root:
             from repro_torch.tune import save_tuned, signature_of
             save_tuned(args.index_dir, signature_of(index.store),
                        index.tuned,
@@ -156,7 +170,29 @@ def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
     elif args.tune:
         log.info("index loaded with a tuned sidecar — serving it without "
                  "re-racing (%s)", index.tuned.to_dict())
-    return index
+
+
+def open_fleet(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
+    """The fleet at ``--fleet-root`` and its ``default`` namespace: created
+    from ``keys`` on the first launch, recovered from the manifest after.
+    Returns (fleet, the namespace's handle, the fleet's plane, which binds
+    it as its default index so the δ-audit covers its traffic)."""
+    from repro_torch.fleet import Fleet, FleetConfig
+    fleet = Fleet(args.fleet_root, FleetConfig(max_resident=args.max_resident),
+                  device=device)
+    if "default" in fleet:
+        index = fleet.get("default")
+        log.info("fleet %s: recovered namespace 'default' (%d live slots, "
+                 "%d shard(s); %d namespace(s) total, %d resident)",
+                 args.fleet_root, index.n_live, index.n_shards, len(fleet),
+                 fleet.resident_count)
+    else:
+        index = fleet.create("default", keys, knn_cfg.bmo, 7,
+                             shards=max(args.index_shards, 1),
+                             payload=next_ids)
+        log.info("fleet %s: created namespace 'default' (%d shard(s))",
+                 args.fleet_root, index.n_shards)
+    return fleet, index, fleet.serve(knn_cfg.plane, default="default")
 
 
 def report_after_serving(args, engine: ServeEngine) -> dict:
@@ -210,8 +246,8 @@ def report_after_serving(args, engine: ServeEngine) -> dict:
 
 def main(argv=None) -> dict:
     """Serve once; returns the generated tokens, the retrieval's coordinate
-    ops, the seconds ``generate`` took, the audit summary and the engine's
-    stats."""
+    ops, the seconds ``generate`` took, the audit summary, the engine's
+    stats and, with ``--fleet-root``, the fleet's stats."""
     args = parse_args(argv)
     check_ported(args)
     device = resolve_device(args.device)
@@ -226,7 +262,7 @@ def main(argv=None) -> dict:
                         rng=0)
     max_seq = args.max_seq or (args.prompt_len + args.new_tokens + 8)
 
-    knn_cfg = index = None
+    knn_cfg = index = fleet = fleet_plane = None
     if args.knn_lm:
         ds_rng = np.random.default_rng(0)
         keys = ds_rng.normal(size=(args.datastore_size, cfg.d_model)
@@ -239,11 +275,18 @@ def main(argv=None) -> dict:
                           batch_arms=16),
             plane=PlaneConfig(audit_rate=args.audit_rate,
                               audit_dir=args.audit_dir))
-        index = open_index(args, knn_cfg, keys, next_ids, device)
+        if args.fleet_root:
+            fleet, index, fleet_plane = open_fleet(args, knn_cfg, keys,
+                                                   next_ids, device)
+        else:
+            index = open_index(args, knn_cfg, keys, next_ids, device)
+        maybe_tune(args, index)
 
     engine = ServeEngine(model, plan, batch_size=args.batch, max_seq=max_seq,
                          knn_lm=knn_cfg, index=index,
-                         index_append=args.index_append, device=device)
+                         index_append=args.index_append, plane=fleet_plane,
+                         plane_namespace="default" if fleet_plane else None,
+                         device=device)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()
@@ -254,6 +297,11 @@ def main(argv=None) -> dict:
              f"; retrieval coord-ops={retrieval_ops:.0f}" if args.knn_lm
              else "")
     audit = report_after_serving(args, engine) if args.knn_lm else None
+    fleet_stats = None
+    if fleet is not None:
+        fleet.flush()           # the manifest and dirty checkpoints
+        fleet_stats = fleet.stats()
+        log.info("fleet stats: %s", fleet_stats)
     if args.health_dump:
         from repro_torch.obs import dump_health
         dump_health(args.health_dump, plane=engine.plane, index=engine.index)
@@ -270,7 +318,8 @@ def main(argv=None) -> dict:
                      args.trace, obs.events.total, obs.events.drops)
     print(out[:, :16])
     return {"tokens": out, "retrieval_ops": retrieval_ops, "seconds": dt,
-            "audit": audit, "stats": engine.stats.as_dict()}
+            "audit": audit, "stats": engine.stats.as_dict(),
+            "fleet": fleet_stats}
 
 
 if __name__ == "__main__":

@@ -40,9 +40,12 @@ from the same distance rows as the exact top-k: two kernels (the
 tensor-core ℓ2 and a CUDA-core gather) may differ by up to 1e-4 relative,
 the whole tie tolerance, and would flag near-ties as mismatches.
 
-The port has no fleet yet (ROADMAP.md Queue 1 item 8), so the auditor
-serves one index: the reference's "namespaced" and "unroutable" skip
-reasons stay in ``summary()`` at 0, and its keys carry an empty namespace.
+Behind a fleet (``router=``), namespaced items resolve their index through
+the router when the oracle runs (reloading an evicted namespace, the
+plane's own routing contract); an item whose namespace was dropped since
+counts as ``unroutable``, and the plane counts a namespaced ticket it
+cannot route as ``namespaced``. Keys and metric labels carry the
+namespace.
 """
 from __future__ import annotations
 
@@ -475,6 +478,7 @@ class _AuditItem:
     served_ids: np.ndarray        # (Q, k)
     served_vals: np.ndarray       # (Q, k)
     spec: object = None
+    namespace: Optional[str] = None   # fleet namespace; None: the default
 
     @property
     def rows(self) -> int:
@@ -496,7 +500,9 @@ class _KeyState:
 
 
 class DeltaAuditor:
-    """Shadow δ-auditor over one ``repro_torch.api.Index``.
+    """Shadow δ-auditor over one ``repro_torch.api.Index``, or, given a
+    ``router`` (a ``repro_torch.fleet.Fleet``), over every namespace a
+    fleet's plane serves.
 
     ``offer`` runs ON the serving path and must stay cheap: one RNG draw
     (``random.Random(seed)``, as the reference's, so one seed samples the
@@ -506,9 +512,10 @@ class DeltaAuditor:
     ``process``/``flush`` run the exact oracle OFF the critical path.
     Items whose store epoch fell behind a mutation are skipped (the ground
     truth they were served against no longer exists) and counted as
-    ``stale_epoch``."""
+    ``stale_epoch``; items whose namespace was dropped count as
+    ``unroutable``."""
 
-    def __init__(self, index, *, rate: float, obs=None,
+    def __init__(self, index=None, *, router=None, rate: float, obs=None,
                  recorder: Optional[FlightRecorder] = None, seed: int = 0,
                  reservoir: int = 256, confidence: float = 0.95,
                  rtol: float = DEFAULT_RTOL, atol: float = DEFAULT_ATOL,
@@ -520,9 +527,11 @@ class DeltaAuditor:
         if not 0.5 <= confidence < 1.0:
             raise ValueError(
                 f"confidence must be in [0.5, 1), got {confidence}")
-        if index is None:
-            raise ValueError("DeltaAuditor needs an index")
+        if index is None and router is None:
+            raise ValueError("DeltaAuditor needs an index, a router "
+                             "(fleet), or both")
         self.index = index
+        self.router = router
         self.rate = rate
         self.obs = obs
         self.recorder = recorder
@@ -559,7 +568,8 @@ class DeltaAuditor:
 
     def offer(self, *, trace_id: str, tenant: str, store_epoch: int,
               contract: str, k: int, delta: float, queries, served_ids,
-              served_vals, spec=None) -> bool:
+              served_vals, spec=None,
+              namespace: Optional[str] = None) -> bool:
         """Maybe sample one terminal ticket into the reservoir. Cheap by
         construction — a Bernoulli(rate) draw plus array copies; all
         oracle work waits for ``process``. Returns True iff sampled."""
@@ -577,7 +587,8 @@ class DeltaAuditor:
             trace_id=trace_id, tenant=tenant, store_epoch=int(store_epoch),
             contract=contract, k=int(k), delta=float(delta), queries=q,
             served_ids=np.array(served_ids, np.int64),
-            served_vals=np.array(served_vals), spec=spec)
+            served_vals=np.array(served_vals), spec=spec,
+            namespace=namespace)
         dq = self._pending.setdefault(tenant, collections.deque())
         if len(dq) >= self._reservoir:
             dq.popleft()
@@ -617,12 +628,14 @@ class DeltaAuditor:
         return None
 
     def _key_metrics(self, key):
-        _namespace, tenant, epoch, contract = key
+        namespace, tenant, epoch, contract = key
         if self.obs is None:
             return None, None, None
         reg = self.obs.registry
         lbl = dict(self._labels, tenant=tenant, store_epoch=str(epoch),
                    contract=contract)
+        if namespace:
+            lbl["namespace"] = namespace
         return (reg.counter("repro_audit_sampled_total",
                             "query rows shadow-audited", **lbl),
                 reg.counter("repro_audit_mismatch_total",
@@ -632,15 +645,29 @@ class DeltaAuditor:
                           "Wilson upper confidence bound on the empirical "
                           "error rate (compare against δ)", **lbl))
 
+    def _resolve_index(self, item: _AuditItem):
+        """The index the item's ground truth lives in: the bound default
+        for an un-namespaced item, the router's handle (reloaded when it
+        was evicted) for a namespaced one; None when unroutable."""
+        if item.namespace is None:
+            return self.index
+        if self.router is None:
+            return None
+        try:
+            return self.router.resolve(item.namespace)
+        except KeyError:
+            return None                     # namespace dropped since
+
     def _audit(self, item: _AuditItem, index) -> bool:
-        """Oracle one item against the index. Returns True iff a mismatch
-        was found."""
+        """Oracle one item against its resolved index. Returns True iff a
+        mismatch was found."""
         t0 = time.perf_counter()
         check = check_topk(index.store, item.queries, item.served_ids,
                            item.k, rtol=self.rtol, atol=self.atol)
         if self._h_ms is not None:
             self._h_ms.observe((time.perf_counter() - t0) * 1e3)
-        key = ("", item.tenant, item.store_epoch, item.contract)
+        key = (item.namespace or "", item.tenant, item.store_epoch,
+               item.contract)
         state = self._states.setdefault(key, _KeyState())
         state.sampled += item.rows
         state.mismatches += check.mismatches
@@ -688,12 +715,20 @@ class DeltaAuditor:
         when no race group is active, or from an explicit flush. Returns
         the number of items processed (audited or skipped)."""
         done = 0
-        index = self.index
         while limit is None or done < limit:
             item = self._pop_round_robin()
             if item is None:
                 break
             done += 1
+            index = self._resolve_index(item)
+            if index is None:
+                self.skipped["unroutable"] += 1
+                if self.obs is not None:
+                    self.obs.tracer.instant(
+                        "audit.skip", trace=item.trace_id,
+                        reason="unroutable",
+                        namespace=item.namespace or "")
+                continue
             if item.store_epoch != index.epoch:
                 self.skipped["stale_epoch"] += 1
                 if self.obs is not None:

@@ -38,8 +38,7 @@ def health_snapshot(*, plane=None, index=None, auditor=None,
     plane implies its index and auditor unless overridden; a fleet adds a
     per-namespace residency/queue rollup (``fleet`` section). ``ok`` is
     the one-bit rollup: no active SLO alert, no audited key in
-    δ-violation, and no forced serving fallback. (No port plane has a
-    fleet yet: ``fleet`` stays None unless passed.)"""
+    δ-violation, and no forced serving fallback."""
     from repro_torch.api.spec import SCHEMA_VERSION
     if plane is not None:
         index = index if index is not None else plane.index

@@ -19,8 +19,10 @@ amortises the tombstone debt.
 
 The model is an ``nn.Module`` holding its weights (no parameter tree, no
 mesh); the engine runs on one device, and a sharded index
-(``index_shards > 1``) puts its shards on that device. Not ported yet: a
-fleet's plane (``plane_namespace``, ROADMAP.md Queue 1 item 8).
+(``index_shards > 1``) puts its shards on that device. On a fleet's shared
+plane (``Fleet.serve()``) the retrieval tickets carry ``plane_namespace``,
+and the payload lookups and appends go to that namespace's live handle,
+reloaded by the fleet when it was evicted.
 """
 from __future__ import annotations
 
@@ -105,27 +107,40 @@ class ServeEngine:
         next-token ids as ``datastore=(None, ids)``). ``index_append``:
         insert each decode step's (hidden, token) pairs into the index.
         ``plane``: a ``RequestPlane`` owned elsewhere, in place of a private
-        one."""
+        one (e.g. a fleet's shared plane from ``Fleet.serve()``).
+        ``plane_namespace``: the namespace label the decode loop's
+        retrieval tickets carry on a fleet's plane (None on a one-index
+        plane). There the engine keeps no handle of its own: ``index``
+        (given, if at all, to attach the next-token ids) is read back from
+        the router at each use, so an evicted namespace is not pinned."""
         device = resolve_device(device)
         if model.device != device:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"serves on {device}")
-        if plane_namespace is not None:
-            raise NotImplementedError(
-                f"plane_namespace={plane_namespace!r}: a fleet's plane is "
-                "not ported yet (ROADMAP.md Queue 1 item 8)")
         self.model = model
         self.device = device
         self.batch_size = batch_size
         self.max_seq = max_seq
         self.prefill_step = make_prefill_step(model, plan)
         self.knn_lm = knn_lm
-        self.index: Optional[Index] = None
+        self._index: Optional[Index] = None
         self.index_append = index_append
-        if knn_lm is not None and (index is not None or datastore is not None):
+        self.plane_namespace = plane_namespace
+        self._router = (getattr(plane, "router", None)
+                        if plane_namespace is not None else None)
+        if self._router is not None and (
+                not (index is None or isinstance(index, Index))
+                or (datastore is not None and datastore[0] is not None)):
+            raise ValueError("behind a fleet's plane the namespace comes from "
+                             "the fleet: pass its handle or none, not a "
+                             "store or a datastore to build")
+        if knn_lm is not None and (index is not None or datastore is not None
+                                   or self._router is not None):
             next_ids = datastore[1] if datastore is not None else None
             if next_ids is not None:
                 next_ids = np.asarray(next_ids, np.int32)
+            if index is None and self._router is not None:
+                index = self._router.get(plane_namespace)
             if isinstance(index, Index):
                 handle = index
                 if next_ids is not None:
@@ -143,12 +158,13 @@ class ServeEngine:
             if handle.payload is None:
                 # uncovered slots vote token 0: make that explicit
                 handle.attach_payload(np.zeros((handle.capacity,), np.int32))
-            self.index = handle
+            if self._router is None:
+                self._index = handle
         if plane is not None:
             self.plane: Optional[RequestPlane] = plane
         else:
-            self.plane = (RequestPlane(self.index, knn_lm.plane)
-                          if self.index is not None else None)
+            self.plane = (RequestPlane(self._index, knn_lm.plane)
+                          if self._index is not None else None)
         self.cache = init_cache(model, batch_size, max_seq)
 
     @torch.no_grad()
@@ -172,14 +188,15 @@ class ServeEngine:
         queue depth, shed counts, latency percentiles, audit counts."""
         if self.plane is not None:
             return self.plane.stats
-        return self.index.stats if self.index is not None else ServeStats()
+        return self._index.stats if self._index is not None else ServeStats()
 
     def _knn_logits(self, hidden, rng):
         """(log(p_knn + 1e-9) (B, V) fp32, coordinate ops): the plane's
         certified top-k of the rows ``hidden``, each neighbour voting its
         next token with weight softmax(−value / T); repeated tokens add
         up."""
-        res = self.plane.query(hidden, rng=rng, tenant=ENGINE_TENANT)
+        res = self.plane.query(hidden, rng=rng, tenant=ENGINE_TENANT,
+                               namespace=self.plane_namespace)
         ops = float(np.asarray(res.coord_ops).sum())
         B = res.indices.shape[0]
         V = self.model.cfg.vocab_size
@@ -196,8 +213,9 @@ class ServeEngine:
         """Fold this step's (hidden, next-token) pairs into the live index:
         the handle keeps the payload aligned through growth and compaction,
         fences the cache and applies its ``CompactionPolicy``."""
-        self.index.insert(hidden, payload=tok[:, 0].cpu().numpy())
-        self.index.maybe_compact()
+        index = self.index
+        index.insert(hidden, payload=tok[:, 0].cpu().numpy())
+        index.maybe_compact()
 
     @torch.no_grad()
     def generate(self, prompts: np.ndarray, max_new_tokens: int, rng=None):
@@ -229,8 +247,18 @@ class ServeEngine:
         return torch.cat(out, dim=1).cpu().numpy(), retrieval_ops
 
     @property
+    def index(self) -> Optional[Index]:
+        """The retrieval index: behind a fleet's plane the namespace's live
+        handle, fetched from the router (reloaded if it was evicted), else
+        the engine's own."""
+        if self._router is not None:
+            return self._router.get(self.plane_namespace)
+        return self._index
+
+    @property
     def _knn_on(self) -> bool:
-        return self.knn_lm is not None and self.index is not None
+        return self.knn_lm is not None and (self._index is not None
+                                            or self._router is not None)
 
     def _mix(self, logits, hidden, seeds):
         """A decode step's log-probabilities (B, V) in fp32 and the

@@ -1,5 +1,6 @@
 """repro_torch.serve.plane — the async request plane over one ``Index``
-handle (DESIGN.md §7), the reference's scheduler on the port's sessions.
+handle or a whole namespace fleet (DESIGN.md §7, §11), the reference's
+scheduler on the port's sessions.
 
 ``Index.query`` is a blocking, run-to-certification batch call: one hard
 query (or one greedy caller) gates everyone sharing the engine. The plane
@@ -37,9 +38,17 @@ A race that cannot launch sheds its tickets with a ``rejected: …`` reason
 (``obs/audit.py``) samples fully certified terminal tickets at ``_finish``
 (an RNG draw and host copies) and re-answers them with the exact oracle
 only on idle steps or through ``audit_step``/``audit_flush`` — never inside
-a serving epoch. Not ported yet: namespace routing over a fleet
-(``router=``, ROADMAP.md Queue 1 item 8), which raises
-``NotImplementedError``.
+a serving epoch.
+
+Namespace routing (DESIGN.md §11): with ``router=`` (a
+``repro_torch.fleet.Fleet``) tickets carry a ``namespace`` label.
+``submit(..., namespace="users")`` resolves the backing ``Index`` through
+the router at admission (which reloads an evicted namespace), admission
+fairness, shedding and the per-namespace quota key on ``(tenant,
+namespace)``, race groups never mix namespaces and each fences against its
+own index, and per-namespace counters ride the metrics registry under a
+``namespace`` label (``repro_plane_ns_*``). ``RequestPlane(index)`` behaves
+as before.
 """
 from __future__ import annotations
 
@@ -123,13 +132,15 @@ class _Entry(object):
     """Plane-internal ticket state (the public handle is ``.ticket``)."""
 
     def __init__(self, ticket: Ticket, queries, rng, spec: QuerySpec,
-                 is_sparse: bool, index: Index):
+                 is_sparse: bool, index: Index,
+                 namespace: Optional[str] = None):
         self.ticket = ticket
         self.queries = queries        # host (numpy) rows
         self.rng = rng
         self.spec = spec
         self.is_sparse = is_sparse
-        self.index = index
+        self.index = index            # the backing handle, resolved at submit
+        self.namespace = namespace    # routing label (None: default index)
         Q = ticket.n_queries
         self.cached_rows: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
         self.cache_epoch = -1         # store epoch the cached rows are from
@@ -152,7 +163,8 @@ class _Entry(object):
 
 class _Group(object):
     """One coalesced race batch: a RaceSession plus its member tickets,
-    pinned to the store epoch it launched against."""
+    pinned to one backing index (groups never mix namespaces) and the
+    store epoch it launched against."""
 
     def __init__(self, session, members: List[_Member], store_epoch: int,
                  index: Index):
@@ -163,18 +175,20 @@ class _Group(object):
 
 
 class RequestPlane:
-    """The async request plane over one ``repro_torch.api.Index`` handle."""
+    """The async request plane over one ``repro_torch.api.Index`` handle,
+    or, with ``router=`` (a ``repro_torch.fleet.Fleet``), over every
+    namespace the router serves, through one shared scheduler."""
 
     def __init__(self, index: Optional[Index] = None,
                  config: Optional[PlaneConfig] = None,
                  *, obs=None, router=None):
-        if router is not None:
-            raise NotImplementedError(
-                "RequestPlane(router=…): namespace routing over a fleet is "
-                "not ported yet (ROADMAP.md Queue 1 item 8)")
-        if index is None:
-            raise ValueError("RequestPlane needs an index")
+        if index is None and router is None:
+            raise ValueError("RequestPlane needs an index, a router "
+                             "(repro_torch.fleet.Fleet), or both")
         self.index = index
+        self.router = router
+        if router is not None and hasattr(router, "attach_plane"):
+            router.attach_plane(self)   # wires the eviction in-flight guard
         self.config = config if config is not None else PlaneConfig()
         self.obs = obs if obs is not None else get_obs()
         self.plane_id = f"p{next(_plane_seq)}"
@@ -232,14 +246,67 @@ class RequestPlane:
             recorder = (FlightRecorder(self.config.audit_dir)
                         if self.config.audit_dir else None)
             self.auditor = DeltaAuditor(
-                index, rate=self.config.audit_rate, obs=self.obs,
-                recorder=recorder, seed=self.config.audit_seed,
+                index, router=router, rate=self.config.audit_rate,
+                obs=self.obs, recorder=recorder, seed=self.config.audit_seed,
                 reservoir=self.config.audit_reservoir, labels=lbl)
 
+    # -- routing -------------------------------------------------------------
+
+    def _resolve(self, namespace: Optional[str]) -> Index:
+        """The backing ``Index`` of a namespace label: ``None`` routes to
+        the plane's default index, a label goes through the router (which
+        reloads an evicted namespace and bumps its LRU recency)."""
+        if namespace is None:
+            if self.index is None:
+                raise ValueError(
+                    "this plane routes by namespace (router-only) — "
+                    "pass namespace= to submit()")
+            return self.index
+        if self.router is None:
+            raise ValueError(
+                f"namespace={namespace!r} submitted to a plane without a "
+                "router — construct RequestPlane(router=fleet) to serve "
+                "namespaces")
+        return self.router.resolve(namespace)
+
     def _qkey(self, entry: _Entry) -> tuple:
-        # the reference's (tenant, namespace) key; no namespace without the
-        # fleet
-        return (entry.ticket.tenant, None)
+        return (entry.ticket.tenant, entry.namespace)
+
+    def _max_queue(self, namespace: Optional[str]) -> int:
+        """Per-namespace admission bound: the router's override when it has
+        one, else ``PlaneConfig.max_queue``."""
+        if namespace is not None and self.router is not None:
+            mq = self.router.namespace_max_queue(namespace)
+            if mq is not None:
+                return mq
+        return self.config.max_queue
+
+    def _ns_metrics(self, namespace: str):
+        """Per-namespace series, registered on first use (a registry lookup
+        returns the same series again)."""
+        reg = self.obs.registry
+        lbl = {"plane": self.plane_id, "namespace": namespace}
+        return (reg.counter("repro_plane_ns_submitted_total",
+                            "tickets submitted per namespace", **lbl),
+                reg.counter("repro_plane_ns_completed_total",
+                            "tickets finished per namespace", **lbl),
+                reg.gauge("repro_plane_ns_queue_depth",
+                          "tickets waiting for admission per namespace",
+                          **lbl))
+
+    def namespace_load(self) -> Dict[str, int]:
+        """Live tickets (queued and racing) per namespace: the fleet's
+        eviction guard never takes a namespace with work in flight."""
+        load: Dict[str, int] = {}
+        for (_t, ns), q in self._queues.items():
+            if ns is not None and q:
+                load[ns] = load.get(ns, 0) + len(q)
+        for g in self._groups:
+            for m in g.members:
+                ns = m.entry.namespace
+                if ns is not None:
+                    load[ns] = load.get(ns, 0) + 1
+        return load
 
     # -- admission -----------------------------------------------------------
 
@@ -251,16 +318,13 @@ class RequestPlane:
         overrides (``deadline=``, ``budget=``, ``k=``, …) refine the spec
         exactly like ``Index.query``. Queries may be host arrays or tensors;
         the plane keeps them as host (numpy) rows, which the query cache
-        keys."""
-        if namespace is not None:
-            raise NotImplementedError(
-                f"namespace={namespace!r}: namespace routing over a fleet is "
-                "not ported yet (ROADMAP.md Queue 1 item 8)")
+        keys. ``namespace`` routes the ticket to a fleet namespace (needs a
+        router); admission then keys on ``(tenant, namespace)``."""
         if spec is None:
             spec = QuerySpec(**overrides)
         elif overrides:
             spec = dataclasses.replace(spec, **overrides)
-        index = self.index
+        index = self._resolve(namespace)
         is_sparse = isinstance(queries, tuple)
         # reject unraceable submissions HERE, not at group launch: a bad
         # spec admitted into a coalesced bucket would abort co-admitted
@@ -294,10 +358,14 @@ class RequestPlane:
                         trace_id=f"{self.plane_id}.t{self._next_id}")
         self._next_id += 1
         self._submitted.inc()
+        nsattr = {} if namespace is None else {"namespace": namespace}
+        if namespace is not None:
+            self._ns_metrics(namespace)[0].inc()
         tracer = self.obs.tracer
         tracer.instant("plane.submit", trace=ticket.trace_id,
-                       tenant=tenant, n_queries=Q)
-        entry = _Entry(ticket, queries, rng, spec, is_sparse, index)
+                       tenant=tenant, n_queries=Q, **nsattr)
+        entry = _Entry(ticket, queries, rng, spec, is_sparse, index,
+                       namespace)
         self._entries[ticket.id] = entry
 
         q = self._queues.setdefault(self._qkey(entry), collections.deque())
@@ -306,7 +374,7 @@ class RequestPlane:
         if not entry.miss_rows:          # fully served from the query LRU —
             self._finish(entry, R_CERTIFIED)   # free, never needs a slot
             return ticket
-        if len(q) >= self.config.max_queue:
+        if len(q) >= self._max_queue(namespace):
             self._shed.inc()
             ticket.status = SHED
             ticket.reason = "queue_full"
@@ -314,17 +382,19 @@ class RequestPlane:
             ticket.result = self._empty_result(entry, R_SHED)
             self._entries.pop(ticket.id, None)
             tracer.instant("plane.shed", trace=ticket.trace_id,
-                           reason="queue_full", tenant=tenant)
+                           reason="queue_full", tenant=tenant, **nsattr)
             return ticket
         entry.queue_span = tracer.start("plane.queue",
-                                        trace=ticket.trace_id, tenant=tenant)
+                                        trace=ticket.trace_id, tenant=tenant,
+                                        **nsattr)
         q.append(entry)
         return ticket
 
     def _consult_cache(self, entry: _Entry) -> None:
         """Serve exact-repeat rows from the handle's LRU at submit time (the
         ``Index.query`` contract; the shared cache keeps both surfaces
-        coherent). Near-repeat CI priors are seeded later, at group launch —
+        coherent, and its keys carry the namespace, so two namespaces never
+        exchange rows). Near-repeat CI priors are seeded later, at group launch —
         a ticket shed by backpressure must not pay them."""
         index = entry.index
         cache = index._cache
@@ -336,7 +406,7 @@ class RequestPlane:
         hid = entry.queries
         for i in range(entry.ticket.n_queries):
             got = (None if spec.cache == "refresh"
-                   else cache.get(QueryCache.key(hid[i])))
+                   else cache.get(QueryCache.key(hid[i], index._cache_ns)))
             if got is not None:
                 entry.cached_rows[i] = (np.asarray(got[0]).copy(),
                                         np.asarray(got[1]).copy())
@@ -345,10 +415,13 @@ class RequestPlane:
 
     def _race_key(self, entry: _Entry):
         # use_tuned picks the config the group races: a ticket that opts
-        # out of the tuning never rides a tuned group (nor the reverse)
+        # out of the tuning never rides a tuned group (nor the reverse);
+        # id(entry.index) pins a group to one backing handle, so groups
+        # never mix namespaces (or a handle before and after a reload)
         s = entry.spec
         return (s.k, s.mode, s.impl, s.delta, s.max_rounds, s.eliminate,
-                s.warm_start, s.use_tuned, entry.is_sparse, id(entry.index))
+                s.warm_start, s.use_tuned, entry.is_sparse, entry.namespace,
+                id(entry.index))
 
     def _admission_key(self, entry: _Entry):
         """Deadline-aware admission order: earliest absolute deadline
@@ -559,9 +632,12 @@ class RequestPlane:
                 entry.queue_span = None
             # the admit instant is the ticket ↔ session join key: the
             # session's race.epoch spans record under session.sid
+            nsattr = ({} if entry.namespace is None
+                      else {"namespace": entry.namespace})
             self.obs.tracer.instant(
                 "plane.admit", trace=t.trace_id, session=session.sid,
-                rows=len(member.rows), store_epoch=group.store_epoch)
+                rows=len(member.rows), store_epoch=group.store_epoch,
+                **nsattr)
         self._groups.append(group)
 
     def _fence_groups(self) -> None:
@@ -684,14 +760,16 @@ class RequestPlane:
                 q.remove(entry)
                 entry.epoch = entry.index.epoch
                 self._finish(entry, R_DEADLINE)
-        # drop drained queues: distinct tenants must not grow the admission
-        # scan (or stats) without bound on a long plane
+        # drop drained queues: distinct (tenant, namespace) pairs must not
+        # grow the admission scan (or stats) without bound on a long plane
         for key in [key for key, q in self._queues.items() if not q]:
             del self._queues[key]
         if self._groups or self.active:
             self._h_epoch.observe((time.perf_counter() - t0) * 1e3)
         self._g_queue.set(sum(len(q) for q in self._queues.values()))
         self._g_active.set(sum(len(g.members) for g in self._groups))
+        for ns, depth in self.ns_queue_depth().items():
+            self._ns_metrics(ns)[2].set(depth)
         # shadow audits use IDLE steps only: with races active or tickets
         # queued the oracle never runs inside the serving epoch
         if (self.auditor is not None and idle_pass
@@ -843,16 +921,20 @@ class RequestPlane:
             self._budget_exits.inc()
         self._latencies.append(t.latency_ms)
         self._h_latency.observe(t.latency_ms)
+        if entry.namespace is not None:
+            self._ns_metrics(entry.namespace)[1].inc()
         self._fill_cache(entry, reason)
         self._offer_audit(entry, reason)
         entry.group = entry.member = None
         if entry.queue_span is not None:     # e.g. deadline expired queued
             entry.queue_span.end(outcome=reason)
             entry.queue_span = None
+        nsattr = ({} if entry.namespace is None
+                  else {"namespace": entry.namespace})
         self.obs.tracer.instant(
             "plane.shed" if reason == R_SHED else "plane.terminal",
             trace=t.trace_id, reason=reason, latency_ms=t.latency_ms,
-            epochs=t.epochs, store_epoch=entry.epoch)
+            epochs=t.epochs, store_epoch=entry.epoch, **nsattr)
         self._entries.pop(t.id, None)
 
     def _offer_audit(self, entry: _Entry, reason: str) -> None:
@@ -861,6 +943,11 @@ class RequestPlane:
         contract — partial deadline/budget/shed exits are counted as
         skipped, not audited against a promise they never made."""
         if self.auditor is None:
+            return
+        if entry.namespace is not None and self.auditor.router is None:
+            # a namespaced ticket, but no router to resolve its ground
+            # truth through: counted as skipped, not missed
+            self.auditor.note_skip("namespaced")
             return
         t = entry.ticket
         res = t.result
@@ -875,7 +962,8 @@ class RequestPlane:
                       else "default"),
             k=res.indices.shape[1], delta=float(cfg.delta),
             queries=entry.queries, served_ids=res.indices,
-            served_vals=res.values, spec=entry.spec)
+            served_vals=res.values, spec=entry.spec,
+            namespace=entry.namespace)
 
     def audit_step(self, max_items: int = 1) -> int:
         """Run the δ-audit oracle on up to ``max_items`` pending samples.
@@ -906,8 +994,9 @@ class RequestPlane:
             if int(res.certified_count[i]) < res.indices.shape[1]:
                 continue
             row = entry.queries[i]
-            cache.put(QueryCache.key(row),
-                      (res.indices[i].copy(), res.values[i].copy()), vec=row)
+            cache.put(QueryCache.key(row, index._cache_ns),
+                      (res.indices[i].copy(), res.values[i].copy()),
+                      vec=row, namespace=index._cache_ns)
 
     # -- consumption ---------------------------------------------------------
 
@@ -933,7 +1022,8 @@ class RequestPlane:
               *, tenant: str = "default", namespace: Optional[str] = None,
               **overrides) -> AnytimeResult:
         """Blocking shim: submit + drain, with the ``Index.query`` cache and
-        counter semantics."""
+        counter semantics (``ServeEngine``'s retrieval, under its own
+        tenant)."""
         ticket = self.submit(queries, spec, tenant=tenant,
                              namespace=namespace, rng=rng, **overrides)
         while not ticket.terminal:
@@ -946,13 +1036,26 @@ class RequestPlane:
 
     # -- telemetry -----------------------------------------------------------
 
+    def ns_queue_depth(self) -> Dict[str, int]:
+        """Waiting tickets per namespace (queued only: the pressure signal
+        ``serve.scale.FleetPressurePolicy`` reads)."""
+        depth: Dict[str, int] = {}
+        for (_t, ns), q in self._queues.items():
+            if ns is not None and q:
+                depth[ns] = depth.get(ns, 0) + len(q)
+        return depth
+
     @property
     def stats(self) -> ServeStats:
         """The handle's ``ServeStats`` extended with the plane's queue,
-        latency and observability telemetry. The counters come straight off
-        the obs metrics registry. Percentiles are exact over the bounded
-        ``latency_window`` and 0.0 (never None/NaN) while it is empty."""
-        st = self.index.stats
+        latency and observability telemetry and, behind a router, the
+        fleet's rollup. The counters come straight off the obs metrics
+        registry. Percentiles are exact over the bounded ``latency_window``
+        and 0.0 (never None/NaN) while it is empty. A router-only plane
+        starts from an empty ``ServeStats``: no single handle's cache and
+        race counters stand for the whole fleet."""
+        st = self.index.stats if self.index is not None else ServeStats()
+        fleet = self.router
         lat = list(self._latencies)
         queue_depth = sum(len(q) for q in self._queues.values())
         active = sum(len(g.members) for g in self._groups)
@@ -991,6 +1094,13 @@ class RequestPlane:
             slo_alerts=int(sum(
                 m.value for m in self.obs.registry.collect()
                 if m.name == "repro_slo_alerts_total")),
+            fleet_namespaces_resident=(fleet.resident_count
+                                       if fleet is not None else 0),
+            fleet_namespaces_evicted=(fleet.evicted_count
+                                      if fleet is not None else 0),
+            fleet_reloads=fleet.reload_count if fleet is not None else 0,
+            ns_queue_depth=(self.ns_queue_depth()
+                            if fleet is not None else None),
         )
 
 

@@ -15,9 +15,10 @@ Hysteresis comes from requiring ``sustain`` consecutive observations and a
 
 ``RecallGuardPolicy`` turns a burning recall SLO (``obs/slo.py``) into the
 correctness actions ``apply_guard`` executes on the handle: serve on
-build-time defaults, then flag a re-tune. The reference's
-``FleetPressurePolicy`` and ``apply_fleet`` wait for the fleet (ROADMAP.md
-Queue 1 item 8).
+build-time defaults, then flag a re-tune. ``FleetPressurePolicy`` reads the
+fleet rollup (per-namespace queue depth) and recommends evicting a
+namespace or rebalancing placement; ``apply_fleet`` executes that on a
+``repro_torch.fleet.Fleet``.
 """
 from __future__ import annotations
 
@@ -151,6 +152,67 @@ class RecallGuardPolicy(ScalePolicy):
             return ScaleDecision("retune", 1, why + "; fallback active")
         return ScaleDecision(
             reason=why + "; fallback active, re-tune already flagged")
+
+
+@dataclasses.dataclass
+class FleetPressurePolicy(ScalePolicy):
+    """Namespace-granularity pressure policy over the fleet rollup fields
+    (``ns_queue_depth``, ``fleet_namespaces_resident``), the reference's.
+
+      * queued demand of at least ``high_queue`` in some namespace for
+        ``sustain`` windows → ``evict_namespace`` the namespace with the
+        least queued demand, freeing a residency slot;
+      * when one namespace holds at least ``skew`` of all queued demand →
+        ``rebalance``, so placement packs the device windows around the
+        live footprint again.
+
+    Recommendation-only: ``apply_fleet`` executes it on the fleet."""
+
+    high_queue: int = 4            # per-namespace depth that reads as demand
+    skew: float = 0.5              # one namespace's share of queued demand
+    sustain: int = 3               # consecutive windows before acting
+    cooldown: int = 3
+    _hot: int = dataclasses.field(default=0, repr=False)
+    _hold: int = dataclasses.field(default=0, repr=False)
+
+    def recommend(self, stats: ServeStats) -> ScaleDecision:
+        if self._hold > 0:
+            self._hold -= 1
+            return ScaleDecision(reason="cooldown")
+        depth = stats.ns_queue_depth or {}
+        total = sum(depth.values())
+        hot = total > 0 and max(depth.values()) >= self.high_queue
+        self._hot = self._hot + 1 if hot else 0
+        if self._hot < self.sustain:
+            return ScaleDecision(reason="steady")
+        self._hot = 0
+        self._hold = self.cooldown
+        worst = max(depth, key=depth.get)
+        coldest = min(depth, key=depth.get)
+        if depth[worst] / max(total, 1) >= self.skew:
+            return ScaleDecision(
+                "rebalance", 0,
+                f"namespace {worst!r} holds {depth[worst]}/{total} queued "
+                f"tickets (skew >= {self.skew:g})", target=worst)
+        return ScaleDecision(
+            "evict_namespace", 0,
+            f"queued demand across {len(depth)} namespaces with "
+            f"{stats.fleet_namespaces_resident} resident — freeing the "
+            f"least-demanded slot", target=coldest)
+
+
+def apply_fleet(fleet, decision: ScaleDecision, *,
+                n_devices: Optional[int] = None) -> bool:
+    """Execute a fleet-granularity decision on the live ``Fleet``. Returns
+    True iff it acted (an eviction refused by the in-flight guard did not).
+    ``n_devices`` passes through to ``Fleet.rebalance`` (needed on the
+    CPU)."""
+    if decision.action == "evict_namespace" and decision.target:
+        return fleet.evict(decision.target)
+    if decision.action == "rebalance":
+        fleet.rebalance(n_devices)
+        return True
+    return False
 
 
 def apply_guard(index, decision: ScaleDecision) -> bool:

@@ -14,6 +14,11 @@
   ids, rounds and exact evaluations exact, values at fp32 tolerance
   (rtol 2e-4 / atol 1e-5); d = 100 pads to d_pad = 128, so both race with
   d = d_pad (``test_torch_mutable.assert_same_race_on_the_pulls_scale``).
+* ``restore`` and ``CheckpointManager``: a nested state with a bf16 leaf
+  round trips under the reference's ``/``-joined keys; step directories
+  written by either package's manager restore in the other; keep-last-N,
+  the async save's host snapshot, an empty directory, a missing key, and a
+  save killed mid-publish that keeps the previous step.
 """
 import dataclasses
 import math
@@ -256,3 +261,165 @@ def test_the_reference_loads_what_the_port_saved(tmp_path, rotate):
     assert jmanager.read_meta(path) == manager.read_meta(path) == \
         idx.store.meta()
     assert dataclasses.asdict(idx.cfg) == dataclasses.asdict(jidx.cfg)
+
+
+# ---------------------------------------------------------------------------
+# restore and the keep-last-N manager
+# ---------------------------------------------------------------------------
+
+def _state(seed=0):
+    """A nested training state: fp32, a bf16 leaf, ints, a 0-d step."""
+    g = torch.Generator().manual_seed(seed)
+    return {"params": {"w": torch.randn(4, 8, generator=g),
+                       "b": torch.randn(8, generator=g).to(torch.bfloat16)},
+            "opt": {"m": [torch.ones(4, 8), torch.arange(8)]},
+            "step": torch.tensor(17, dtype=torch.int32)}
+
+
+def _like(state):
+    """``(shape, dtype)`` specs of a state's leaves."""
+    if isinstance(state, dict):
+        return {k: _like(v) for k, v in state.items()}
+    if isinstance(state, list):
+        return [_like(v) for v in state]
+    return (tuple(state.shape), state.dtype)
+
+
+def _assert_same(got, want):
+    flat_g, flat_w = manager._flatten(got), manager._flatten(want)
+    assert flat_g.keys() == flat_w.keys()
+    for key, w in flat_w.items():
+        assert flat_g[key].dtype == w.dtype, key
+        assert torch.equal(flat_g[key], w), key
+
+
+def _jax_state(seed=0):
+    k = jax.random.PRNGKey(seed)
+    return {"params": {"w": jax.random.normal(k, (4, 8)),
+                       "b": jax.numpy.arange(8, dtype=jax.numpy.bfloat16)},
+            "opt": {"m": [jax.numpy.ones((4, 8)),
+                          jax.numpy.arange(8, dtype=jax.numpy.int32)]},
+            "step": jax.numpy.asarray(17, jax.numpy.int32)}
+
+
+def test_bf16_round_trip_and_the_reference_keys(tmp_path):
+    """bf16 is stored upcast to fp32 under the reference's ``/``-joined
+    keys and comes back as bf16, bit for bit; a template of tensors or of
+    specs gives the same state."""
+    st = _state()
+    path = str(tmp_path / "ck")
+    manager.save(path, st, meta={"step": 17})
+    arrays = manager.load_arrays(path)
+    assert sorted(arrays) == ["opt/m/0", "opt/m/1", "params/b", "params/w",
+                              "step"]
+    assert arrays["params/b"].dtype == np.float32
+    _assert_same(manager.restore(path, st), st)
+    _assert_same(manager.restore(path, _like(st), device="cpu"), st)
+    assert manager.read_meta(path)["step"] == 17
+
+
+def test_restore_missing_key_or_shape_raises_and_needs_a_device(
+        tmp_path, monkeypatch):
+    st = _state()
+    path = str(tmp_path / "ck")
+    manager.save(path, st)
+    with pytest.raises(KeyError, match="extra"):
+        manager.restore(path, {**st, "extra": torch.zeros(3)})
+    with pytest.raises(ValueError, match="shape"):
+        manager.restore(path, {"step": torch.zeros(2)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        manager.restore(path, _like(st))    # specs: the GPU by default
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_step_dirs_written_by_either_package_restore_in_the_other(
+        tmp_path, writer):
+    from repro.checkpoint import CheckpointManager as JaxCheckpointManager
+    want = _jax_state()
+    if writer == "reference":
+        jm = JaxCheckpointManager(str(tmp_path), keep=2, async_save=False)
+        for step in (1, 2):
+            jm.save(step, want, meta={"who": "jax"})
+        got, meta = manager.CheckpointManager(
+            str(tmp_path), keep=2).restore_latest(
+                _like(jax.tree_util.tree_map(
+                    lambda a: torch.zeros(a.shape, dtype={
+                        "float32": torch.float32, "int32": torch.int32,
+                        "bfloat16": torch.bfloat16}[str(a.dtype)]), want)),
+                device="cpu")
+        assert meta == {"who": "jax", "step": 2}
+        for key, w in manager._flatten(jax.device_get(want)).items():
+            g = manager._flatten(got)[key]
+            np.testing.assert_array_equal(g.float().numpy(),
+                                          np.asarray(w, np.float32))
+        assert got["params"]["b"].dtype == torch.bfloat16
+        return
+    st = {"params": {"w": torch.tensor(np.asarray(want["params"]["w"])),
+                     "b": torch.arange(8).to(torch.bfloat16)},
+          "opt": {"m": [torch.ones(4, 8), torch.arange(8, dtype=torch.int32)]},
+          "step": torch.tensor(17, dtype=torch.int32)}
+    pm = manager.CheckpointManager(str(tmp_path), keep=2)
+    for step in (1, 2):
+        pm.save(step, st, meta={"who": "torch"})
+    pm.wait()
+    jm = JaxCheckpointManager(str(tmp_path), keep=2)
+    back, meta = jm.restore_latest(jax.eval_shape(lambda: want))
+    assert meta == {"who": "torch", "step": 2}
+    assert back["params"]["b"].dtype == jax.numpy.bfloat16
+    for key, w in manager._flatten(st).items():
+        np.testing.assert_array_equal(
+            np.asarray(manager._flatten(back)[key], np.float32),
+            w.float().numpy())
+
+
+def test_manager_keep_last_n_async_and_empty(tmp_path):
+    """Keep-last-N over four async saves; the state is snapshotted before
+    ``save`` returns (an in-place update after it is not in the step); an
+    empty directory restores (None, None); no tmp sibling is left."""
+    empty = manager.CheckpointManager(str(tmp_path / "empty"), keep=3)
+    assert empty.restore_latest(_like(_state()), device="cpu") == (None,
+                                                                   None)
+    assert empty.latest_step() is None
+    mgr = manager.CheckpointManager(str(tmp_path / "ck"), keep=2,
+                                    async_save=True)
+    st = _state()
+    for step in (10, 20, 30, 40):
+        mgr.save(step, st)
+        st["params"]["w"].add_(1.0)         # after save returned
+    mgr.wait()
+    assert mgr.all_steps() == [30, 40] and mgr.latest_step() == 40
+    back, meta = mgr.restore_latest(_state(), device="cpu")
+    assert meta["step"] == 40
+    want = _state()["params"]["w"]
+    for _ in range(3):                      # the updates before step 40
+        want.add_(1.0)
+    np.testing.assert_array_equal(back["params"]["w"].numpy(), want.numpy())
+    assert not [p for p in os.listdir(tmp_path / "ck") if ".tmp" in p]
+    with pytest.raises(ValueError, match="keep"):
+        manager.CheckpointManager(str(tmp_path / "x"), keep=0)
+
+
+def test_killed_save_keeps_the_previous_step(tmp_path, monkeypatch):
+    """A save killed mid-publish (the arrays file fails to write) raises
+    from ``wait`` and leaves the previous step whole and the latest one."""
+    mgr = manager.CheckpointManager(str(tmp_path), keep=3, async_save=True)
+    st = _state()
+    mgr.save(1, st)
+    mgr.wait()
+    real = np.savez
+
+    def boom(file, **arrays):
+        real(file, **arrays)
+        raise OSError("killed mid-publish")
+
+    monkeypatch.setattr(manager.np, "savez", boom)
+    mgr.save(2, _state(seed=1))
+    with pytest.raises(OSError, match="mid-publish"):
+        mgr.wait()
+    monkeypatch.undo()
+    assert mgr.all_steps() == [1]
+    assert not [p for p in os.listdir(tmp_path) if ".tmp" in p]
+    back, meta = mgr.restore_latest(st, device="cpu")
+    assert meta["step"] == 1
+    _assert_same(back, st)

@@ -19,7 +19,11 @@ held to both bounds of ``ref.flash_attention_tc_bounds``, where each is
 derived: against the plain version with p in bf16 (its contract) at one
 bf16 ulp plus 6·2⁻⁸ times each output's own rounding spread, and against
 the plain version with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|. The
-LM forward in fp32 at 1e-4, its bf16 loss at 1e-3 relative."""
+LM forward in fp32 at 1e-4, its bf16 loss at 1e-3 relative. The namespace
+fleet on the card: evict → reload bit-identical (a sharded namespace
+included), and an evicted store's device memory released."""
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1146,3 +1150,130 @@ def test_kmeans_on_the_card(gen):
     assert float((res.assignment == exact).float().mean()) >= 0.99
     assert torch.isfinite(res.centroids).all()
     assert 0 < float(res.coord_ops) < float(res.exact_ops)
+
+
+def _fleet_on_card(tmp_path, max_resident=1):
+    from repro_torch.fleet import Fleet, FleetConfig
+    cfg = BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, rotate=True)
+    fleet = Fleet(str(tmp_path / "fleet"),
+                  FleetConfig(max_resident=max_resident))
+    data = [make_knn_benchmark_data("dense", 2048, 512, 4, seed=40 + i,
+                                    device="cuda") for i in range(2)]
+    fleet.create("a", data[0][0], cfg, 1)
+    fleet.create("s", data[1][0], cfg, 2, shards=2)
+    return fleet, [q for _, q in data]
+
+
+def test_fleet_evict_reload_bit_identical_on_the_card(gen, tmp_path):
+    """A namespace queried, evicted and queried again on the card with the
+    same seed returns the same ids and values, a sharded one (S = 2, on
+    one card or on two) included, through the fused pull and the fwht."""
+    fleet, (qa, qs) = _fleet_on_card(tmp_path)
+    plane = fleet.serve()
+    f0, w0 = fused_epoch_pull_cuda.launches, fwht_cuda.launches
+    for name, q in (("a", qa), ("s", qs)):
+        before = plane.query(q, rng=7, namespace=name, cache="bypass")
+        assert fleet.peek(name) is not None and fleet.evict(name)
+        after = plane.query(q, rng=7, namespace=name, cache="bypass")
+        np.testing.assert_array_equal(before.indices, after.indices)
+        np.testing.assert_array_equal(before.values, after.values)
+        assert before.reason == "certified"
+    one_card = torch.cuda.device_count() < 2
+    assert fleet.get("s").store.devices == [
+        torch.device("cuda", 0), torch.device("cuda", 0 if one_card else 1)]
+    assert fleet.reload_count >= 2
+    assert fused_epoch_pull_cuda.launches > f0 and fwht_cuda.launches > w0
+
+
+def test_fleet_eviction_releases_device_memory(gen, tmp_path):
+    """After an eviction no tensor of the evicted store stays allocated:
+    not in the plane, its auditor, the shared cache or the fleet."""
+    from repro_torch.serve.plane import PlaneConfig
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    fleet, (qa, qs) = _fleet_on_card(tmp_path, max_resident=2)
+    plane = fleet.serve(PlaneConfig(audit_rate=1.0))
+    plane.query(qa, rng=1, namespace="a")
+    plane.query(qs, rng=2, namespace="s")
+    plane.audit_flush()
+    del qa, qs
+    one = sum(t.numel() * t.element_size() for t in
+              fleet.peek("a").store.arrays().values() if t is not None)
+    held = torch.cuda.memory_allocated() - base
+    assert held >= one
+    assert fleet.evict("a") and fleet.evict("s")
+    gc.collect()
+    assert torch.cuda.memory_allocated() - base <= 0.1 * one
+
+
+def test_engine_on_a_fleet_plane_releases_an_evicted_namespace(gen,
+                                                              tmp_path):
+    """A kNN-LM engine serving a fleet's namespace on the card pins no
+    handle: evicting the namespace frees its store's device memory, and
+    the next decode step reloads it."""
+    from repro_torch.fleet import Fleet, FleetConfig
+    from repro_torch.serve import KNNLMConfig, ServeEngine
+    cfg = get_arch("qwen2.5-14b").smoke
+    model = build_model(cfg, param_dtype=torch.bfloat16, rng=0)
+    r = np.random.default_rng(0)
+    keys = r.normal(size=(16384, cfg.d_model)).astype(np.float32)
+    ids = r.integers(0, cfg.vocab_size, 16384).astype(np.int32)
+    knn = KNNLMConfig(lam=0.3, bmo=BMOConfig(k=4, delta=0.05, block=32,
+                                             batch_arms=16))
+    fleet = Fleet(str(tmp_path / "fleet"), FleetConfig(max_resident=2))
+    fleet.create("ds", keys, knn.bmo, 7, payload=ids)
+    engine = ServeEngine(model, batch_size=2, max_seq=24, knn_lm=knn,
+                         plane=fleet.serve(), plane_namespace="ds")
+    prompts = r.integers(0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    engine.generate(prompts, 3)
+    one = sum(t.numel() * t.element_size() for t in
+              fleet.peek("ds").store.arrays().values() if t is not None)
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    assert fleet.evict("ds")
+    gc.collect()
+    assert torch.cuda.memory_allocated() <= held - 0.9 * one
+    before = fused_epoch_pull_cuda.launches
+    out, ops = engine.generate(prompts, 3)
+    assert fleet.reload_count == 1 and ops > 0
+    assert fused_epoch_pull_cuda.launches > before
+
+
+def test_fleet_rebalance_moves_a_sharded_window_across_cards(gen, tmp_path):
+    """With four cards and no device given, each S = 2 namespace spans two
+    cards of its own; ``rebalance`` moves the one whose window moved onto
+    its new cards through the epoch fence, with the same answers, and a
+    reload places it there again."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    from repro_torch.fleet import Fleet, FleetConfig
+    cfg = BMOConfig(k=5, delta=0.01, block=128, batch_arms=32, rotate=True)
+    fleet = Fleet(str(tmp_path / "fleet"), FleetConfig(max_resident=2))
+    data = {name: make_knn_benchmark_data("dense", 2048 + 256 * i, 512, 4,
+                                          seed=50 + i, device="cuda")
+            for i, name in enumerate("ab")}
+    for i, (name, (corpus, _)) in enumerate(data.items()):
+        fleet.create(name, corpus, cfg, i, shards=2)
+        assert fleet.peek(name).store.devices == [
+            torch.device("cuda", 0), torch.device("cuda", 1)]
+    plane = fleet.serve()
+    before = {n: plane.query(q, rng=3, namespace=n, cache="bypass")
+              for n, (_, q) in data.items()}
+    epochs = {n: fleet.peek(n).epoch for n in data}
+    plan = fleet.rebalance()
+    assert plan == {"b": 0, "a": 2}         # the heavier one stays put
+    moved = "a"
+    store = fleet.peek(moved).store
+    assert store.device_offset == 2
+    assert fleet.peek(moved).epoch == epochs[moved] + 1     # fenced
+    assert fleet.peek("b").epoch == epochs["b"]
+    assert store.devices == [torch.device("cuda", 2), torch.device("cuda", 3)]
+    for n, (_, q) in data.items():
+        got = plane.query(q, rng=3, namespace=n, cache="bypass")
+        np.testing.assert_array_equal(got.indices, before[n].indices)
+        np.testing.assert_allclose(got.values, before[n].values, rtol=1e-6)
+    assert fleet.evict(moved)
+    again = fleet.get(moved).store
+    assert again.device_offset == 2
+    assert again.devices == [torch.device("cuda", 2), torch.device("cuda", 3)]

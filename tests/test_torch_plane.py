@@ -332,9 +332,10 @@ def test_plane_config_validation_and_what_is_not_ported():
         PlaneConfig(audit_rate=1.5)
     with pytest.raises(ValueError, match="audit_reservoir"):
         PlaneConfig(audit_reservoir=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        RequestPlane(idx, router=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # namespace routing (once refused as Queue 1 item 8) needs a router
+    with pytest.raises(ValueError, match="an index, a router"):
+        RequestPlane()
+    with pytest.raises(ValueError, match="without a router"):
         RequestPlane(idx).submit(queries, namespace="users")
 
 

@@ -550,7 +550,8 @@ def test_step_seeds_are_fixed_per_step():
     assert [next(s1) for _ in range(3)] == [next(s2) for _ in range(3)]
 
 
-def test_engine_raises_without_a_gpu_and_for_what_is_not_ported(monkeypatch):
+def test_engine_raises_without_a_gpu_and_for_what_is_not_ported(monkeypatch,
+                                                                tmp_path):
     tm = build_model(SMOKE, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -564,15 +565,58 @@ def test_engine_raises_without_a_gpu_and_for_what_is_not_ported(monkeypatch):
     assert sharded.index.n_shards == 2
     out, ops = sharded.generate(np.ones((1, 3), np.int32), 2)
     assert out.shape == (1, 2) and ops > 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        ServeEngine(tm, batch_size=1, max_seq=8, device="cpu",
-                    plane_namespace="default")
+    # a fleet's shared plane (once refused as Queue 1 item 8) serves the
+    # decode loop's retrieval under plane_namespace
+    from repro_torch.fleet import Fleet, FleetConfig
+    fleet = Fleet(str(tmp_path / "fleet"), FleetConfig(max_resident=1),
+                  device="cpu")
+    cfg = KNNLMConfig(bmo=BMOConfig(k=4, block=64))
+    fleet.create("ds", keys, cfg.bmo, 7, payload=ids)
+    fleet.create("other", keys + 1.0, cfg.bmo, 8)      # evicts "ds"
+    on_fleet = ServeEngine(tm, batch_size=1, max_seq=8, device="cpu",
+                           knn_lm=cfg, index=fleet.get("ds"),
+                           plane=fleet.serve(), plane_namespace="ds")
+    out, ops = on_fleet.generate(np.ones((1, 3), np.int32), 2)
+    assert out.shape == (1, 2) and ops > 0
+    assert on_fleet.plane.stats.fleet_reloads == 1
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         ServeEngine(tm, get_arch("qwen2.5-14b").plan, batch_size=1,
                     max_seq=8, device="cpu")
     eng = ServeEngine(tm, batch_size=2, max_seq=16, device="cpu")
     with pytest.raises(ValueError, match="slots"):
         eng.generate(np.zeros((3, 4), np.int32), 2)
+
+
+def test_engine_on_a_fleet_plane_pins_no_namespace(tmp_path):
+    """Behind a fleet's plane the engine keeps no handle of its own: its
+    ``index`` is the router's live one, so the fleet can evict the
+    namespace (nothing of the engine holds the old handle) and the next
+    decode step reloads it."""
+    import gc
+    import weakref
+    from repro_torch.fleet import Fleet, FleetConfig
+    tm = build_model(SMOKE, device="cpu")
+    keys, ids = _datastore(64)
+    fleet = Fleet(str(tmp_path / "fleet"), FleetConfig(max_resident=2),
+                  device="cpu")
+    cfg = KNNLMConfig(bmo=BMOConfig(k=4, block=64))
+    fleet.create("ds", keys, cfg.bmo, 7, payload=ids)
+    plane = fleet.serve()
+    eng = ServeEngine(tm, batch_size=1, max_seq=8, device="cpu", knn_lm=cfg,
+                      plane=plane, plane_namespace="ds")
+    assert eng.index is fleet.peek("ds") and eng._index is None
+    out, ops = eng.generate(np.ones((1, 3), np.int32), 2)
+    assert out.shape == (1, 2) and ops > 0
+    old = weakref.ref(fleet.peek("ds"))
+    assert fleet.evict("ds")
+    gc.collect()
+    assert old() is None
+    out, ops = eng.generate(np.ones((1, 3), np.int32), 2)
+    assert ops > 0 and fleet.reload_count == 1
+    np.testing.assert_array_equal(eng.index.payload, ids)
+    with pytest.raises(ValueError, match="comes from the fleet"):
+        ServeEngine(tm, batch_size=1, max_seq=8, device="cpu", knn_lm=cfg,
+                    datastore=(keys, ids), plane=plane, plane_namespace="ds")
 
 
 # ---------------------------------------------------------------------------
@@ -631,10 +675,23 @@ def test_cli_serves_an_index_dir_written_by_the_reference(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--index-shards", "2"], "item 7"), (["--fleet-root", "/nowhere"],
-                                          "item 8"),
+    (["--index-shards", "2"], "item 7"), (["--fleet-root"], "item 8"),
     (["--data", "2"], "item 9"), (["--model", "2"], "item 9")])
-def test_cli_flags_not_ported_raise(flags, item):
+def test_cli_flags_not_ported_raise(flags, item, tmp_path):
+    if item == "item 8":
+        # ported since this case was a refusal pin: the first launch
+        # creates the fleet's 'default' namespace, the second recovers it
+        root = str(tmp_path / "fleet")
+        runs = [serve_cli.main(CLI + flags + [root, "--max-resident", "2"])
+                for _ in range(2)]
+        np.testing.assert_array_equal(runs[0]["tokens"], runs[1]["tokens"])
+        for run in runs:
+            assert run["retrieval_ops"] > 0
+            assert run["fleet"]["namespaces"] == 1
+            assert run["fleet"]["max_resident"] == 2
+        assert run["fleet"]["resident"] == 1
+        assert run["stats"]["fleet_namespaces_resident"] == 1
+        return
     if item == "item 7":
         # ported since this case was a refusal pin: two index shards serve
         run = serve_cli.main(CLI + flags)
