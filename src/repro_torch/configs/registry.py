@@ -1,22 +1,43 @@
 """Architecture registry: ``get_arch(<id>)`` → (ModelConfig, ParallelPlan,
-SMOKE), over the architectures the port runs. The reference's other ids
-are known and raise ``NotImplementedError``: ``ROADMAP.md`` lists them as
-still to be ported."""
+SMOKE), over the architectures the port runs, and the reference's per-shape
+skips. The reference's MoE ids are known and raise
+``NotImplementedError``: ``ROADMAP.md`` lists them as still to be ported."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, ParallelPlan
 
 _MODULES = {
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "granite-34b": "repro_torch.configs.granite_34b",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
+    "llama3-405b": "repro_torch.configs.llama3_405b",
     "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
-# the reference's architectures that the port does not run yet
-_NOT_PORTED = ("xlstm-350m", "zamba2-2.7b", "deepseek-v3-671b", "dbrx-132b",
-               "granite-34b", "nemotron-4-340b", "llama3-405b", "qwen2-vl-2b",
-               "whisper-base")
+# the reference's architectures that the port does not run yet (the MoE
+# family)
+_NOT_PORTED = ("deepseek-v3-671b", "dbrx-132b")
+
+# shapes skipped per arch (with reason), the reference's table
+SKIPS = {
+    "long_500k": {
+        "deepseek-v3-671b": "full attention (MLA) — quadratic history",
+        "dbrx-132b": "full attention — quadratic history",
+        "granite-34b": "full attention — quadratic history",
+        "nemotron-4-340b": "full attention — quadratic history",
+        "llama3-405b": "full attention — quadratic history",
+        "qwen2.5-14b": "full attention — quadratic history",
+        "qwen2-vl-2b": "full attention — quadratic history",
+        "whisper-base": "full attention enc-dec — quadratic history",
+    },
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,3 +61,7 @@ def get_arch(arch_id: str) -> ArchEntry:
 
 def list_archs():
     return list(_MODULES)
+
+
+def shape_skip_reason(arch_id: str, shape_name: str) -> Optional[str]:
+    return SKIPS.get(shape_name, {}).get(arch_id)

@@ -23,13 +23,18 @@
 // at 3.35 TB/s.
 //
 // What the design does about it. This is the simple first kernel: fp32 FMA
-// on the CUDA cores, no tensor cores, TMA or warp specialisation.
+// on the CUDA cores, no tensor cores, TMA or warp specialisation. It comes
+// in two instantiations of one template, by the widest head dim it takes
+// (DMAX): 128, and 256 for 128 < D or Dv <= 256 (nemotron-4-340b's 192).
+// The wide one stages 192 KB of shared memory, so one block runs an SM at a
+// time, and zero-pads D to 256 in the score loop: at D 192 a quarter of its
+// score FMAs multiply zeros.
 //  * One 256-thread block per (query tile of 64, head, batch). The block
 //    stages its queries once, transposed, in shared memory, then walks the
 //    key tiles of 64: k transposed and v as they are, both in fp32.
 //  * Thread (ty, tx) of the 16 x 16 grid owns query rows 4ty..4ty+3: a 4 x 4
-//    score micro-tile (key columns 4tx..4tx+3) and a 4 x Dv/16 slice of the
-//    output accumulator, all in registers. Row max and row sum reduce over
+//    score micro-tile (key columns 4tx..4tx+3) and a 4 x DMAX/16 slice of
+//    the output accumulator, all in registers. Row max and row sum reduce over
 //    the 16 lanes that share the rows with warp shuffles. The probabilities
 //    go through shared memory (over the k tile, which is no longer read) for
 //    the product with v.
@@ -59,7 +64,8 @@ namespace {
 
 constexpr int BQ = 64;           // queries per block
 constexpr int BK = 64;           // keys per tile
-constexpr int DMAX = 128;        // head dims up to this; narrower ones zero-padded
+constexpr int DMAX_NARROW = 128; // the two instantiations' widest head dims;
+constexpr int DMAX_WIDE = 256;   // narrower ones are zero-padded
 constexpr int kThreads = 256;    // 16 x 16
 constexpr int PS = BK + 1;       // padded row of the probability tile
 constexpr unsigned kFull = 0xffffffffu;
@@ -94,10 +100,10 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 }
 
 // Rows [0, ROWS) of a (rows, width) slice at src (row stride `stride`), into
-// dst transposed: dst[c * ROWS + r] = src[r, c], in fp32. Rows at or past
-// `nrows` and columns at or past `width` are zero. Consecutive threads take
-// consecutive rows, so the shared-memory stores do not conflict.
-template <typename T, int ROWS>
+// dst transposed: dst[c * ROWS + r] = src[r, c] for c < DMAX, in fp32. Rows at
+// or past `nrows` and columns at or past `width` are zero. Consecutive
+// threads take consecutive rows, so the shared-memory stores do not conflict.
+template <typename T, int ROWS, int DMAX>
 __device__ __forceinline__ void load_transposed(float* __restrict__ dst,
                                                 const T* __restrict__ src,
                                                 int64_t stride, int64_t nrows,
@@ -120,7 +126,7 @@ __device__ __forceinline__ void load_transposed(float* __restrict__ dst,
 }
 
 // The same slice into dst as it is: dst[r * DMAX + c] = src[r, c].
-template <typename T, int ROWS>
+template <typename T, int ROWS, int DMAX>
 __device__ __forceinline__ void load_rows(float* __restrict__ dst,
                                           const T* __restrict__ src,
                                           int64_t stride, int64_t nrows,
@@ -144,12 +150,15 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst,
   }
 }
 
-// Qt [DMAX][BQ]; Kt [DMAX][BK], reused for P [BQ][PS]; V [BK][DMAX]
-constexpr int KT_FLOATS = DMAX * BK > BQ * PS ? DMAX * BK : BQ * PS;
-constexpr int SMEM_BYTES = (DMAX * BQ + KT_FLOATS + BK * DMAX) * 4;
+// Qt [DMAX][BQ]; Kt [DMAX][BK], reused for P [BQ][PS]; V [BK][DMAX]:
+// 96 KB at DMAX 128 (two blocks an SM), 192 KB at 256 (one)
+template <int DMAX> struct Smem {
+  static constexpr int KT_FLOATS = DMAX * BK > BQ * PS ? DMAX * BK : BQ * PS;
+  static constexpr int BYTES = (DMAX * BQ + KT_FLOATS + BK * DMAX) * 4;
+};
 
-template <typename T, bool CAUSAL>
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T, bool CAUSAL, int DMAX>
+__global__ void __launch_bounds__(kThreads, DMAX <= DMAX_NARROW ? 2 : 1)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, Strides sq,
                   Strides sk, Strides sv, int64_t H, int64_t G, int64_t Sq,
@@ -161,7 +170,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Qt = smem;
   float* Kt = Qt + DMAX * BQ;
   float* Ps = Kt;
-  float* Vs = Kt + KT_FLOATS;
+  float* Vs = Kt + Smem<DMAX>::KT_FLOATS;
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
@@ -175,7 +184,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
-  load_transposed<T, BQ>(Qt, q + b * sq.b + h * sq.h + q0 * sq.s, sq.s,
+  load_transposed<T, BQ, DMAX>(Qt, q + b * sq.b + h * sq.h + q0 * sq.s, sq.s,
                                nrows_q, D, tid);
 
   int64_t k_end = Sk;
@@ -198,8 +207,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t k0 = t * BK;
     const int64_t nrows_k = Sk - k0 < BK ? Sk - k0 : BK;
     __syncthreads();                      // the last tile's P and V are read
-    load_transposed<T, BK>(Kt, kb + k0 * sk.s, sk.s, nrows_k, D, tid);
-    load_rows<T, BK>(Vs, vb + k0 * sv.s, sv.s, nrows_k, Dv, tid);
+    load_transposed<T, BK, DMAX>(Kt, kb + k0 * sk.s, sk.s, nrows_k, D, tid);
+    load_rows<T, BK, DMAX>(Vs, vb + k0 * sv.s, sv.s, nrows_k, Dv, tid);
     __syncthreads();
 
     float s[4][4];
@@ -296,32 +305,46 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, bool CAUSAL>
+template <typename T, bool CAUSAL, int DMAX>
 int launch(const void* q, const void* k, const void* v, void* o, Strides sq,
            Strides sk, Strides sv, int64_t B, int64_t H, int64_t G, int64_t Sq,
            int64_t Sk, int D, int Dv, int64_t q_offset, float sm_scale,
            cudaStream_t stream) {
-  auto kernel = flash_attn_kernel<T, CAUSAL>;
+  auto kernel = flash_attn_kernel<T, CAUSAL, DMAX>;
+  constexpr int bytes = Smem<DMAX>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-  kernel<<<grid, kThreads, SMEM_BYTES, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, H, G, Sq, Sk,
       D, Dv, q_offset, sm_scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T, int DMAX>
+int by_mask(bool causal, const void* q, const void* k, const void* v,
+            void* o, Strides sq, Strides sk, Strides sv, int64_t B,
+            int64_t H, int64_t G, int64_t Sq, int64_t Sk, int D, int Dv,
+            int64_t q_offset, float sm_scale, cudaStream_t s) {
+  return causal ? launch<T, true, DMAX>(q, k, v, o, sq, sk, sv, B, H, G, Sq,
+                                        Sk, D, Dv, q_offset, sm_scale, s)
+                : launch<T, false, DMAX>(q, k, v, o, sq, sk, sv, B, H, G, Sq,
+                                         Sk, D, Dv, q_offset, sm_scale, s);
+}
+
+// the narrow instantiation up to head dim 128, the wide one above
 template <typename T>
 int dispatch(bool causal, const void* q, const void* k, const void* v,
              void* o, Strides sq, Strides sk, Strides sv, int64_t B,
              int64_t H, int64_t G, int64_t Sq, int64_t Sk, int D, int Dv,
              int64_t q_offset, float sm_scale, cudaStream_t s) {
-  return causal ? launch<T, true>(q, k, v, o, sq, sk, sv, B, H, G, Sq, Sk, D,
-                                  Dv, q_offset, sm_scale, s)
-                : launch<T, false>(q, k, v, o, sq, sk, sv, B, H, G, Sq, Sk, D,
-                                   Dv, q_offset, sm_scale, s);
+  if (D <= DMAX_NARROW && Dv <= DMAX_NARROW)
+    return by_mask<T, DMAX_NARROW>(causal, q, k, v, o, sq, sk, sv, B, H, G, Sq,
+                                   Sk, D, Dv, q_offset, sm_scale, s);
+  return by_mask<T, DMAX_WIDE>(causal, q, k, v, o, sq, sk, sv, B, H, G, Sq, Sk,
+                               D, Dv, q_offset, sm_scale, s);
 }
 
 }  // namespace
@@ -330,7 +353,7 @@ int dispatch(bool causal, const void* q, const void* k, const void* v,
 // or all bf16 (dtype 1), each with its own element strides over (batch,
 // head, position) and a contiguous last axis; every row and stride 16-byte
 // aligned. o (B, H, Sq, Dv) contiguous, in the inputs' type. Needs H % KV
-// == 0, 0 < D, Dv <= 128 with D and Dv multiples of 8, q_offset >= 0, and
+// == 0, 0 < D, Dv <= 256 with D and Dv multiples of 8, q_offset >= 0, and
 // ceil(Sq / 64), H, B within the grid. Returns cudaGetLastError() after the
 // launch; arguments it does not take return cudaErrorInvalidValue without
 // launching.
@@ -343,8 +366,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int64_t q_offset, int causal, int dtype,
                                float sm_scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
-  if (KV <= 0 || H % KV || Sk <= 0 || D <= 0 || Dv <= 0 || D > DMAX ||
-      Dv > DMAX || D % 8 || Dv % 8 || q_offset < 0 || H > 65535 || B > 65535 ||
+  if (KV <= 0 || H % KV || Sk <= 0 || D <= 0 || Dv <= 0 || D > DMAX_WIDE ||
+      Dv > DMAX_WIDE || D % 8 || Dv % 8 || q_offset < 0 || H > 65535 || B > 65535 ||
       (Sq + BQ - 1) / BQ > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   const Strides sq{qsb, qsh, qss}, sk{ksb, ksh, kss}, sv{vsb, vsh, vss};

@@ -11,6 +11,9 @@
   reshape are free.
 * "cuda_cores" — ``csrc/flash_attn.cu``, every other case (fp32, and bf16
   at other widths): fp32 FMA, p kept in fp32 as the TPU kernel keeps it.
+  It has two instantiations, one for head dims up to 128 and one up to
+  ``MAX_HEAD_DIM`` (256: nemotron-4-340b's 192), picked inside the
+  library.
 
 There is no fallback between them: a kernel that fails to build or launch
 raises. Both read grouped KV heads directly (query head h reads KV head
@@ -30,7 +33,7 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 #: the tensor-core kernel's head width, and the bound on Sq and Sk that keeps
 #: its TMA coordinates in 32 bits
 TC_HEAD_DIM = 128
@@ -114,8 +117,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0) -> torch.Tensor:
     """q (B, H, Sq, D), k (B, KV, Sk, D), v (B, KV, Sk, Dv), one type (fp32
     or bf16) on one CUDA device, H % KV == 0, D and Dv multiples of 8 up to
-    128, q_offset ≥ 0. Returns (B, H, Sq, Dv) in q's type; from the
-    tensor-core kernel (``variant``), a view of (B, Sq, H, Dv) storage."""
+    ``MAX_HEAD_DIM``, q_offset ≥ 0. Returns (B, H, Sq, Dv) in q's type;
+    from the tensor-core kernel (``variant``), a view of (B, Sq, H, Dv)
+    storage."""
     q, k, v = _checked(q, k, v, q_offset)
     B, H, Sq, D = q.shape
     KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]

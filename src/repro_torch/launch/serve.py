@@ -5,6 +5,11 @@ the port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --smoke --device cpu --batch 4 --prompt-len 16 --new-tokens 32 --knn-lm
 
+Serves the token families (``serve.engine.TOKEN_FAMILIES``: dense, ssm,
+hybrid); ``--arch qwen2-vl-2b`` and ``--arch whisper-base`` raise a
+``ValueError`` before the model is built, since the engine feeds token
+prompts and they read embeddings and frames (the reference's CLI fails on
+them with a ``KeyError``). The kNN-LM hook needs the dense family.
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 The model's weights are drawn at random in bf16 on the device from seed 0.
 Retrieval is served from a persistent ``repro_torch.api.Index``:
@@ -35,7 +40,8 @@ from repro_torch.configs import get_arch
 from repro_torch.configs.base import BMOConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
-from repro_torch.serve.engine import KNNLMConfig, ServeEngine
+from repro_torch.serve.engine import (KNNLMConfig, ServeEngine,
+                                      TOKEN_FAMILIES)
 from repro_torch.serve.plane import PlaneConfig
 from repro_torch.utils import get_logger
 
@@ -253,6 +259,10 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.config
+    if cfg.family not in TOKEN_FAMILIES:
+        raise ValueError(f"--arch {args.arch}: the {cfg.family!r} family "
+                         "reads embeddings or frames, and the serving CLI "
+                         f"feeds token prompts (it serves {TOKEN_FAMILIES})")
     if args.knn_lm and cfg.family != "dense":
         raise ValueError("the kNN-LM hook needs a hidden-state-exposing "
                          "DenseLM")

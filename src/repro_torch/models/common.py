@@ -11,20 +11,20 @@ compute dtype with its weights cast to it; softmax and norms run in fp32 and
 cast back; the residual stream stays in the compute dtype (the reference's
 module docstring says fp32, its code does not).
 
-Not ported yet (see ROADMAP.md): ``gqa_attention``'s bidirectional and
-non-RoPE uses, ``apply_mrope`` (VLM), ``layernorm`` and
-``sinusoidal_embedding`` (audio).
+Not ported: ``layernorm``, which no model of the reference calls.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import make_generator
 from repro_torch.kernels import ops
 
 # ---------------------------------------------------------------------------
@@ -32,32 +32,58 @@ from repro_torch.kernels import ops
 # ---------------------------------------------------------------------------
 
 
-def new_param(shape, dtype: torch.dtype, device, init: str) -> nn.Parameter:
+def new_param(shape, dtype: torch.dtype, device, init: str,
+              scale: Optional[float] = None) -> nn.Parameter:
     """An uninitialised parameter tagged with its reference init rule
-    ("fanin" | "embed" | "ones" | "zeros"); ``init_leaf`` fills it. The port
-    runs the forward only, so no parameter asks for a gradient."""
+    ("fanin" | "embed" | "ones" | "zeros" | "scalar") and the rule's
+    ``scale``; ``init_leaf`` fills it. The port runs the forward only, so no
+    parameter asks for a gradient."""
     p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                      requires_grad=False)
     p.init = init
+    p.scale = scale
     return p
+
+
+def draw_params(model: nn.Module, rng, device) -> None:
+    """Every parameter of ``model`` drawn by its init rule from ``rng`` (a
+    seed or a ``torch.Generator``) on ``device``."""
+    g = make_generator(rng, device)
+    for p in model.parameters():
+        init_leaf(p, g)
+
+
+class CacheSpec(NamedTuple):
+    """One cache leaf: shape, dtype, the rule it starts by ("zeros", "ones"
+    or "scalar") and the scalar's value, the reference's ``ParamSpec``
+    fields that a cache uses."""
+    shape: tuple
+    dtype: torch.dtype
+    init: str
+    scale: float = 0.0
 
 
 @torch.no_grad()
 def init_leaf(p: torch.Tensor, generator: torch.Generator) -> None:
     """The reference's ``_init_leaf`` (``sharding/spec.py``): zeros, ones,
-    N(0, 0.02) for "embed", and N(0, 1/fan_in) for "fanin" with fan_in =
-    shape[-2] for every tensor of rank ≥ 2 — so ``wq`` (d, h, hd) draws with
-    std 1/√h, not 1/√d. Draws in fp32 and casts to the parameter's type."""
+    the constant ``scale`` for "scalar", N(0, scale or 0.02) for "embed",
+    and N(0, (scale or 1)²/fan_in) for "fanin" with fan_in = shape[-2] for
+    every tensor of rank ≥ 2 — so ``wq`` (d, h, hd) draws with std 1/√h,
+    not 1/√d. Draws in fp32 and casts to the parameter's type."""
+    scale = p.scale
     if p.init == "zeros":
         p.zero_()
     elif p.init == "ones":
         p.fill_(1.0)
+    elif p.init == "scalar":
+        p.fill_(scale if scale is not None else 0.0)
     else:
         if p.init == "fanin":
             fan_in = p.shape[-2] if p.dim() >= 2 else p.shape[-1]
-            std = 1.0 / math.sqrt(max(fan_in, 1))
+            std = (scale if scale is not None else 1.0) / math.sqrt(
+                max(fan_in, 1))
         else:
-            std = 0.02
+            std = scale if scale is not None else 0.02
         p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
                             dtype=torch.float32).mul_(std))
 
@@ -98,6 +124,42 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE. x (B, S, H, D); positions3 (3, B, S);
+    ``sections`` split the D/2 frequencies into (temporal, height, width)
+    bands, each rotated by its own position stream."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim/2 = {half}")
+    exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    cos_parts, sin_parts = [], []
+    start = 0
+    for i, sec in enumerate(sections):
+        pos = positions3[i].to(torch.float32)             # (B, S)
+        ang = pos[..., None] * freqs[start:start + sec]   # (B, S, sec)
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        start += sec
+    cos = torch.cat(cos_parts, dim=-1)[..., None, :]     # (B, S, 1, D/2)
+    sin = torch.cat(sin_parts, dim=-1)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_embedding(seq_len: int, d: int) -> np.ndarray:
+    """Whisper's encoder positions: (seq_len, d) fp32, sin of the first d/2
+    frequencies then cos, computed in float64 as the reference does."""
+    pos = np.arange(seq_len)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * i / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(
+        np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -224,19 +286,19 @@ def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
 
 
 class GQAAttention(nn.Module):
-    """Causal grouped-query attention with RoPE, the reference's
-    ``gqa_attention``. Without a cache, ``attn_impl="pallas"`` goes through
-    the fused flash-attention op (``ops.flash_attention``, the CUDA kernel
-    on the card), "auto" and "xla" through the plain ``sdpa``. With a cache
-    (bf16, or int8 with bf16 scales under ``kv_quant``), the new keys and
-    values are written into it and every ``attn_impl`` reads it through the
-    plain ``sdpa``, as the reference's cache branches do."""
+    """Grouped-query attention, causal or bidirectional, the reference's
+    ``gqa_attention``. Positions by ``cfg.rope_type``: "rope" rotates q and
+    k by ``positions``, "mrope" by the three streams of ``positions3``, and
+    any other type ("none", "sinusoidal") leaves them, as the reference
+    does. Without a cache, ``attn_impl="pallas"`` goes through the fused
+    flash-attention op (``ops.flash_attention``, the CUDA kernel on the
+    card), "auto" and "xla" through the plain ``sdpa``. With a cache (bf16,
+    or int8 with bf16 scales under ``kv_quant``), the new keys and values
+    are written into it and every ``attn_impl`` reads it through the plain
+    ``sdpa``, as the reference's cache branches do."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
-        if cfg.rope_type != "rope":
-            raise NotImplementedError(
-                f"rope_type={cfg.rope_type!r} is not ported yet (see ROADMAP.md)")
         self.cfg = cfg
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         self.wq = new_param((d, h, hd), dtype, device, "fanin")
@@ -248,8 +310,8 @@ class GQAAttention(nn.Module):
             self.bk = new_param((kv, hd), dtype, device, "zeros")
             self.bv = new_param((kv, hd), dtype, device, "zeros")
 
-    def qkv(self, x: torch.Tensor, positions: torch.Tensor,
-            compute_dtype=torch.bfloat16):
+    def qkv(self, x: torch.Tensor, positions: Optional[torch.Tensor],
+            compute_dtype=torch.bfloat16, positions3=None):
         """The attention's inputs: q (B, S, H, hd), k and v (B, S, KV, hd),
         biased and rotated, in the compute dtype."""
         cfg = self.cfg
@@ -265,24 +327,30 @@ class GQAAttention(nn.Module):
             q = q + self.bq.to(compute_dtype)
             k = k + self.bk.to(compute_dtype)
             v = v + self.bv.to(compute_dtype)
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        if cfg.rope_type == "rope":
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        elif cfg.rope_type == "mrope":
+            q = apply_mrope(q, positions3, cfg.rope_theta, cfg.mrope_sections)
+            k = apply_mrope(k, positions3, cfg.rope_theta, cfg.mrope_sections)
         return q, k, v
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
+    def forward(self, x: torch.Tensor, positions: Optional[torch.Tensor], *,
                 compute_dtype=torch.bfloat16, impl: str = "auto",
-                cache_kv=None, cache_index: int = 0):
-        """x (B, S, d) → (out (B, S, d) in x's type, new_kv). ``impl`` picks
-        the fused op's implementation ("auto" | "cuda" | "ref", as
-        ``kernels.ops``). ``cache_kv``: this layer's cache entries, (k, v)
-        of shape (B, max_seq, KV, hd), or ((k_q, k_s), (v_q, v_s)) under
-        ``kv_quant``; the S new positions are written into them in place at
-        ``[cache_index : cache_index + S]`` (a host int), keys from there on
-        are masked, and new_kv is the updated entries (None without a
-        cache)."""
+                cache_kv=None, cache_index: int = 0, causal: bool = True,
+                positions3: Optional[torch.Tensor] = None):
+        """x (B, S, d) → (out (B, S, d) in x's type, new_kv). ``positions``
+        (B, S) rotate under "rope", ``positions3`` (3, B, S) under "mrope".
+        ``impl`` picks the fused op's implementation ("auto" | "cuda" |
+        "ref", as ``kernels.ops``). ``cache_kv``: this layer's cache
+        entries, (k, v) of shape (B, max_seq, KV, hd), or ((k_q, k_s), (v_q,
+        v_s)) under ``kv_quant``; the S new positions are written into them
+        in place at ``[cache_index : cache_index + S]`` (a host int), keys
+        from there on are masked, and new_kv is the updated entries (None
+        without a cache)."""
         cfg = self.cfg
         B, S, d = x.shape
-        q, k, v = self.qkv(x, positions, compute_dtype)
+        q, k, v = self.qkv(x, positions, compute_dtype, positions3)
         chunk = cfg.attn_chunk if S > cfg.attn_chunk else 0
         new_kv = None
         if cache_kv is not None:
@@ -301,16 +369,16 @@ class GQAAttention(nn.Module):
                 cv[:, cache_index:end] = v.to(cv.dtype)
             new_kv = cache_kv
             out = sdpa(q, ck.to(compute_dtype), cv.to(compute_dtype),
-                       causal=True, q_offset=cache_index, kv_valid_len=end,
+                       causal=causal, q_offset=cache_index, kv_valid_len=end,
                        chunk=chunk)
         elif cfg.attn_impl == "pallas":
             # the fused kernel reads the KV heads unrepeated: query head h
             # reads KV head h // G, as the reference's jnp.repeat arranges
             out = ops.flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=True, q_offset=0, impl=impl).transpose(1, 2)
+                causal=causal, q_offset=0, impl=impl).transpose(1, 2)
         else:
-            out = sdpa(q, k, v, causal=True, q_offset=0, chunk=chunk)
+            out = sdpa(q, k, v, causal=causal, q_offset=0, chunk=chunk)
         proj_out = out.to(compute_dtype).reshape(B, S, -1) @ \
             self.wo.to(compute_dtype).reshape(-1, d)
         return proj_out.to(x.dtype), new_kv

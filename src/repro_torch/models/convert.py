@@ -1,16 +1,18 @@
 """Carry a reference parameter tree into the port's modules.
 
 ``load_jax_params(model, params)`` takes the tree the JAX package builds
-(``init_params(DenseLM(cfg).param_specs(), key)``), as numpy arrays or
-anything ``np.asarray`` reads, and copies each leaf into the parameter of
-the same path, unstacking the leading layers axis of ``params["layers"]``
-into the module list. Layouts are the same in both packages, so each leaf
-is a copy, cast to the parameter's type.
+(``init_params(model.param_specs(), key)``), as numpy arrays or anything
+``np.asarray`` reads, and copies each leaf into the parameter of the same
+path. The reference stacks each run of like layers along a leading axis;
+the model's ``stacked`` names them (``layers``; ``mlstm`` and ``slstm``;
+``enc_layers`` and ``dec_layers``), and each is unstacked into the module
+list of that name. Layouts are the same in both packages, so each leaf is
+a copy, cast to the parameter's type.
 
-``load_jax_cache(model, cache)`` does the same for a reference KV cache
-(``init_cache``, ``prefill`` or ``decode_step`` output, either layout): a
-port cache on the model's device, each leaf in its ``cache_specs`` type
-and ``index`` a host int.
+``load_jax_cache(model, cache)`` does the same for a reference cache
+(``init_cache``, ``prefill`` or ``decode_step`` output, nested as the
+model's ``cache_specs``): a port cache on the model's device, each leaf in
+its ``cache_specs`` type and ``index`` a host int.
 """
 from __future__ import annotations
 
@@ -46,17 +48,20 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
         p.copy_(torch.from_numpy(arr.copy()))
         filled.add(name)
 
-    n_layers = len(model.layers)
+    stacked = {f"{name}.": len(getattr(model, name))
+               for name in getattr(model, "stacked", ("layers",))}
     for path, leaf in _leaves(params):
-        if path.startswith("layers."):
-            arr = np.asarray(leaf, dtype=np.float32)
-            if arr.shape[0] != n_layers:
-                raise ValueError(f"{path}: {arr.shape[0]} stacked layers, the "
-                                 f"model has {n_layers}")
-            for i in range(n_layers):
-                put(f"layers.{i}.{path[len('layers.'):]}", arr[i])
-        else:
+        prefix = next((p for p in stacked if path.startswith(p)), None)
+        if prefix is None:
             put(path, leaf)
+            continue
+        n_layers = stacked[prefix]
+        arr = np.asarray(leaf, dtype=np.float32)
+        if arr.shape[0] != n_layers:
+            raise ValueError(f"{path}: {arr.shape[0]} stacked layers, the "
+                             f"model has {n_layers}")
+        for i in range(n_layers):
+            put(f"{prefix}{i}.{path[len(prefix):]}", arr[i])
     missing = sorted(set(named) - filled)
     if missing:
         raise KeyError(f"parameters not in the reference tree: {missing}")
@@ -67,31 +72,62 @@ def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
 def load_jax_cache(model: nn.Module, cache: dict) -> dict:
     """A port cache holding the reference cache ``cache`` (numpy leaves, or
     anything ``np.asarray`` reads; bf16 leaves go through fp32, which holds
-    them exactly). Raises when its keys, shapes or types are not those of
-    ``model.cache_specs`` at its batch and length."""
-    first = np.asarray(cache["k_q" if "k_q" in cache else "k"])
-    B, max_seq = first.shape[1], first.shape[2]
-    dtype = torch.bfloat16 if "k_q" in cache else _torch_dtype(first.dtype)
-    specs = model.cache_specs(B, max_seq, dtype)
+    them exactly). The batch and length are read from the cache (whisper's
+    from its cross keys, the encoder's length) and its keys, shapes and
+    types must be those of ``model.cache_specs`` there, except that a
+    bf16 leaf of ``COMPUTE_TYPED`` is taken where the spec holds fp32,
+    which holds it exactly."""
+    B, max_seq, dtype = _geometry(cache)
+    out = _carried(model.cache_specs(B, max_seq, dtype), cache, model.device)
+    out["index"] = int(np.asarray(cache["index"]))
+    return out
+
+
+def _geometry(cache: dict) -> tuple:
+    """(batch, length, type) of a reference cache: from its cross keys, its
+    keys, or (an SSM's states, which have no length) its first leaf."""
+    for name in ("cross_k", "k", "k_q"):
+        if name in cache:
+            arr = np.asarray(cache[name])
+            dtype = torch.bfloat16 if name == "k_q" else \
+                _torch_dtype(arr.dtype)
+            return arr.shape[1], arr.shape[2], dtype
+    first = next(leaf for _, leaf in _leaves(cache) if np.ndim(leaf) > 1)
+    return np.shape(first)[1], 1, torch.bfloat16
+
+
+# leaves that the reference returns in the compute type where its cache
+# spec holds fp32: the xLSTM's mLSTM conv states
+COMPUTE_TYPED = frozenset({"m_state.conv"})
+
+
+def _carried(specs: dict, cache: dict, device, path: str = "") -> dict:
     if set(specs) != set(cache):
-        raise KeyError(f"reference cache leaves {sorted(cache)} are not the "
-                       f"model's {sorted(specs)}")
-    out = {"index": int(np.asarray(cache["index"]))}
+        raise KeyError(f"reference cache leaves {sorted(cache)} at "
+                       f"{path or 'the top'} are not the model's "
+                       f"{sorted(specs)}")
+    out = {}
     for name, spec in specs.items():
-        if name == "index":
+        if name == "index" and not path:
+            continue
+        if isinstance(spec, dict):
+            out[name] = _carried(spec, cache[name], device, f"{path}{name}.")
             continue
         arr = np.asarray(cache[name])
         if tuple(arr.shape) != tuple(spec.shape):
-            raise ValueError(f"{name}: reference shape {arr.shape} != "
+            raise ValueError(f"{path}{name}: reference shape {arr.shape} != "
                              f"{tuple(spec.shape)}")
-        if _torch_dtype(arr.dtype) != spec.dtype:
-            raise ValueError(f"{name}: reference type {arr.dtype}, the "
+        got = _torch_dtype(arr.dtype)
+        if got != spec.dtype and not (f"{path}{name}" in COMPUTE_TYPED
+                                      and got == torch.bfloat16
+                                      and spec.dtype == torch.float32):
+            raise ValueError(f"{path}{name}: reference type {arr.dtype}, the "
                              f"model's cache holds {spec.dtype}")
         if spec.dtype == torch.int8:
             t = torch.from_numpy(arr.copy())
         else:
             t = torch.from_numpy(arr.astype(np.float32)).to(spec.dtype)
-        out[name] = t.to(model.device)
+        out[name] = t.to(device)
     return out
 
 

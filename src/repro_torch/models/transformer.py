@@ -11,14 +11,15 @@ token without reading the device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import make_generator, resolve_device
+from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.models.common import CacheSpec
 
 
 class DenseLayer(nn.Module):
@@ -34,24 +35,17 @@ class DenseLayer(nn.Module):
         self.mlp = cm.MLP(cfg, dtype, device)
 
     def forward(self, x, positions, compute_dtype, impl: str, cache_kv=None,
-                cache_index: int = 0):
+                cache_index: int = 0, causal: bool = True, positions3=None):
         """The block's output; ``cache_kv`` (this layer's cache entries) is
         written in place."""
         h = cm.rmsnorm(x, self.ln1, self.eps)
         attn_out, _ = self.attn(h, positions, compute_dtype=compute_dtype,
                                 impl=impl, cache_kv=cache_kv,
-                                cache_index=cache_index)
+                                cache_index=cache_index, causal=causal,
+                                positions3=positions3)
         x = x + attn_out
         h = cm.rmsnorm(x, self.ln2, self.eps)
         return x + self.mlp(h, compute_dtype)
-
-
-class CacheSpec(NamedTuple):
-    """One cache leaf: shape, dtype and the value it starts at ("zeros" or
-    "ones"), the reference's ``ParamSpec`` fields that a cache uses."""
-    shape: tuple
-    dtype: torch.dtype
-    init: str
 
 
 class DenseLM(nn.Module):
@@ -64,6 +58,8 @@ class DenseLM(nn.Module):
     storing them in bf16 leaves a bf16 forward unchanged and halves the
     memory (14.77 B parameters of qwen2.5-14b: 29.5 GB)."""
 
+    stacked = ("layers",)
+
     def __init__(self, cfg: ModelConfig, *, param_dtype=torch.float32,
                  device=None, rng=0):
         super().__init__()
@@ -74,9 +70,7 @@ class DenseLM(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = cm.new_param((cfg.d_model,), torch.float32, device,
                                        "ones")
-        g = make_generator(rng, device)
-        for p in self.parameters():
-            cm.init_leaf(p, g)
+        cm.draw_params(self, rng, device)
 
     @property
     def device(self) -> torch.device:

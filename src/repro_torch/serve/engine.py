@@ -40,7 +40,12 @@ from repro_torch.serve.plane import PlaneConfig, RequestPlane
 from repro_torch.serve.steps import (COMPUTE_DTYPE, init_cache,
                                      make_prefill_step)
 
-__all__ = ["KNNLMConfig", "QueryCache", "ServeEngine"]
+__all__ = ["KNNLMConfig", "QueryCache", "ServeEngine", "TOKEN_FAMILIES"]
+
+# the families whose prefill reads token prompts, which ``generate`` feeds;
+# the VLM reads embeddings and whisper frames, and the reference's engine
+# fails on them
+TOKEN_FAMILIES = ("dense", "ssm", "hybrid")
 
 # the decode loop's tenant on the plane: external backpressure can shed
 # external tickets, never this one
@@ -100,8 +105,9 @@ class ServeEngine:
                  datastore=None, index=None, index_append: bool = False,
                  plane: Optional[RequestPlane] = None,
                  plane_namespace: Optional[str] = None, device=None):
-        """``model``: a ``DenseLM`` on ``device`` (default: the GPU; raises
-        without one). ``datastore``: (keys (N, d), next-token ids (N,)),
+        """``model``: a model of a token family (``TOKEN_FAMILIES``) on
+        ``device`` (default: the GPU; raises without one); the kNN-LM hook
+        reads hidden states, which only the dense family exposes. ``datastore``: (keys (N, d), next-token ids (N,)),
         preprocessed into an ``Index`` here. ``index``: a built or loaded
         ``Index``, or a raw ``IndexStore`` wrapped on the way in (pass the
         next-token ids as ``datastore=(None, ids)``). ``index_append``:
@@ -114,6 +120,15 @@ class ServeEngine:
         (given, if at all, to attach the next-token ids) is read back from
         the router at each use, so an evicted namespace is not pinned."""
         device = resolve_device(device)
+        family = model.cfg.family
+        if family not in TOKEN_FAMILIES:
+            raise ValueError(f"the engine serves token prompts; the "
+                             f"{family!r} family reads "
+                             f"{'embeddings' if family == 'vlm' else 'frames'}"
+                             f" (serving families: {TOKEN_FAMILIES})")
+        if knn_lm is not None and family != "dense":
+            raise ValueError("the kNN-LM hook needs a hidden-state-exposing "
+                             f"DenseLM, not the {family!r} family")
         if model.device != device:
             raise ValueError(f"the model lives on {model.device}, the engine "
                              f"serves on {device}")

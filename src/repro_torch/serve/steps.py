@@ -31,17 +31,26 @@ def check_single_device(plan: Optional[ParallelPlan]) -> None:
 
 def init_cache(model, batch_size: int, max_seq: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """A zeroed KV cache of ``model.cache_specs`` on ``device`` (default:
-    the model's), its ``index`` the host int 0."""
+    """The cache of ``model.cache_specs`` on ``device`` (default: the
+    model's), nested as the specs are (an SSM's states), each leaf at its
+    start (zeros, ones, or its scalar: the stabilisers' −1e30), its
+    ``index`` the host int 0."""
     device = device if device is not None else model.device
-    cache = {}
-    for name, spec in model.cache_specs(batch_size, max_seq, dtype).items():
-        if name == "index":
-            cache[name] = 0
-            continue
-        fill = torch.ones if spec.init == "ones" else torch.zeros
-        cache[name] = fill(spec.shape, dtype=spec.dtype, device=device)
-    return cache
+
+    def build(specs):
+        out = {}
+        for name, spec in specs.items():
+            if isinstance(spec, dict):
+                out[name] = build(spec)
+            elif name == "index":
+                out[name] = 0
+            else:
+                value = {"zeros": 0.0, "ones": 1.0}.get(spec.init, spec.scale)
+                out[name] = torch.full(spec.shape, value, dtype=spec.dtype,
+                                       device=device)
+        return out
+
+    return build(model.cache_specs(batch_size, max_seq, dtype))
 
 
 def make_prefill_step(model, plan: Optional[ParallelPlan] = None):

@@ -1,5 +1,6 @@
-"""Losses, forward only: the port of ``repro/train/loss.py`` for the dense
-family. Cross entropy is computed in fp32 with a stable logsumexp."""
+"""Losses, forward only: the port of ``repro/train/loss.py`` for every
+family but the MoE one. Cross entropy is computed in fp32 with a stable
+logsumexp."""
 from __future__ import annotations
 
 import torch
@@ -36,15 +37,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 def lm_loss(model, batch: dict, *, remat: str = "full",
             compute_dtype=torch.bfloat16, impl: str = "auto"):
-    """Next-token loss of the dense family: (loss, metrics). ``labels`` in
-    the batch are already aligned (labels[t] is the target of logits[t]).
-    The reference's (model, params, batch) becomes (model, batch): the
-    port's model holds its parameters. ``impl`` goes to the model's fused
-    attention op."""
+    """Next-token loss: (loss, metrics). ``labels`` in the batch are already
+    aligned (labels[t] is the target of logits[t]); the batch holds what
+    the family's forward reads (tokens; embeds and positions3 for the VLM;
+    frames and decoder tokens for whisper, whose labels have the decoder's
+    length). The reference's (model, params, batch) becomes (model,
+    batch): the port's model holds its parameters. ``impl`` goes to the
+    model's fused attention op."""
     family = model.cfg.family
-    if family != "dense":
+    if family == "moe":
         raise NotImplementedError(
-            f"lm_loss of the {family!r} family is not ported yet (see ROADMAP.md)")
+            "lm_loss of the 'moe' family is not ported yet (see ROADMAP.md)")
     logits, _ = model(batch, remat=remat, compute_dtype=compute_dtype,
                       impl=impl)
     loss, n = cross_entropy(logits, batch["labels"])

@@ -919,6 +919,127 @@ def test_dense_lm_on_the_card(gen):
     assert abs(float(loss) - float(plain)) <= 1e-3 * abs(float(plain))
 
 
+@pytest.mark.parametrize("B,H,KV,Sq,Sk,D,causal,off", [
+    (1, 96, 8, 256, 256, 192, True, 0),    # nemotron-4-340b's heads, shorter
+    (1, 12, 1, 200, 200, 192, False, 0),   # ragged, bidirectional
+    (1, 4, 2, 77, 300, 192, True, 223),    # q at the tail of the keys
+    (2, 4, 4, 128, 128, 256, True, 0),     # the widest it takes
+    (1, 2, 1, 100, 100, 136, True, 0),     # just past the narrow variant
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_head_kernel_matches_plain(gen, B, H, KV, Sq, Sk,
+                                                        D, causal, off, dtype):
+    """Head widths above 128 take the CUDA-core kernel's wide
+    instantiation (up to 256)."""
+    q, k, v = _qkv(gen, B, H, KV, Sq, Sk, D, dtype)
+    before = (flash_attention_cuda.launches_tc,
+              flash_attention_cuda.launches_cc)
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches_tc,
+            flash_attention_cuda.launches_cc) == (before[0], before[1] + 1)
+    assert got.dtype == dtype and got.shape == (B, H, Sq, D)
+    want = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                               impl="ref")
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(FLASH_FP32 if dtype == torch.float32
+                                  else FLASH_BF16_CUDA_CORES))
+
+
+def test_flash_attention_rejects_heads_past_256(gen):
+    q, k, v = _qkv(gen, 1, 2, 1, 64, 64, 264, torch.float32)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(q, k, v)
+
+
+FAMILY_ARCHS = ["xlstm-350m", "zamba2-2.7b", "qwen2-vl-2b", "whisper-base",
+                "granite-34b", "nemotron-4-340b", "llama3-405b"]
+
+
+def _family_batch(cfg, gen, B=2, S=32):
+    """What the family's forward reads, on the card: token ids, embeddings
+    with M-RoPE streams for the VLM, frames and S // 8 decoder tokens for
+    whisper."""
+    if cfg.family == "vlm":
+        pos = torch.arange(S, device="cuda")
+        return {"embeds": torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device="cuda"),
+                "positions3": torch.stack([pos // 8, pos % 8 + pos // 8,
+                                           pos])[:, None].expand(3, B, S)}
+    tokens = torch.randint(0, cfg.vocab_size, (B, S // cfg.dec_seq_div
+                                               if cfg.family == "audio"
+                                               else S),
+                           generator=gen, device="cuda")
+    if cfg.family == "audio":
+        return {"frames": torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device="cuda"), "tokens": tokens}
+    return {"tokens": tokens}
+
+
+def _flash_launches(model) -> int:
+    """Fused attention launches of one cache-free forward."""
+    cfg = model.cfg
+    return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+            "audio": cfg.enc_layers + cfg.dec_layers}.get(cfg.family,
+                                                          cfg.n_layers)
+
+
+def _prompt_and_step(cfg, batch, n):
+    """The first n decoder positions as the prompt, position n as one
+    decode step's input."""
+    key = "embeds" if cfg.family == "vlm" else "tokens"
+    prompt = dict(batch, **{key: batch[key][:, :n]})
+    if "positions3" in batch:
+        prompt["positions3"] = batch["positions3"][:, :, :n]
+    step = batch[key][:, n:n + 1]
+    return prompt, ({"embeds": step} if cfg.family == "vlm" else step)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_forward_and_decode_on_the_card(gen, arch):
+    """Each family at its SMOKE size in fp32 with attn_impl "pallas": the
+    cache-free forward launches the fused op once per attention layer and
+    gives the plain version's logits; a prefill and one decode step on the
+    card give the same model's on the CPU. The xLSTM is held in aggregate
+    (``tests/test_torch_ssm.py``: its steps round their outputs to bf16, so
+    sums in another order flip ulps): relative L2 error at most 2e-3."""
+    from repro_torch.serve import init_cache
+    cfg = get_arch(arch).smoke.scaled(attn_impl="pallas")
+    model = build_model(cfg, rng=0)
+    cpu = build_model(cfg, device="cpu", rng=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    batch = _family_batch(cfg, gen)
+    f32 = torch.float32
+
+    def close(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        if cfg.family == "ssm":
+            assert float((got - want).norm() / want.norm()) <= 2e-3
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+    with torch.inference_mode():
+        before = flash_attention_cuda.launches
+        got, _ = model(batch, compute_dtype=f32)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.launches == before + _flash_launches(model)
+        want, _ = model(batch, compute_dtype=f32, impl="ref")
+        close(got, want)
+        n = batch["tokens"].shape[1] - 1 if "tokens" in batch else 24
+        outs = []
+        for m, dev in ((model, "cuda"), (cpu, "cpu")):
+            prompt, step = _prompt_and_step(cfg, batch, n)
+            move = lambda t: {k: v.to(dev) for k, v in t.items()} \
+                if isinstance(t, dict) else t.to(dev)
+            cache = init_cache(m, 2, 32 if cfg.family == "audio" else n + 4,
+                               dtype=f32)
+            _, cache = m.prefill(move(prompt), cache, compute_dtype=f32)
+            logits, cache = m.decode_step(cache, move(step), compute_dtype=f32)
+            assert cache["index"] == n + 1
+            outs.append(logits)
+        close(*outs)
+
+
 def test_tune_on_the_card_installs_and_round_trips(gen, tmp_path):
     """``Index.tune()`` races real races on the card (its grid varies the
     fused pull's ring of 2 and 4 buffers), installs the winner through the

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_get_arch
+from repro.configs import list_archs as jax_list_archs
 from repro.configs.base import ModelConfig as JaxModelConfig
 from repro.configs.base import ParallelPlan as JaxParallelPlan
 from repro.models import build_model as jax_build_model
@@ -96,17 +97,17 @@ def test_qwen_configs_equal_reference():
         assert (dataclasses.asdict(getattr(ours, field))
                 == dataclasses.asdict(getattr(theirs, field)))
     assert ours.config.head_dim_ == theirs.config.head_dim_ == 128
-    assert list_archs() == ["qwen2.5-14b"]
+    assert list_archs() == [a for a in jax_list_archs()
+                            if a not in ("deepseek-v3-671b", "dbrx-132b")]
 
 
-@pytest.mark.parametrize("arch", ["llama3-405b", "deepseek-v3-671b",
-                                  "whisper-base"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "dbrx-132b"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_arch(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "ssm", "hybrid", "vlm", "audio"])
+@pytest.mark.parametrize("family", ["moe"])
 def test_unported_families_raise(family):
     cfg = get_arch("qwen2.5-14b").smoke.scaled(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
