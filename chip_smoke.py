@@ -207,11 +207,12 @@ Run from the root of a checkout. In order it:
 10. families: every other architecture the port serves, in bf16 with
    random weights (``FAMILY_RUNS``): xlstm-350m, zamba2-2.7b, qwen2-vl-2b
    and whisper-base at their published configs, granite-34b,
-   nemotron-4-340b and llama3-405b at full width cut to 4 layers;
-   ``lm_loss``, a prefill and greedy decode steps, each cache-path layer
-   held to its cache-free run on the cache run's own inputs, and the CLI
-   at ``--arch xlstm-350m`` and ``--arch zamba2-2.7b`` (see
-   ``families_phase``).
+   nemotron-4-340b, llama3-405b, deepseek-v3-671b and dbrx-132b at full
+   width cut to 4 layers; ``lm_loss``, a prefill and greedy decode steps,
+   each cache-path layer held to its cache-free run on the cache run's own
+   inputs, the MoE layers' routing and determinism, and the CLI at
+   ``--arch xlstm-350m`` and ``--arch zamba2-2.7b`` at full width and the
+   two MoE archs at ``--smoke`` (see ``families_phase``).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -743,12 +744,14 @@ def fwht_kernel_report(d: int, dtype) -> dict:
     return out
 
 
-# flash_attention at the families phase's shapes, bf16 on the CUDA-core
-# kernel: (case, (B, H, KV, S, D), causal)
+# flash_attention at the families phase's shapes, bf16 (D 128 on the
+# tensor-core kernel, the others on the CUDA-core one): (case, (B, H, KV,
+# S, D), causal)
 FAMILY_FLASH_CASES = (
     ("zamba2_shared_block", (4, 32, 32, 4096, 80), True),
     ("whisper_encoder", (8, 8, 8, 1500, 64), False),
-    ("nemotron_layer_d192", (1, 96, 8, 4096, 192), True))
+    ("nemotron_layer_d192", (1, 96, 8, 4096, 192), True),
+    ("dbrx_layer", (1, 48, 8, 4096, 128), True))
 
 
 def flash_rows(g) -> list:
@@ -756,9 +759,11 @@ def flash_rows(g) -> list:
     and 8 KV heads of 128 over 4 × 4,096 tokens, bf16, causal: the
     tensor-core kernel), at a GQA case of the reference kernel test's grid
     in fp32 (the CUDA-core kernel), and at the families phase's bf16 shapes
-    on the CUDA-core kernel (``FAMILY_FLASH_CASES``: zamba2's shared block
-    at D 80, whisper's bidirectional encoder at D 64, nemotron-4-340b's D
-    192 on the wide instantiation). Tolerances: bf16 on the tensor cores
+    (``FAMILY_FLASH_CASES``: zamba2's shared block at D 80, whisper's
+    bidirectional encoder at D 64, nemotron-4-340b's D 192 on the wide
+    instantiation, all on the CUDA-core kernel; dbrx-132b's layer, 48
+    query heads over 8 KV heads of 128, on the tensor cores). Tolerances:
+    bf16 on the tensor cores
     as ``tc_check``, and the kernel's max and RMS errors against the plain
     version at most twice those of the library call's on the same inputs;
     fp32 at 3e-5 as the reference test; bf16 on the CUDA cores within one
@@ -784,12 +789,13 @@ def flash_rows(g) -> list:
         library = lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=causal, enable_gqa=True)
         big = case == "lm_layer"
+        tc = variant(dtype, D, D) == "tensor_cores"
         row = {"kernel": "flash_attention", "case": case,
                "variant": variant(dtype, D, D),
                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
                "shape": {"B": B, "H": H, "KV": KV, "Sq": S, "Sk": S, "D": D}}
         got = run()
-        if big:
+        if tc:
             bounds = ref.flash_attention_tc_bounds(q, k, v, True, 0)
             row.update(tc_check(f"flash_attention {case}", got, bounds))
             row["tolerance"] = "ref.flash_attention_tc_bounds"
@@ -4445,8 +4451,13 @@ FAMILY_RUNS = (
     ("granite-34b", 4, (1, 4096), (2, 512, 8)),
     ("nemotron-4-340b", 4, (1, 4096), (2, 512, 8)),
     ("llama3-405b", 4, (1, 4096), (2, 512, 8)),
+    ("deepseek-v3-671b", 4, (1, 4096), (2, 512, 8)),
+    ("dbrx-132b", 4, (1, 4096), (2, 512, 8)),
 )
 FAMILY_CLI_ARCHS = ("xlstm-350m", "zamba2-2.7b")
+# the MoE archs through the CLI at ``--smoke`` (their full configs hold
+# 671 B and 132 B parameters)
+FAMILY_CLI_SMOKE_ARCHS = ("deepseek-v3-671b", "dbrx-132b")
 # the length of each family's untimed warm-up run (``family_run``)
 FAMILY_WARMUP_LEN = 256
 
@@ -4484,7 +4495,10 @@ def family_batch(cfg, B: int, S: int, g, labels: bool) -> dict:
 
 def attention_calls(cfg) -> int:
     """Cache-free attention layers in one forward: the fused op's launches
-    under attn_impl "pallas"."""
+    under attn_impl "pallas" (none for MLA, which takes the plain ``sdpa``
+    as the reference's does)."""
+    if cfg.family == "moe":
+        return 0 if cfg.use_mla else cfg.n_layers
     return {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
             "audio": cfg.enc_layers + cfg.dec_layers}.get(cfg.family,
                                                           cfg.n_layers)
@@ -4493,11 +4507,13 @@ def attention_calls(cfg) -> int:
 @contextlib.contextmanager
 def layer_calls(model):
     """Records every layer call of the model (dense, Mamba2, mLSTM, sLSTM,
-    whisper's decoder), forward by forward: yields a list to which
+    whisper's decoder, the MoE LM's blocks), forward by forward: yields a
+    list to which
     ``begin()`` (the returned function) adds a new forward's list of
     (module, args, kwargs, output)."""
     from repro_torch.models.audio import DecoderLayer
     from repro_torch.models.hybrid import MambaLayer
+    from repro_torch.models.moe import MoEBlock
     from repro_torch.models.ssm import MLSTMBlock, SLSTMBlock
     from repro_torch.models.transformer import DenseLayer
     forwards = []
@@ -4509,7 +4525,7 @@ def layer_calls(model):
     hooks = [m.register_forward_hook(hook, with_kwargs=True)
              for m in model.modules()
              if isinstance(m, (DenseLayer, MambaLayer, MLSTMBlock, SLSTMBlock,
-                               DecoderLayer))]
+                               DecoderLayer, MoEBlock))]
     try:
         yield forwards
     finally:
@@ -4577,7 +4593,66 @@ def family_flash_rows(arch: str, seen: set, g) -> list:
     return rows
 
 
-def teacher_forced(model, forwards) -> tuple:
+class MoERoutes:
+    """The MoE layers' routing on the cache path, forced on their
+    teacher-forced reruns. Wraps ``models.moe.route`` (each MoE module's
+    one call site), keyed by the module that calls it: after ``start()``
+    it keeps each layer's top-k ids, call by call (the prefill, then each
+    decode step); after ``replay(B)`` each layer's next call routes its B
+    rows by those ids, concatenated along the sequence as the rerun's
+    input is, its weights recomputed from its own logits
+    (``moe.expert_weights``), and ``flips`` counts, by layer, the tokens
+    whose own top k differs. So a bf16 near-tie that the rerun rounds the
+    other way does not move a whole token in a check of the cache path;
+    the routing itself is held bit for bit by ``moe_layer_checks``."""
+
+    def __init__(self, model):
+        from repro_torch.models import moe
+        self.moe = moe
+        self.real = moe.route
+        self.current = None
+        self.recording = False
+        self.recorded = collections.defaultdict(list)
+        self.forced = {}
+        self.flips = {}
+        mods = [m for m in model.modules() if isinstance(m, moe.MoE)]
+        self.names = {id(m): f"moe_layer_{i}" for i, m in enumerate(mods)}
+        self.hooks = [m.register_forward_pre_hook(self._enter) for m in mods]
+        moe.route = self._route
+
+    def _enter(self, module, args):
+        self.current = id(module)
+
+    def _route(self, cfg, logits):
+        w, i = self.real(cfg, logits)
+        key = self.current
+        if key in self.forced:
+            ids = self.forced.pop(key)
+            self.flips[self.names[key]] = int((ids != i).any(-1).sum())
+            return self.moe.expert_weights(cfg, logits, ids), ids
+        if self.recording:
+            self.recorded[key].append(i)
+        return w, i
+
+    def start(self):
+        self.recording = True
+
+    def replay(self, B: int):
+        import torch
+        self.recording = False
+        for key, calls in self.recorded.items():
+            k = calls[0].shape[-1]
+            self.forced[key] = torch.cat([c.view(B, -1, k) for c in calls],
+                                         1).reshape(-1, k)
+        self.recorded.clear()
+
+    def close(self):
+        self.moe.route = self.real
+        for h in self.hooks:
+            h.remove()
+
+
+def teacher_forced(model, forwards, routes=None, batch: int = 0) -> tuple:
     """The cache path held layer by layer, in the serve phase and the
     families phase: each layer on the cache path (a layer called in the
     prefill and in every decode step; ``forwards`` from ``layer_calls``,
@@ -4594,7 +4669,9 @@ def teacher_forced(model, forwards) -> tuple:
     gaps, the last layer's cache-free output through the final norm and
     the head as fp32 logits (B, n, V) at the prompt's last position and
     each later one: what the prefill's last position and each decode
-    step give on the cache path)."""
+    step give on the cache path). ``routes``: an MoE model's
+    ``MoERoutes``, whose recorded ids the reruns route by (``batch``
+    rows); the tokens each layer would route otherwise are reported."""
     import torch
     from repro_torch.models import common
 
@@ -4612,6 +4689,8 @@ def teacher_forced(model, forwards) -> tuple:
             series[key].append(call)
     order = keys(forwards[-1])                # the cache path, in call order
     forwards.clear()
+    if routes is not None:
+        routes.replay(batch)
     with model_config(model, attn_impl="auto", attn_chunk=1 << 30):
         gaps, decode_gaps, tail = _forced_layers(series, order)
     norm = model.dec_norm if hasattr(model, "dec_norm") else model.final_norm
@@ -4620,6 +4699,8 @@ def teacher_forced(model, forwards) -> tuple:
     out = {"layers_checked": len(gaps), "layer_rel_l2_max": max(gaps),
            "layer_rel_l2_decode_positions_max": max(decode_gaps),
            "layer_rel_l2_by_layer": gaps, "bound": TEACHER_FORCED_L2}
+    if routes is not None:
+        out["router_flips_in_reruns"] = dict(routes.flips)
     worst = max(gaps + decode_gaps)
     if not worst <= TEACHER_FORCED_L2:
         raise AssertionError(f"{model.cfg.name}: a layer of the cache path "
@@ -4635,6 +4716,7 @@ def _forced_layers(series, order) -> tuple:
     import torch
     from repro_torch.models.audio import DecoderLayer
     from repro_torch.models.hybrid import MambaLayer
+    from repro_torch.models.moe import MoEBlock
     from repro_torch.models.transformer import DenseLayer
     gaps, decode_gaps, tail = [], [], None
     for key in order:
@@ -4653,6 +4735,9 @@ def _forced_layers(series, order) -> tuple:
                           causal=kwargs.get("causal", True),
                           positions3=pos[None].expand(3, B, S) if vlm
                           else None)
+        elif isinstance(module, MoEBlock):
+            # cache-free and MLA expanded, against the absorbed decode
+            want = module(x, pos, args[2], args[3])[0]
         elif isinstance(module, MambaLayer):
             want = module(x, None, args[2])
         else:
@@ -4666,6 +4751,59 @@ def _forced_layers(series, order) -> tuple:
         tail = want[:, S0 - 1:]
         del x, got, want, outs
     return gaps, decode_gaps, tail
+
+
+def moe_layer_checks(layer, h) -> dict:
+    """An MoE layer of a families run at its input in the loss half (the
+    published capacity factor): its routing on the card (the router's bf16
+    logits cast to fp32, the top-k ids and weights, the dispatch's order,
+    slots and keep mask) recomputed on the CPU from the same fp32 logits,
+    ids, order, slots and mask equal bit for bit and the weights within
+    1e-6; the slots dropped at that factor counted; and the layer run
+    twice on that input, its output and aux equal bit for bit (the combine
+    adds in a fixed order, without atomics). Raises on a mismatch."""
+    import torch
+    from repro_torch.models import moe
+    cfg = layer.cfg
+    x2d = h.reshape(-1, h.shape[-1])
+    T, E, k = x2d.shape[0], cfg.n_experts, cfg.n_experts_active
+    cap = moe.capacity(T, k, E, factor=cfg.moe_capacity_factor)
+
+    def routing(logits):
+        w, i = moe.route(cfg, logits)
+        dest, order, keep = moe.dispatch_indices(i.reshape(-1), E, cap)
+        return {"top_w": w, "top_i": i, "order": order, "dest": dest,
+                "keep": keep}
+
+    with torch.inference_mode():
+        logits = layer.router_logits(x2d, torch.bfloat16)
+        card = routing(logits)
+        cpu = routing(logits.cpu())
+        (a, a_aux), (b, b_aux) = (layer(h, torch.bfloat16) for _ in range(2))
+        ms = cuda_ms(lambda: layer(h, torch.bfloat16), reps=3, warmup=1)
+    keep = card["keep"]
+    load = torch.bincount(card["top_i"].reshape(-1), minlength=E)
+    out = {"tokens": T, "experts": E, "k": k,
+           "capacity_factor": cfg.moe_capacity_factor, "capacity": cap,
+           "slots": T * k, "dropped_slots": int((~keep).sum()),
+           "tokens_an_expert_max": int(load.max()),
+           "tokens_an_expert_min": int(load.min()),
+           "routing_equal": {n: bool(torch.equal(card[n].cpu(), cpu[n]))
+                             for n in ("top_i", "order", "dest", "keep")},
+           "weights_max_abs_diff": float((card["top_w"].cpu()
+                                          - cpu["top_w"]).abs().max()),
+           "deterministic": bool(torch.equal(a, b)
+                                 and torch.equal(a_aux, b_aux)),
+           "layer_ms": ms}
+    if not (all(out["routing_equal"].values())
+            and out["weights_max_abs_diff"] <= 1e-6):
+        raise AssertionError(f"{cfg.name}: the MoE routing on the card "
+                             f"differs from the CPU's on the same logits: "
+                             f"{out}")
+    if not out["deterministic"]:
+        raise AssertionError(f"{cfg.name}: an MoE layer gave other bits on "
+                             f"a second call: {out}")
+    return out
 
 
 def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
@@ -4711,6 +4849,16 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
     decode = make_decode_step(model)
     flash = flash_attention_cuda
     timings = {}
+    is_moe = cfg.family == "moe"
+
+    def serving():
+        # the serve half of an MoE model runs dropless (capacity factor
+        # E/k), so its cache path and the cache-free reruns drop nothing
+        # and route the same tokens; the loss half keeps the published 1.25
+        if not is_moe:
+            return contextlib.nullcontext()
+        return model_config(model, moe_capacity_factor=cfg.n_experts
+                            / cfg.n_experts_active)
 
     def warm_up():
         # the same calls at a short length, untimed, so that the timed
@@ -4719,7 +4867,7 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
         short = family_batch(cfg, B, n, g, labels=True)
         p = family_batch(cfg, Bs, n if cfg.family == "audio"
                          else min(S0, FAMILY_WARMUP_LEN), g, labels=False)
-        with torch.inference_mode():
+        with torch.inference_mode(), serving():
             lm_loss(model, short)
             cache = init_cache(model, Bs, n if cfg.family == "audio"
                                else min(S0, FAMILY_WARMUP_LEN) + 8)
@@ -4729,16 +4877,25 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
         torch.cuda.synchronize()
 
     def run():
+        # an MoE model's first MoE layer input in the loss half, for
+        # ``moe_layer_checks``
+        moe_in = []
+        hook = (model.layers[0].moe.register_forward_pre_hook(
+            lambda m, a: moe_in.append(a[0])) if is_moe else None)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t = time.perf_counter()
         with torch.inference_mode():
             loss, metrics = lm_loss(model, batch)
-        loss = float(loss)
+        metrics = {k: float(v) for k, v in metrics.items()}
         timings["loss_s"] = time.perf_counter() - t
         timings["loss_launches"] = (flash.launches_tc, flash.launches_cc)
+        if hook is not None:
+            hook.remove()
         cache = init_cache(model, Bs, max_seq)
-        with layer_calls(model) as forwards:
+        with layer_calls(model) as forwards, serving():
+            if routes is not None:
+                routes.start()
             forwards.append([])
             torch.cuda.synchronize()
             t = time.perf_counter()
@@ -4755,36 +4912,50 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t)
         timings["step_s"] = step_s
-        return loss, float(metrics["tokens"]), forwards, logits[:, -1]
+        return metrics, moe_in, forwards, logits[:, -1]
 
     warm_up()
+    routes = MoERoutes(model) if is_moe else None
     # the counts from 0 just before the path and read just after (an
     # xLSTM launches none, so ``counted``'s "never launched" does not apply)
     seen = set()
     for attr in [a for a in vars(flash) if a.startswith("launches")]:
         setattr(flash, attr, 0)
-    with recording_flash(seen):
-        loss, n_tok, forwards, last = run()
-    launches = {"tensor_cores": flash.launches_tc,
-                "cuda_cores": flash.launches_cc}
+    try:
+        with recording_flash(seen):
+            metrics, moe_in, forwards, last = run()
+        launches = {"tensor_cores": flash.launches_tc,
+                    "cuda_cores": flash.launches_cc}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        loss, n_tok = metrics["loss"], metrics["tokens"]
+        if not bool(torch.isfinite(last.float()).all()):
+            raise AssertionError(f"families {arch}: non-finite decode logits")
+        with torch.inference_mode(), serving():
+            check, forced = teacher_forced(model, forwards, routes, Bs)
+    finally:
+        if routes is not None:
+            routes.close()
     # the loss's forward, and whisper's prefill encodes its frames
     # cache-free; every other prefill and decode step reads the cache
     want_launches = attention_calls(cfg) + (
         cfg.enc_layers if cfg.family == "audio" else 0)
-    if flash.launches != want_launches or (
+    if sum(launches.values()) != want_launches or (
             want_launches and launches[out["flash_variant"]]
             != want_launches):
         raise AssertionError(f"families {arch}: flash_attention launches "
                              f"{launches}, expected {want_launches} on "
                              f"{out['flash_variant']}")
+    # the cross entropy (an MoE loss adds its aux and MTP terms)
     expect = math.log(cfg.vocab_size)
-    if not (math.isfinite(loss) and abs(loss - expect) < 2.0):
-        raise AssertionError(f"families {arch}: loss {loss}, expected near "
-                             f"ln V = {expect}")
+    if not (math.isfinite(loss) and abs(metrics["ce"] - expect) < 2.0):
+        raise AssertionError(f"families {arch}: cross entropy "
+                             f"{metrics['ce']}, expected near ln V = "
+                             f"{expect}")
     n_prompt_tokens = Bs * (S0 if cfg.family != "audio" else 8)
     step = float(sorted(timings["step_s"])[len(timings["step_s"]) // 2])
     out.update({
-        "loss_batch": [B, S], "loss": loss, "ln_vocab": expect,
+        "loss_batch": [B, S], "loss": loss, "ce": metrics["ce"],
+        "ln_vocab": expect,
         "loss_tokens": n_tok, "loss_s": timings["loss_s"],
         "loss_tokens_per_s": n_tok / timings["loss_s"],
         "serve_batch": Bs, "prompt": S0, "decode_steps": steps,
@@ -4795,11 +4966,18 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
         "launches": launches,
         "launches_in_loss": dict(zip(("tensor_cores", "cuda_cores"),
                                      timings["loss_launches"])),
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
-    if not bool(torch.isfinite(last.float()).all()):
-        raise AssertionError(f"families {arch}: non-finite decode logits")
-    with torch.inference_mode():
-        check, forced = teacher_forced(model, forwards)
+        "peak_memory_gb": peak_gb})
+    if is_moe:
+        out.update({"aux": metrics["aux"], "mtp_ce": metrics.get("mtp_ce"),
+                    "capacity_factor_loss": cfg.moe_capacity_factor,
+                    "capacity_factor_serve": cfg.n_experts
+                    / cfg.n_experts_active})
+        if not all(math.isfinite(v) for v in (metrics["aux"],
+                                               metrics.get("mtp_ce", 0.0))):
+            raise AssertionError(f"families {arch}: aux or MTP loss "
+                                 f"{metrics}")
+        out["moe_checks"] = moe_layer_checks(model.layers[0].moe, moe_in[0])
+        del moe_in
     got, want = last.float(), forced[:, -1]
     check.update({
         "last_step_logits_rel_l2": float((got - want).norm() / want.norm()),
@@ -4810,7 +4988,7 @@ def family_run(arch: str, layers, loss_shape, serve_shape, seed: int,
         raise AssertionError(f"families {arch}: the last decode step's "
                              f"logits differ from the teacher-forced "
                              f"cache-free run's: {check}")
-    del forwards, forced, got, want, batch, prompt, model
+    del forced, got, want, batch, prompt, model
     gc.collect()
     torch.cuda.empty_cache()
     # the path's flash launches again, each against its plain version
@@ -4823,8 +5001,10 @@ def families_phase(seed: int) -> dict:
     """Every model family the port serves besides qwen2.5-14b's dense LM,
     on the card in bf16 with random weights from ``seed`` (FAMILY_RUNS):
     xlstm-350m, zamba2-2.7b, qwen2-vl-2b and whisper-base whole at their
-    published configs, granite-34b, nemotron-4-340b and llama3-405b at full
-    width cut to 4 layers. Each: ``lm_loss`` through the cache-free forward
+    published configs, granite-34b, nemotron-4-340b, llama3-405b,
+    deepseek-v3-671b and dbrx-132b at full width cut to 4 layers (deepseek:
+    its 3 dense MLA layers, 1 MoE layer and the MTP head). Each: ``lm_loss``
+    through the cache-free forward
     with attn_impl "pallas" (flash_attention once per attention layer, on
     the variant its head width takes), then a prefill and greedy decode
     steps through ``serve.steps`` (the cache path reads its KV cache
@@ -4833,8 +5013,13 @@ def families_phase(seed: int) -> dict:
     counted from 0 over those two; then the teacher-forced check
     (``teacher_forced``) at TEACHER_FORCED_L2 relative L2, the serve
     phase's bound, and each distinct flash launch of the counted run held
-    once more against the plain version (``family_flash_rows``). Then the
-    serving CLI at full width for FAMILY_CLI_ARCHS (``family_cli``)."""
+    once more against the plain version (``family_flash_rows``). The MoE
+    models' loss half keeps the published capacity factor 1.25 and their
+    serve half runs dropless (E/k), their teacher-forced reruns route by
+    the cache path's ids (``MoERoutes``), and their first MoE layer's
+    routing and determinism are held (``moe_layer_checks``). Then the
+    serving CLI at full width for FAMILY_CLI_ARCHS and at ``--smoke`` for
+    FAMILY_CLI_SMOKE_ARCHS (``family_cli``)."""
     import torch
     t = time.perf_counter()
     held_gb = torch.cuda.memory_allocated() / 1e9
@@ -4856,18 +5041,24 @@ def families_phase(seed: int) -> dict:
 
 def family_cli() -> list:
     """``repro_torch.launch.serve.main`` at full width for each of
-    FAMILY_CLI_ARCHS: SERVE_BATCH prompts of SERVE_PROMPT tokens,
-    SERVE_CLI_TOKENS new tokens."""
+    FAMILY_CLI_ARCHS (SERVE_BATCH prompts of SERVE_PROMPT tokens,
+    SERVE_CLI_TOKENS new tokens) and at ``--smoke`` for each of
+    FAMILY_CLI_SMOKE_ARCHS (2 prompts of 8 tokens, 3 new tokens)."""
     import numpy as np
     from repro_torch.launch import serve
+    runs = [(arch, ["--batch", str(SERVE_BATCH), "--prompt-len",
+                    str(SERVE_PROMPT), "--new-tokens", str(SERVE_CLI_TOKENS)],
+             (SERVE_BATCH, SERVE_CLI_TOKENS)) for arch in FAMILY_CLI_ARCHS]
+    runs += [(arch, ["--smoke", "--batch", "2", "--prompt-len", "8",
+                     "--new-tokens", "3"], (2, 3))
+             for arch in FAMILY_CLI_SMOKE_ARCHS]
     rows = []
-    for arch in FAMILY_CLI_ARCHS:
-        argv = ["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
-                str(SERVE_PROMPT), "--new-tokens", str(SERVE_CLI_TOKENS)]
+    for arch, flags, shape in runs:
+        argv = ["--arch", arch] + flags
         t = time.perf_counter()
         run = serve.main(argv)
         tokens = run["tokens"]
-        if tokens.shape != (SERVE_BATCH, SERVE_CLI_TOKENS) or not (
+        if tokens.shape != shape or not (
                 (tokens >= 0).all() and np.isfinite(run["seconds"])):
             raise AssertionError(f"families CLI {arch}: malformed run")
         rows.append({"arch": arch, "argv": argv,
@@ -5538,6 +5729,10 @@ def main() -> int:
     emit({"cut": "families: xlstm-350m's lm_loss over 4 x 1,024 tokens, not "
                  "the 4,096 of the LM phase (its cells step token by "
                  "token)"})
+    emit({"cut": "families: the MoE archs serve at capacity factor E/k "
+                 "(dropless), so the cache path and its cache-free reruns "
+                 "route the same tokens; their loss keeps the published "
+                 "1.25"})
     if args.kmeans_points != KMEANS_FIG5_POINTS:
         emit({"cut": f"kmeans: {args.kmeans_points} points instead of Fig. "
                      f"5's {KMEANS_FIG5_POINTS} (one host-driven race a "

@@ -35,8 +35,8 @@ class BMOConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """A language model's architecture, field for field the reference's
-    ``ModelConfig`` so a reference config loads unchanged. The port runs the
-    "dense" family so far (``models/registry.py``)."""
+    ``ModelConfig`` so a reference config loads unchanged. The port runs
+    every family of the reference (``models/registry.py``)."""
 
     name: str
     family: str                      # dense | moe | ssm | hybrid | vlm | audio

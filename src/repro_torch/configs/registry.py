@@ -1,7 +1,6 @@
 """Architecture registry: ``get_arch(<id>)`` → (ModelConfig, ParallelPlan,
-SMOKE), over the architectures the port runs, and the reference's per-shape
-skips. The reference's MoE ids are known and raise
-``NotImplementedError``: ``ROADMAP.md`` lists them as still to be ported."""
+SMOKE), over the reference's architectures in its order, and the
+reference's per-shape skips."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +12,8 @@ from repro_torch.configs.base import ModelConfig, ParallelPlan
 _MODULES = {
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
     "granite-34b": "repro_torch.configs.granite_34b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "llama3-405b": "repro_torch.configs.llama3_405b",
@@ -20,10 +21,6 @@ _MODULES = {
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "whisper-base": "repro_torch.configs.whisper_base",
 }
-
-# the reference's architectures that the port does not run yet (the MoE
-# family)
-_NOT_PORTED = ("deepseek-v3-671b", "dbrx-132b")
 
 # shapes skipped per arch (with reason), the reference's table
 SKIPS = {
@@ -49,10 +46,6 @@ class ArchEntry:
 
 
 def get_arch(arch_id: str) -> ArchEntry:
-    if arch_id in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id!r} is not ported yet (see ROADMAP.md); the port runs "
-            f"{sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(_MODULES[arch_id])

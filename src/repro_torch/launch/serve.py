@@ -5,11 +5,14 @@ the port of ``repro/launch/serve.py``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-14b \\
       --smoke --device cpu --batch 4 --prompt-len 16 --new-tokens 32 --knn-lm
 
-Serves the token families (``serve.engine.TOKEN_FAMILIES``: dense, ssm,
-hybrid); ``--arch qwen2-vl-2b`` and ``--arch whisper-base`` raise a
-``ValueError`` before the model is built, since the engine feeds token
-prompts and they read embeddings and frames (the reference's CLI fails on
-them with a ``KeyError``). The kNN-LM hook needs the dense family.
+Serves the token families (``serve.engine.TOKEN_FAMILIES``: dense, moe,
+ssm, hybrid), the MoE family on one device with its expert parallelism
+cleared, as the reference's CLI clears it (``--arch deepseek-v3-671b`` or
+``dbrx-132b``, at ``--smoke`` or cut in depth where the card holds it);
+``--arch qwen2-vl-2b`` and ``--arch whisper-base`` raise a ``ValueError``
+before the model is built, since the engine feeds token prompts and they
+read embeddings and frames (the reference's CLI fails on them with a
+``KeyError``). The kNN-LM hook needs the dense family.
 Runs on the GPU unless ``--device cpu`` is given, and fails without one.
 The model's weights are drawn at random in bf16 on the device from seed 0.
 Retrieval is served from a persistent ``repro_torch.api.Index``:

@@ -33,15 +33,18 @@ from repro_torch.kernels import ops
 
 
 def new_param(shape, dtype: torch.dtype, device, init: str,
-              scale: Optional[float] = None) -> nn.Parameter:
+              scale: Optional[float] = None,
+              by_slice: bool = False) -> nn.Parameter:
     """An uninitialised parameter tagged with its reference init rule
-    ("fanin" | "embed" | "ones" | "zeros" | "scalar") and the rule's
-    ``scale``; ``init_leaf`` fills it. The port runs the forward only, so no
-    parameter asks for a gradient."""
+    ("fanin" | "embed" | "normal" | "ones" | "zeros" | "scalar") and the
+    rule's ``scale``; ``init_leaf`` fills it, one slice along the first
+    axis at a time under ``by_slice`` (an MoE's stacked experts). The port
+    runs the forward only, so no parameter asks for a gradient."""
     p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                      requires_grad=False)
     p.init = init
     p.scale = scale
+    p.by_slice = by_slice
     return p
 
 
@@ -66,10 +69,13 @@ class CacheSpec(NamedTuple):
 @torch.no_grad()
 def init_leaf(p: torch.Tensor, generator: torch.Generator) -> None:
     """The reference's ``_init_leaf`` (``sharding/spec.py``): zeros, ones,
-    the constant ``scale`` for "scalar", N(0, scale or 0.02) for "embed",
-    and N(0, (scale or 1)²/fan_in) for "fanin" with fan_in = shape[-2] for
-    every tensor of rank ≥ 2 — so ``wq`` (d, h, hd) draws with std 1/√h,
-    not 1/√d. Draws in fp32 and casts to the parameter's type."""
+    the constant ``scale`` for "scalar", N(0, scale or 0.02) for "embed"
+    and "normal", and N(0, (scale or 1)²/fan_in) for "fanin" with fan_in =
+    shape[-2] for every tensor of rank ≥ 2 — so ``wq`` (d, h, hd) draws
+    with std 1/√h, not 1/√d. Draws in fp32 and casts to the parameter's
+    type; a ``by_slice`` parameter draws each slice along its first axis in
+    turn, so deepseek's (256, 7,168, 2,048) experts take one expert's 59 MB
+    of fp32 at a time, not 15 GB."""
     scale = p.scale
     if p.init == "zeros":
         p.zero_()
@@ -84,8 +90,10 @@ def init_leaf(p: torch.Tensor, generator: torch.Generator) -> None:
                 max(fan_in, 1))
         else:
             std = scale if scale is not None else 0.02
-        p.copy_(torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32).mul_(std))
+        for part in (p.unbind(0) if getattr(p, "by_slice", False) else (p,)):
+            part.copy_(torch.randn(part.shape, generator=generator,
+                                   device=p.device,
+                                   dtype=torch.float32).mul_(std))
 
 
 # ---------------------------------------------------------------------------
@@ -391,14 +399,16 @@ class GQAAttention(nn.Module):
 
 class MLP(nn.Module):
     """The reference's ``mlp``: swiglu (``wi_gate``, ``wi_up``, ``wo``), or
-    gelu (tanh approximation) / sq_relu (``wi``, ``wo``)."""
+    gelu (tanh approximation) / sq_relu (``wi``, ``wo``), ``d_ff`` wide
+    (default ``cfg.d_ff``), as ``mlp_specs(cfg, dtype, d_ff=...)``."""
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device,
+                 d_ff: Optional[int] = None):
         super().__init__()
         if cfg.mlp_act not in ("swiglu", "gelu", "sq_relu"):
             raise ValueError(f"unknown mlp_act {cfg.mlp_act!r}")
         self.act = cfg.mlp_act
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
         if self.act == "swiglu":
             self.wi_gate = new_param((d, f), dtype, device, "fanin")
             self.wi_up = new_param((d, f), dtype, device, "fanin")

@@ -5,8 +5,9 @@
 ``np.asarray`` reads, and copies each leaf into the parameter of the same
 path. The reference stacks each run of like layers along a leading axis;
 the model's ``stacked`` names them (``layers``; ``mlstm`` and ``slstm``;
-``enc_layers`` and ``dec_layers``), and each is unstacked into the module
-list of that name. Layouts are the same in both packages, so each leaf is
+``enc_layers`` and ``dec_layers``; the MoE LM's ``dense_layers`` and
+``layers``, not its one ``mtp.layer``), and each is unstacked into the
+module list of that name. Layouts are the same in both packages, so each leaf is
 a copy, cast to the parameter's type.
 
 ``load_jax_cache(model, cache)`` does the same for a reference cache
@@ -85,13 +86,15 @@ def load_jax_cache(model: nn.Module, cache: dict) -> dict:
 
 def _geometry(cache: dict) -> tuple:
     """(batch, length, type) of a reference cache: from its cross keys, its
-    keys, or (an SSM's states, which have no length) its first leaf."""
-    for name in ("cross_k", "k", "k_q"):
-        if name in cache:
-            arr = np.asarray(cache[name])
-            dtype = torch.bfloat16 if name == "k_q" else \
-                _torch_dtype(arr.dtype)
-            return arr.shape[1], arr.shape[2], dtype
+    keys (an MoE cache's under ``kv``: GQA's k, MLA's c_kv), or (an SSM's
+    states, which have no length) its first leaf."""
+    for tree in (cache, cache.get("kv", {})):
+        for name in ("cross_k", "k", "k_q", "c_kv"):
+            if name in tree:
+                arr = np.asarray(tree[name])
+                dtype = torch.bfloat16 if name == "k_q" else \
+                    _torch_dtype(arr.dtype)
+                return arr.shape[1], arr.shape[2], dtype
     first = next(leaf for _, leaf in _leaves(cache) if np.ndim(leaf) > 1)
     return np.shape(first)[1], 1, torch.bfloat16
 

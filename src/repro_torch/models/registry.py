@@ -1,5 +1,4 @@
-"""family → model class dispatch. The port runs every family but the MoE
-one, which is still to be ported (see ROADMAP.md)."""
+"""family → model class dispatch, over every family of the reference."""
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
@@ -14,8 +13,8 @@ def build_model(cfg: ModelConfig, **kw):
         from repro_torch.models.transformer import DenseLM
         return DenseLM(cfg, **kw)
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "the 'moe' family is not ported yet (see ROADMAP.md)")
+        from repro_torch.models.moe import MoELM
+        return MoELM(cfg, **kw)
     if cfg.family == "ssm":
         from repro_torch.models.ssm import XLSTM
         return XLSTM(cfg, **kw)

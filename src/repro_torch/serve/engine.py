@@ -45,7 +45,7 @@ __all__ = ["KNNLMConfig", "QueryCache", "ServeEngine", "TOKEN_FAMILIES"]
 # the families whose prefill reads token prompts, which ``generate`` feeds;
 # the VLM reads embeddings and whisper frames, and the reference's engine
 # fails on them
-TOKEN_FAMILIES = ("dense", "ssm", "hybrid")
+TOKEN_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 # the decode loop's tenant on the plane: external backpressure can shed
 # external tickets, never this one

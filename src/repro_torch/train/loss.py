@@ -1,10 +1,13 @@
-"""Losses, forward only: the port of ``repro/train/loss.py`` for every
-family but the MoE one. Cross entropy is computed in fp32 with a stable
-logsumexp."""
+"""Losses, forward only: the port of ``repro/train/loss.py``. Cross entropy
+is computed in fp32 with a stable logsumexp."""
 from __future__ import annotations
 
 import torch
 
+# the MoE family's loss weights, the reference's defaults: the
+# load-balance aux and the MTP head's cross entropy
+AUX_WEIGHT = 0.01
+MTP_WEIGHT = 0.3
 # token rows per logsumexp pass: the fp32 copy of (4, 4096, 152,064) bf16
 # logits would take 10 GB at once, 2,048 rows take 1.2 GB
 _ROWS = 2048
@@ -43,12 +46,29 @@ def lm_loss(model, batch: dict, *, remat: str = "full",
     frames and decoder tokens for whisper, whose labels have the decoder's
     length). The reference's (model, params, batch) becomes (model,
     batch): the port's model holds its parameters. ``impl`` goes to the
-    model's fused attention op."""
-    family = model.cfg.family
-    if family == "moe":
-        raise NotImplementedError(
-            "lm_loss of the 'moe' family is not ported yet (see ROADMAP.md)")
-    logits, _ = model(batch, remat=remat, compute_dtype=compute_dtype,
-                      impl=impl)
-    loss, n = cross_entropy(logits, batch["labels"])
-    return loss, {"ce": loss, "tokens": n, "loss": loss}
+    model's fused attention op. The MoE family adds its load-balance aux,
+    averaged over the MoE layers, at AUX_WEIGHT (metric "aux"), and the
+    MTP head's cross entropy against the labels shifted by one more
+    position at MTP_WEIGHT (metric "mtp_ce")."""
+    cfg = model.cfg
+    if cfg.family != "moe":
+        logits, _ = model(batch, remat=remat, compute_dtype=compute_dtype,
+                          impl=impl)
+        loss, n = cross_entropy(logits, batch["labels"])
+        return loss, {"ce": loss, "tokens": n, "loss": loss}
+    logits, _, extra = model(batch, remat=remat, compute_dtype=compute_dtype,
+                             impl=impl, return_aux=True)
+    labels = batch["labels"]
+    ce, n = cross_entropy(logits, labels)
+    aux = extra["aux_loss"] / max(cfg.n_layers - cfg.first_dense_layers, 1)
+    loss = ce + AUX_WEIGHT * aux
+    metrics = {"ce": ce, "tokens": n, "aux": aux}
+    if extra["mtp_logits"] is not None:
+        # MTP predicts token t+2 at position t
+        mtp_labels = torch.cat([labels[:, 1:],
+                                torch.full_like(labels[:, :1], -100)], dim=1)
+        mtp_ce, _ = cross_entropy(extra["mtp_logits"], mtp_labels)
+        loss = loss + MTP_WEIGHT * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics

@@ -143,8 +143,10 @@ def check_forward(cfg, dtype: str, tol=None):
     close(tl, jl, tol or dtol, "logits")
 
 
-def check_loss(cfg, tol=None):
-    jm, params, tm = pair(cfg)
+def check_loss(cfg, tol=None, models=None):
+    """``lm_loss``'s metrics, the reference's and the port's; ``models``:
+    ``pair(cfg)``'s triple, made here when not given."""
+    jm, params, tm = models or pair(cfg)
     batch = batch_of(cfg)
     jloss, jmet = as_written(
         lambda p, b: jax_lm_loss(jm, p, b, remat="none",
@@ -198,13 +200,13 @@ def _step(cfg, batch: dict, t: int):
     return jnp.asarray(tok), torch.from_numpy(tok)
 
 
-def check_serving(cfg, n_prompt: int, tol=FP32):
+def check_serving(cfg, n_prompt: int, tol=FP32, models=None):
     """fp32 compute on an fp32 cache: the reference's prefill, its cache
     carried into the port and the remaining positions decoded one at a time
     by both; the port's own prefill from a carried empty cache; the logits
-    and every cache leaf. Returns the carried and the port's final
-    caches."""
-    jm, params, tm = pair(cfg)
+    and every cache leaf (``models``: as ``check_loss``'s). Returns the
+    carried and the port's final caches."""
+    jm, params, tm = models or pair(cfg)
     batch = batch_of(cfg)
     length = batch["labels"].shape[1]
     max_seq = S if cfg.family == "audio" else length + 4
@@ -263,10 +265,10 @@ def check_init_cache(cfg, max_seq: int = 20):
         assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
-def check_params_round_trip(cfg):
+def check_params_round_trip(cfg, models=None):
     """Every reference leaf lands in the parameter of its path (stacked
     leaves unstacked into their module lists), every parameter is filled."""
-    _, params, tm = pair(cfg)
+    _, params, tm = models or pair(cfg)
     named = dict(tm.named_parameters())
     stacked = tm.stacked
     seen = 0
@@ -287,9 +289,8 @@ def check_params_round_trip(cfg):
 # configs and the registry
 # ---------------------------------------------------------------------------
 
-def test_list_archs_is_the_reference_without_moe():
-    assert list_archs() == [a for a in jax_list_archs()
-                            if a not in ("deepseek-v3-671b", "dbrx-132b")]
+def test_list_archs_is_the_reference():
+    assert list_archs() == jax_list_archs()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -457,7 +458,8 @@ def test_flash_plain_version_at_head_dim_192_matches_reference():
 # the serving CLI
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b", "granite-34b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "zamba2-2.7b", "granite-34b",
+                                  "deepseek-v3-671b", "dbrx-132b"])
 def test_cli_serves_token_families(arch):
     from repro_torch.launch import serve
     out = serve.main(["--arch", arch, "--smoke", "--device", "cpu",
@@ -484,9 +486,10 @@ def test_cli_refuses_embedding_and_frame_families(arch, monkeypatch):
 
 def test_knn_lm_hook_stays_dense_only():
     from repro_torch.launch import serve
-    with pytest.raises(ValueError, match="DenseLM"):
-        serve.main(["--arch", "xlstm-350m", "--smoke", "--device", "cpu",
-                    "--knn-lm"])
+    for arch in ("xlstm-350m", "dbrx-132b"):
+        with pytest.raises(ValueError, match="DenseLM"):
+            serve.main(["--arch", arch, "--smoke", "--device", "cpu",
+                        "--knn-lm"])
     from repro_torch.serve import KNNLMConfig, ServeEngine
     tm = build_model(get_arch("zamba2-2.7b").smoke, device="cpu")
     with pytest.raises(ValueError, match="DenseLM"):

@@ -97,21 +97,7 @@ def test_qwen_configs_equal_reference():
         assert (dataclasses.asdict(getattr(ours, field))
                 == dataclasses.asdict(getattr(theirs, field)))
     assert ours.config.head_dim_ == theirs.config.head_dim_ == 128
-    assert list_archs() == [a for a in jax_list_archs()
-                            if a not in ("deepseek-v3-671b", "dbrx-132b")]
-
-
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "dbrx-132b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_arch(arch)
-
-
-@pytest.mark.parametrize("family", ["moe"])
-def test_unported_families_raise(family):
-    cfg = get_arch("qwen2.5-14b").smoke.scaled(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(cfg, device="cpu")
+    assert list_archs() == jax_list_archs()
 
 
 # ---------------------------------------------------------------------------
