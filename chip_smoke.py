@@ -214,6 +214,19 @@ Run from the root of a checkout. In order it:
    ``--arch xlstm-350m`` and ``--arch zamba2-2.7b`` at full width and the
    two MoE archs at ``--smoke`` (see ``families_phase``).
 
+11. train: the training path (``repro_torch.train``) on the card at full
+   width cut to 4 layers (``TRAIN_RUNS``): qwen2.5-14b on its published
+   plan (AdamW, fp32 parameters, bf16 compute, remat full, grad
+   accumulation 8) for 3 steps of 8 × 4,096 tokens from ``ShardedLoader``,
+   and dbrx-132b (Adafactor, bf16 parameters, capacity factor 1.25) for 2;
+   s a step split into the backward passes and the update, tokens/s, peak
+   memory, loss, grad_norm and lr each step (and dbrx's dropped slots and
+   aux); grad accumulation 4 against 1 on one 4 × 1,024 batch, unclipped;
+   one SMOKE step on the card against the same step on the CPU; the
+   training CLI at ``--smoke`` twice in a process of its own under
+   deterministic algorithms, uninterrupted and with ``--fail-at`` after a
+   checkpoint, the final states bit for bit (see ``train_phase``).
+
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Any mismatch, a recall under 0.99, or a
@@ -5625,6 +5638,390 @@ def traced_build(corpus, cfg, seed: int) -> dict:
 # name, source, the TPU kernel it replaces, the paths that launch it; the
 # summary takes each kernel's first kernel-phase row (its path's per-call
 # shape) and the launches of its paths
+# the train phase: (arch, layers, steps) at full width, each on its
+# published plan, over batches of TRAIN_BATCH × TRAIN_SEQ tokens
+TRAIN_RUNS = (("qwen2.5-14b", 4, 3), ("dbrx-132b", 4, 2))
+TRAIN_BATCH = 8
+TRAIN_SEQ = 4096
+# a run whose peak passes this many GB is cut to TRAIN_CUT_LAYERS layers
+TRAIN_PEAK_CUT_GB = 75.0
+TRAIN_CUT_LAYERS = 2
+# grad accumulation 4 against 1 on one batch of 4 × 1,024 (qwen2.5-14b,
+# bf16 compute, no clip): the relative L2 difference of the two steps'
+# moves, and the relative gaps of their loss and gradient norm (2.3e-4,
+# 7.7e-8 and 1.1e-7 on an H100 80GB HBM3 at 700 W; a missing 1/ga puts
+# the norms 3.0 apart, a dropped microbatch 0.13: PERF.md §6)
+TRAIN_GA_BATCH = (4, 1024)
+TRAIN_GA_L2 = 1e-3
+TRAIN_GA_METRICS = {"loss": 1e-6, "grad_norm": 1e-6}
+# one SMOKE step on the card against the CPU in fp32: every leaf within
+# this share of its largest entry; the metrics at these relative
+# tolerances (the gradients' norm sums 82 leaves' squares in another
+# order on each side: 1.9e-5 apart on an H100 80GB HBM3 at 700 W)
+TRAIN_SMOKE_REL = 1e-4
+TRAIN_SMOKE_METRICS = {"loss": 1e-5, "grad_norm": 1e-4, "lr": 0.0}
+# the training CLI's two runs: steps, batch, sequence, checkpoint period,
+# the failure's step
+TRAIN_CLI = dict(steps=8, batch=4, seq=64, every=3, fail_at=5)
+
+
+def sync(device: str) -> None:
+    """Wait for the card (nothing to wait for on the CPU, where the train
+    phase's functions rehearse at SMOKE size)."""
+    import torch
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def train_timer(times: dict, device: str):
+    """Splits a train step at its clip (``train.steps``' call of
+    ``clip_by_global_norm``, after the last backward): ``times["grads"]``,
+    the seconds from the step's start to the end of its backward passes,
+    synchronized; the update is the rest of the step."""
+    from repro_torch.train import steps
+    real = steps.clip_by_global_norm
+
+    def clip(grads, max_norm):
+        sync(device)
+        times["grads"] = time.perf_counter() - times["start"]
+        return real(grads, max_norm)
+
+    steps.clip_by_global_norm = clip
+    try:
+        yield
+    finally:
+        steps.clip_by_global_norm = real
+
+
+@contextlib.contextmanager
+def dropped_counter(counts: dict):
+    """Counts the (token, expert) pairs each MoE dispatch drops, on the
+    device (no sync): ``counts["dropped"]`` and ``counts["pairs"]`` over
+    ``counts["calls"]`` dispatches (forwards and their recomputations)."""
+    from repro_torch.models import moe
+    real = moe.dispatch_indices
+
+    def counted(expert_ids, E, cap):
+        dest, order, keep = real(expert_ids, E, cap)
+        counts["dropped"] = counts.get("dropped", 0) + (~keep).sum()
+        counts["pairs"] = counts.get("pairs", 0) + keep.numel()
+        counts["calls"] = counts.get("calls", 0) + 1
+        return dest, order, keep
+
+    moe.dispatch_indices = counted
+    try:
+        yield
+    finally:
+        moe.dispatch_indices = real
+
+
+def train_run(arch: str, layers: int, steps: int, seed: int,
+              device: str = "cuda", smoke: bool = False,
+              shape=(TRAIN_BATCH, TRAIN_SEQ)) -> dict:
+    """One architecture's run of the train phase: the model at full width
+    (the SMOKE config with ``smoke``, to rehearse on the CPU) cut to
+    ``layers``, on its published plan on one card, ``steps`` steps of
+    ``shape`` (TRAIN_BATCH × TRAIN_SEQ) tokens from ``ShardedLoader``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import (DTYPES, init_train_state,
+                                         make_train_step)
+    entry = get_arch(arch)
+    cfg = dataclasses.replace(entry.smoke if smoke else entry.config,
+                              n_layers=layers)
+    plan = dataclasses.replace(entry.plan, fsdp=False, tp=False, sp=False,
+                               ep=False)
+    tcfg = TrainConfig(total_steps=steps, warmup_steps=1, seed=seed)
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model(cfg, param_dtype=DTYPES[plan.param_dtype],
+                        device=device, rng=seed)
+    state = init_train_state(model, plan, tcfg, seed)
+    sync(device)
+    out = {"arch": arch, "n_layers": layers, "plan": dataclasses.asdict(plan),
+           "init_s": time.perf_counter() - t,
+           "params": sum(p.numel() for p in model.parameters()),
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in model.parameters()) / 1e9,
+           "state_gb": torch.cuda.memory_allocated() / 1e9 if cuda else 0.0,
+           "tokens_a_step": shape[0] * shape[1], "steps": []}
+    step_fn = make_train_step(model, plan, tcfg)
+    loader = ShardedLoader(cfg.vocab_size, *shape, seed=seed, device=device)
+    counts = {}
+
+    def moe_ctx():
+        return (dropped_counter(counts) if cfg.family == "moe"
+                else contextlib.nullcontext())
+
+    for step in range(steps):
+        batch = loader.get(step)
+        times = {}
+        with train_timer(times, device), moe_ctx():
+            sync(device)
+            times["start"] = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            sync(device)
+            total = time.perf_counter() - times["start"]
+        row = {"step": step, "s": total, "grads_s": times["grads"],
+               "update_s": total - times["grads"],
+               "tokens_per_s": out["tokens_a_step"] / total,
+               **{k: float(v) for k, v in metrics.items()}}
+        if counts:
+            row["dropped_pairs"] = int(counts.pop("dropped"))
+            row["routed_pairs"] = int(counts.pop("pairs"))
+            row["dispatches"] = counts.pop("calls")
+            row["dropped_share"] = row["dropped_pairs"] / row["routed_pairs"]
+        out["steps"].append(row)
+        if not math.isfinite(row["loss"]) or not math.isfinite(
+                row["grad_norm"]):
+            raise RuntimeError(f"train {arch}: step {step} is not finite: "
+                               f"{row}")
+    timed = out["steps"][1:] or out["steps"]
+    out["s_a_step"] = sum(r["s"] for r in timed) / len(timed)
+    out["tokens_per_s"] = out["tokens_a_step"] / out["s_a_step"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0
+    out["steps_timed"] = "after the first" if len(out["steps"]) > 1 \
+        else "the only one"
+    del state, model, step_fn
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_ga_check(seed: int, device: str = "cuda", smoke: bool = False,
+                   shape=TRAIN_GA_BATCH) -> dict:
+    """Grad accumulation 4 against 1: qwen2.5-14b at full width cut to 4
+    layers, its plan (fp32 parameters, bf16 compute, remat full) with SGD
+    at lr 1, no warm-up and no clip, so that each step moves the
+    parameters by the gradient itself (AdamW's first step is lr·g/|g|,
+    whose signs flip on gradients near zero, and a clip to a norm far
+    below the gradient's would hide the gradient's scale), from the same
+    seed-drawn parameters, one step on one TRAIN_GA_BATCH batch each.
+    Held: the relative L2 between the two steps' moves, within
+    TRAIN_GA_L2, and the loss and grad_norm within TRAIN_GA_METRICS.
+    ``smoke``, ``device`` and ``shape``: a rehearsal on the CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import init_train_state, make_train_step
+    entry = get_arch("qwen2.5-14b")
+    cfg = dataclasses.replace(entry.smoke if smoke else entry.config,
+                              n_layers=4)
+    plan = dataclasses.replace(entry.plan, fsdp=False, tp=False, sp=False,
+                               ep=False, optimizer="sgd")
+    tcfg = TrainConfig(lr=1.0, warmup_steps=0, total_steps=1, seed=seed,
+                       grad_clip=float("inf"))
+    model = build_model(cfg, device=device, rng=seed)
+    B, S = shape
+    batch = ShardedLoader(cfg.vocab_size, B, S, seed=seed,
+                          device=device).get(0)
+    moved, metrics = {}, {}
+    for ga in (1, 4):
+        state = init_train_state(model, plan, tcfg, seed)
+        if ga == 4:
+            with torch.no_grad():
+                base = sum(float(torch.sum((moved[n] - p.float()) ** 2))
+                           for n, p in state["params"].items())
+        state, m = make_train_step(model, plan, tcfg, grad_accum=ga)(
+            state, batch)
+        metrics[ga] = {k: float(v) for k, v in m.items()}
+        if ga == 1:
+            moved = {n: p.detach().float().clone()
+                     for n, p in state["params"].items()}
+    with torch.no_grad():
+        diff = sum(float(torch.sum((p.float() - moved[n]) ** 2))
+                   for n, p in model.named_parameters())
+    l2 = (diff / base) ** 0.5
+    gaps = {k: abs(metrics[4][k] - metrics[1][k]) / abs(metrics[1][k])
+            for k in TRAIN_GA_METRICS}
+    out = {"batch": list(shape), "metrics_ga1": metrics[1],
+           "metrics_ga4": metrics[4], "move_rel_l2": l2,
+           "tolerance": TRAIN_GA_L2, "metric_rel_gaps": gaps,
+           "metric_tolerances": TRAIN_GA_METRICS}
+    if not (l2 <= TRAIN_GA_L2
+            and all(gaps[k] <= t for k, t in TRAIN_GA_METRICS.items())):
+        raise RuntimeError(f"train: grad accumulation 4 against 1: {out}")
+    del model, moved
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return out
+
+
+def train_smoke_check(seed: int, device: str = "cuda") -> dict:
+    """One qwen2.5-14b SMOKE step (AdamW, fp32 parameters and compute,
+    grad accumulation 2, 8 × 64 tokens) on the card against the same step
+    on the CPU, from parameters drawn on the CPU from ``seed`` and copied
+    to the card, AdamW's v set to 0.01 on both (so the step is linear in
+    the gradient): loss, grad_norm and lr (TRAIN_SMOKE_METRICS), and
+    every parameter and optimizer leaf within TRAIN_SMOKE_REL of its
+    largest entry. With
+    ``device="cpu"`` (a rehearsal) the CPU against itself."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import init_train_state, make_train_step
+    entry = get_arch("qwen2.5-14b")
+    plan = dataclasses.replace(entry.plan, fsdp=False, tp=False, sp=False,
+                               ep=False, grad_accum=2, compute_dtype="float32")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    runs, drawn = {}, None
+    for side, dev in (("cpu", "cpu"), ("card", device)):
+        model = build_model(entry.smoke, device=dev, rng=seed)
+        state = init_train_state(model, plan, tcfg, seed)
+        with torch.no_grad():
+            if drawn is None:
+                drawn = {n: p.detach().clone()
+                         for n, p in state["params"].items()}
+            for n, p in state["params"].items():
+                p.copy_(drawn[n])
+            for v in state["opt"]["v"].values():
+                v.fill_(0.01)
+        batch = ShardedLoader(entry.smoke.vocab_size, 8, 64, seed=seed,
+                              device=dev).get(0)
+        runs[side] = make_train_step(model, plan, tcfg)(state, batch)
+    want, wmet = runs["cpu"]
+    got, gmet = runs["card"]
+    worst = {}
+    leaves = [(f"params/{n}", p, want["params"][n])
+              for n, p in got["params"].items()]
+    leaves += [(f"opt/{k}/{n}", t, want["opt"][k][n])
+               for k in ("m", "v") for n, t in got["opt"][k].items()]
+    for name, g, w in leaves:
+        w = w.detach().float()
+        err = float((g.detach().float().cpu() - w).abs().max())
+        worst[name] = err / max(float(w.abs().max()), 1e-30)
+    out = {"metrics_card": {k: float(v) for k, v in gmet.items()},
+           "metrics_cpu": {k: float(v) for k, v in wmet.items()},
+           "worst_leaf": max(worst, key=worst.get),
+           "worst_rel": max(worst.values()), "tolerance": TRAIN_SMOKE_REL}
+    for k, rtol in TRAIN_SMOKE_METRICS.items():
+        a, b = out["metrics_card"][k], out["metrics_cpu"][k]
+        if not abs(a - b) <= rtol * abs(b):
+            raise RuntimeError(f"train: SMOKE step {k} {a} on the card, {b} "
+                               "on the CPU")
+    if not out["worst_rel"] <= TRAIN_SMOKE_REL:
+        raise RuntimeError(f"train: SMOKE step on the card against the CPU: "
+                           f"{out}")
+    return out
+
+
+def train_cli_restart(device: str = "cuda") -> dict:
+    """``python -m repro_torch.launch.train`` at ``--smoke`` on the card,
+    called through ``main`` twice in a process of its own that sets
+    ``CUBLAS_WORKSPACE_CONFIG`` before any CUDA work and runs under
+    ``torch.use_deterministic_algorithms(True)`` throughout
+    (``train_cli_restart_child``): uninterrupted, and with ``--fail-at``
+    after a checkpoint. The final checkpoints must hold the same bits."""
+    import json
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.train_cli_restart_child({device!r})")
+    t = time.perf_counter()
+    child = subprocess.run([sys.executable, "-c", code], env=env,
+                           capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    if child.returncode != 0:
+        raise RuntimeError(f"train: the CLI restart's process exited "
+                           f"{child.returncode}: {child.stderr[-2000:]}")
+    out = json.loads(child.stdout.strip().splitlines()[-1])
+    out["process_s"] = seconds
+    if out["leaves_differ"] or not out["same_leaves"] or \
+            out["clean"]["loss"] != out["faulty"]["loss"]:
+        raise RuntimeError(f"train: the CLI's restart is not the clean run's "
+                           f"bits: {out}")
+    return out
+
+
+def train_cli_restart_child(device: str) -> None:
+    """The body of ``train_cli_restart``, in its own process: prints its
+    result as one JSON line."""
+    import json
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.checkpoint import load_arrays
+    from repro_torch.launch import train as train_cli
+    c = TRAIN_CLI
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    args = ["--arch", "qwen2.5-14b", "--smoke", "--steps", str(c["steps"]),
+            "--batch", str(c["batch"]), "--seq", str(c["seq"]),
+            "--ckpt-every", str(c["every"]), "--log-every", "1000",
+            "--device", device]
+    try:
+        t = time.perf_counter()
+        clean = train_cli.main(args + ["--ckpt-dir",
+                                       os.path.join(root, "clean")])
+        faulty = train_cli.main(args + ["--ckpt-dir",
+                                        os.path.join(root, "faulty"),
+                                        "--fail-at", str(c["fail_at"])])
+        seconds = time.perf_counter() - t
+        last = f"step_{c['steps'] - 1:08d}"
+        a = load_arrays(os.path.join(root, "clean", last))
+        b = load_arrays(os.path.join(root, "faulty", last))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    differ = sorted(k for k in a if not np.array_equal(a[k], b.get(k)))
+    print(json.dumps({
+        "args": args, "fail_at": c["fail_at"], "leaves": len(a),
+        "same_leaves": set(a) == set(b), "leaves_differ": differ,
+        "clean": clean, "faulty": faulty, "seconds": seconds,
+        "deterministic": torch.are_deterministic_algorithms_enabled(),
+        "cublas_workspace_config": os.environ.get(
+            "CUBLAS_WORKSPACE_CONFIG")}), flush=True)
+
+
+def train_phase(seed: int) -> dict:
+    """The training path on the card (see the module docstring, item 11):
+    ``train_run`` for each of TRAIN_RUNS (dbrx cut to TRAIN_CUT_LAYERS
+    layers, with a ``cut`` line, if its peak passes TRAIN_PEAK_CUT_GB or
+    the card runs out of memory), ``train_ga_check``,
+    ``train_smoke_check`` and ``train_cli_restart``."""
+    import torch
+    t = time.perf_counter()
+    runs = []
+    for arch, layers, steps in TRAIN_RUNS:
+        try:
+            run = train_run(arch, layers, steps, seed)
+            over = run["peak_gb"] > TRAIN_PEAK_CUT_GB
+        except torch.cuda.OutOfMemoryError as e:
+            run, over = {"error": str(e).splitlines()[0]}, True
+        if over:
+            # after the except block, so its traceback's tensors are gone
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"cut": f"train: {arch} cut to {TRAIN_CUT_LAYERS} layers: "
+                         f"at {layers} it peaked past {TRAIN_PEAK_CUT_GB} GB "
+                         f"({run.get('peak_gb', run.get('error'))})"})
+            run = train_run(arch, TRAIN_CUT_LAYERS, steps, seed)
+        runs.append(run)
+        emit({"train_run": arch, **{k: v for k, v in run.items()
+                                    if k != "plan"}})
+    out = {"phase": "train", "runs": runs, "ga_check": train_ga_check(seed)}
+    emit({"train_check": "ga", **out["ga_check"]})
+    out["smoke_check"] = train_smoke_check(seed)
+    emit({"train_check": "smoke_cuda_vs_cpu", **out["smoke_check"]})
+    out["cli"] = train_cli_restart()
+    emit({"train_check": "cli_restart",
+          **{k: v for k, v in out["cli"].items() if k != "args"}})
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
@@ -5729,6 +6126,13 @@ def main() -> int:
     emit({"cut": "families: xlstm-350m's lm_loss over 4 x 1,024 tokens, not "
                  "the 4,096 of the LM phase (its cells step token by "
                  "token)"})
+    for arch, layers, steps in TRAIN_RUNS:
+        emit({"cut": f"train: {arch} at full width cut to {layers} layers, "
+                     f"{steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens"})
+    emit({"cut": "train: deepseek-v3-671b stays off the card: by its "
+                 "shapes its 4-layer cut needs about 62 GB of bf16 "
+                 "parameters and gradients, before the plain sdpa's MLA "
+                 "scores at 4,096 positions (arithmetic, not measured)"})
     emit({"cut": "families: the MoE archs serve at capacity factor E/k "
                  "(dropless), so the cache path and its cache-free reruns "
                  "route the same tokens; their loss keeps the published "
@@ -5825,6 +6229,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     report["families"] = families_phase(args.seed)
     emit({k: v for k, v in report["families"].items() if k != "runs"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["train"] = train_phase(args.seed)
+    emit({k: v for k, v in report["train"].items()
+          if k not in ("runs", "ga_check", "smoke_check", "cli")})
     report["profiler_misses"] = PROFILER_MISSES
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

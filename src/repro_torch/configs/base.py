@@ -1,6 +1,7 @@
 """Config dataclasses, field for field the reference's: ``BMOConfig`` (so the
 ``cfg`` dict in an index's metadata loads unchanged in either package),
-``ModelConfig`` and ``ParallelPlan`` (so a reference model config does)."""
+``ModelConfig``, ``ParallelPlan`` (so a reference model config does) and
+``TrainConfig``."""
 from __future__ import annotations
 
 import dataclasses
@@ -118,3 +119,19 @@ class ParallelPlan:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     kv_len_shard: bool = False       # shard KV caches along seq (decode perf)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The reference's training hyper-parameters, field for field: the peak
+    learning rate of ``warmup_cosine``, its warm-up and total steps,
+    AdamW's decay and moments, the global-norm clip and the init seed."""
+
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    seed: int = 0

@@ -103,10 +103,11 @@ class Whisper(nn.Module):
     # -- encoder ------------------------------------------------------------
 
     def encode(self, frames: torch.Tensor, *, compute_dtype=torch.bfloat16,
-               impl: str = "auto") -> torch.Tensor:
+               impl: str = "auto", remat: str = "none") -> torch.Tensor:
         """frames (B, S_enc, d) → the encoder's output (B, S_enc, d):
         sinusoidal positions added, bidirectional attention (through the
-        fused op under ``attn_impl="pallas"``), the final norm."""
+        fused op under ``attn_impl="pallas"``), the final norm; ``remat``
+        wraps each layer (``cm.remat``)."""
         cfg = self.cfg
         B, S, d = frames.shape
         pos = torch.from_numpy(cm.sinusoidal_embedding(S, d)).to(
@@ -114,7 +115,8 @@ class Whisper(nn.Module):
         x = frames.to(compute_dtype) + pos[None]
         positions = torch.arange(S, device=frames.device)[None].expand(B, S)
         for layer in self.enc_layers:
-            x = layer(x, positions, compute_dtype, impl, causal=False)
+            x = cm.remat(remat, layer, x, positions, compute_dtype, impl,
+                         causal=False)
         return cm.rmsnorm(x, self.enc_norm, cfg.norm_eps)
 
     def cross_kv(self, enc_out: torch.Tensor, compute_dtype):
@@ -128,22 +130,26 @@ class Whisper(nn.Module):
 
     def decode(self, tokens: torch.Tensor, cross_k, cross_v, *,
                compute_dtype=torch.bfloat16, impl: str = "auto",
-               cache: Optional[dict] = None, cache_index: int = 0):
+               cache: Optional[dict] = None, cache_index: int = 0,
+               remat: str = "none"):
         """tokens (B, S) at positions ``cache_index + arange(S)`` against the
         stacked cross keys and values. Returns (logits, new_cache): None
         without a cache; with one ({"k", "v", "index"}), the S positions
         written into k and v in place, and the cross keys and values
-        carried in the new cache."""
+        carried in the new cache. ``remat`` wraps each layer without a
+        cache (``cm.remat``)."""
         cfg = self.cfg
         B, S = tokens.shape
         x = self.embed.embed(tokens, compute_dtype)
         pos_ids = torch.arange(S, device=tokens.device) + cache_index
         x = x + self.dec_pos[pos_ids][None].to(compute_dtype)
         positions = pos_ids[None].expand(B, S)
+        mode = remat if cache is None else "none"
         for i, layer in enumerate(self.dec_layers):
             kv = (cache["k"][i], cache["v"][i]) if cache is not None else None
-            x = layer(x, positions, cross_k[i], cross_v[i], compute_dtype,
-                      impl, cache_kv=kv, cache_index=cache_index)
+            x = cm.remat(mode, layer, x, positions, cross_k[i], cross_v[i],
+                         compute_dtype, impl, cache_kv=kv,
+                         cache_index=cache_index)
         new_cache = None
         if cache is not None:
             new_cache = {"k": cache["k"], "v": cache["v"],
@@ -158,13 +164,14 @@ class Whisper(nn.Module):
                 compute_dtype=torch.bfloat16, impl: str = "auto",
                 cache: Optional[dict] = None, cache_index: int = 0):
         """batch: {"frames": (B, S_enc, d), "tokens": (B, S_dec)}. Returns
-        (logits (B, S_dec, V), new_cache)."""
+        (logits (B, S_dec, V), new_cache). ``remat`` wraps the encoder's
+        and the decoder's layers, as the reference's does."""
         enc = self.encode(batch["frames"], compute_dtype=compute_dtype,
-                          impl=impl)
+                          impl=impl, remat=remat)
         ck, cv = self.cross_kv(enc, compute_dtype)
         return self.decode(batch["tokens"], ck, cv,
                            compute_dtype=compute_dtype, impl=impl,
-                           cache=cache, cache_index=cache_index)
+                           cache=cache, cache_index=cache_index, remat=remat)
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> dict:

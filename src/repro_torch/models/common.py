@@ -11,10 +11,19 @@ compute dtype with its weights cast to it; softmax and norms run in fp32 and
 cast back; the residual stream stays in the compute dtype (the reference's
 module docstring says fp32, its code does not).
 
+Training: no parameter asks for a gradient outside ``grads_on``, so a
+forward outside training records no graph. Inside it, ``remat`` wraps a
+layer body as the reference's ``_remat`` does ("none", "full", or "dots",
+which keeps the outputs of matmuls without batch dims), and the online
+softmax recomputes each KV chunk in the backward, as the reference's
+``jax.checkpoint`` on its chunk body does.
+
 Not ported: ``layernorm``, which no model of the reference calls.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -22,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import make_generator
@@ -38,8 +49,9 @@ def new_param(shape, dtype: torch.dtype, device, init: str,
     """An uninitialised parameter tagged with its reference init rule
     ("fanin" | "embed" | "normal" | "ones" | "zeros" | "scalar") and the
     rule's ``scale``; ``init_leaf`` fills it, one slice along the first
-    axis at a time under ``by_slice`` (an MoE's stacked experts). The port
-    runs the forward only, so no parameter asks for a gradient."""
+    axis at a time under ``by_slice`` (an MoE's stacked experts). It asks
+    for no gradient: training turns gradients on for one model at a time
+    (``grads_on``)."""
     p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                      requires_grad=False)
     p.init = init
@@ -54,6 +66,73 @@ def draw_params(model: nn.Module, rng, device) -> None:
     g = make_generator(rng, device)
     for p in model.parameters():
         init_leaf(p, g)
+
+
+@contextlib.contextmanager
+def grads_on(model: nn.Module):
+    """Every parameter of ``model`` asks for a gradient inside the block and
+    stops asking when it exits (its ``.grad`` is left to the caller), so
+    only a training step records a graph: a forward of the same model
+    outside it, a serving step included, records none."""
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    try:
+        yield model
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+
+
+REMAT_MODES = ("none", "full", "dots")
+_ATEN = torch.ops.aten
+# what "dots" keeps: the reference's checkpoint_dots_with_no_batch_dims
+# saves every dot_general without batch dims, a weight product such as
+# "bsd,df->bsf", which PyTorch runs as mm (matmul folds the leading dims)
+# or as a bmm of one batch (einsum); attention's and the experts' batched
+# products are recomputed
+_NO_BATCH_DOTS = (_ATEN.mm.default, _ATEN.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _NO_BATCH_DOTS or (op is _ATEN.bmm.default
+                                and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _records(fn, args) -> bool:
+    """Whether autograd records ``fn(*args)``: gradients are enabled and a
+    tensor argument, or a parameter of the module ``fn`` is (or is bound
+    to), asks for one."""
+    if not torch.is_grad_enabled():
+        return False
+    if any(isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return True
+    owner = fn if isinstance(fn, nn.Module) else getattr(fn, "__self__", None)
+    return isinstance(owner, nn.Module) and any(
+        p.requires_grad for p in owner.parameters())
+
+
+def remat(mode: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under the reference's ``_remat(fn, mode)``:
+    "none" keeps every activation for the backward, "full" keeps the
+    inputs and recomputes the body in the backward, "dots" recomputes all
+    but the outputs of matmuls without batch dims. Only while autograd
+    records the call (``_records``); otherwise a plain call, so a serving
+    forward is unchanged. The body draws no random numbers, so no RNG
+    state is kept. Recomputation repeats the same operations, so the
+    gradients are the same bits under every mode."""
+    if mode not in REMAT_MODES:
+        raise ValueError(f"remat {mode!r} is not one of {REMAT_MODES}")
+    if mode == "none" or not _records(fn, args):
+        return fn(*args, **kwargs)
+    extra = {}
+    if mode == "dots":
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **extra, **kwargs)
 
 
 class CacheSpec(NamedTuple):
@@ -232,24 +311,35 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_offset: int, kv_valid_len=None):
     l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, KV, G, Sq, Dv), dtype=torch.float32, device=q.device)
     for start in range(0, Sk, kv_chunk):
-        kc = k[:, start:start + kv_chunk]
-        vc = v[:, start:start + kv_chunk]
-        s = torch.einsum("bqkgd,bskd->bkgqs", qg,
-                         kc.to(torch.float32)) / math.sqrt(D)
-        mask = _mask(Sq, torch.arange(kv_chunk, device=q.device) + start,
-                     causal=causal, q_offset=q_offset,
-                     kv_valid_len=kv_valid_len)
-        if mask is not None:
-            s = torch.where(mask, s, -1e30)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        scale = torch.exp(m - m_new)
-        l = l * scale + torch.sum(p, dim=-1)
-        acc = acc * scale[..., None] + torch.einsum(
-            "bkgqs,bskd->bkgqd", p.to(q.dtype), vc).to(torch.float32)
-        m = m_new
+        # under autograd each chunk's scores are recomputed in the
+        # backward: only the carries and the chunk's inputs are kept
+        m, l, acc = remat("full", _flash_chunk, m, l, acc, qg,
+                          k[:, start:start + kv_chunk],
+                          v[:, start:start + kv_chunk], start, causal,
+                          q_offset, kv_valid_len, q.dtype)
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def _flash_chunk(m, l, acc, qg, kc, vc, start: int, causal: bool,
+                 q_offset: int, kv_valid_len, q_dtype):
+    """One KV chunk of the online softmax: the carries (m, l, acc) updated
+    by keys ``kc`` and values ``vc`` at positions ``start`` on."""
+    D = qg.shape[-1]
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                     kc.to(torch.float32)) / math.sqrt(D)
+    mask = _mask(qg.shape[1], torch.arange(kc.shape[1], device=qg.device)
+                 + start, causal=causal, q_offset=q_offset,
+                 kv_valid_len=kv_valid_len)
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    scale = torch.exp(m - m_new)
+    l = l * scale + torch.sum(p, dim=-1)
+    acc = acc * scale[..., None] + torch.einsum(
+        "bkgqs,bskd->bkgqd", p.to(q_dtype), vc).to(torch.float32)
+    return m_new, l, acc
 
 
 def sdpa(q, k, v, *, causal: bool, q_offset: int = 0,

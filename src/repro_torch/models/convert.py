@@ -14,6 +14,10 @@ a copy, cast to the parameter's type.
 (``init_cache``, ``prefill`` or ``decode_step`` output, nested as the
 model's ``cache_specs``): a port cache on the model's device, each leaf in
 its ``cache_specs`` type and ``index`` a host int.
+
+``load_jax_train_state(model, state)`` carries a reference training state
+(or a training checkpoint the reference wrote) into the model and an
+optimizer state of the port's, unstacked the same way.
 """
 from __future__ import annotations
 
@@ -31,42 +35,105 @@ def _leaves(tree, prefix: str = ""):
             yield path, sub
 
 
-@torch.no_grad()
-def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
-    """Fill ``model`` from the reference tree ``params``; raises when a leaf
-    has no parameter, a shape differs, or a parameter is left unfilled."""
-    named = dict(model.named_parameters())
-    filled = set()
-
-    def put(name, arr):
-        p = named.get(name)
-        if p is None:
-            raise KeyError(f"reference leaf {name!r} has no parameter")
-        arr = np.asarray(arr, dtype=np.float32)
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {arr.shape} != "
-                             f"{tuple(p.shape)}")
-        p.copy_(torch.from_numpy(arr.copy()))
-        filled.add(name)
-
+def _unstacked(model: nn.Module, tree: dict):
+    """(port name, fp32 array) of every leaf of a reference tree laid out as
+    the model's parameters (its params, or an optimizer's mirror of them),
+    each stacked leaf split into its layers' names."""
     stacked = {f"{name}.": len(getattr(model, name))
                for name in getattr(model, "stacked", ("layers",))}
-    for path, leaf in _leaves(params):
+    for path, leaf in _leaves(tree):
+        arr = np.asarray(leaf, dtype=np.float32)
         prefix = next((p for p in stacked if path.startswith(p)), None)
         if prefix is None:
-            put(path, leaf)
+            yield path, arr
             continue
         n_layers = stacked[prefix]
-        arr = np.asarray(leaf, dtype=np.float32)
         if arr.shape[0] != n_layers:
             raise ValueError(f"{path}: {arr.shape[0]} stacked layers, the "
                              f"model has {n_layers}")
         for i in range(n_layers):
-            put(f"{prefix}{i}.{path[len(prefix):]}", arr[i])
-    missing = sorted(set(named) - filled)
+            yield f"{prefix}{i}.{path[len(prefix):]}", arr[i]
+
+
+def _fill(targets: dict, leaves, what: str) -> None:
+    """Copy each (name, array) of ``leaves`` into ``targets[name]`` in
+    place; raises when a name has no target, a shape differs, or a target
+    is left unfilled."""
+    filled = set()
+    for name, arr in leaves:
+        t = targets.get(name)
+        if t is None:
+            raise KeyError(f"reference leaf {name!r} has no {what}")
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: reference shape {arr.shape} != "
+                             f"{tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(arr)))
+        filled.add(name)
+    missing = sorted(set(targets) - filled)
     if missing:
-        raise KeyError(f"parameters not in the reference tree: {missing}")
+        raise KeyError(f"{what}s not in the reference tree: {missing}")
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, params: dict) -> nn.Module:
+    """Fill ``model`` from the reference tree ``params``; raises when a leaf
+    has no parameter, a shape differs, or a parameter is left unfilled."""
+    _fill(dict(model.named_parameters()), _unstacked(model, params),
+          "parameter")
     return model
+
+
+def _nested(flat: dict) -> dict:
+    """A flat ``a/b/c`` → array dict (a checkpoint's) as nested dicts."""
+    out: dict = {}
+    for key, arr in flat.items():
+        *head, last = key.split("/")
+        node = out
+        for part in head:
+            node = node.setdefault(part, {})
+        node[last] = arr
+    return out
+
+
+@torch.no_grad()
+def load_jax_train_state(model: nn.Module, state) -> dict:
+    """The port's train state (``train.steps``) holding the reference's
+    ``state`` ({"params", "opt", "step"}, numpy leaves or anything
+    ``np.asarray`` reads), or the training checkpoint at the directory
+    ``state`` that the reference's ``CheckpointManager`` wrote (its flat
+    ``params/layers/attn/wq`` keys nested back). The parameters are carried
+    into ``model`` as ``load_jax_params`` carries them. AdamW's ``m`` and
+    ``v`` mirror the parameters and are unstacked the same way;
+    Adafactor's state, {"r", "c"} or {"v"} a leaf, keeps the reference's
+    stacked leaves under their dotted paths (``layers.attn.wq``), as the
+    port's Adafactor factors them; SGD's is empty. The optimizer's state
+    is new fp32 tensors on the model's device."""
+    if isinstance(state, str):
+        from repro_torch.checkpoint.manager import load_arrays
+        state = _nested(load_arrays(state))
+    load_jax_params(model, state["params"])
+    params = dict(model.named_parameters())
+    ref_opt = state["opt"]
+    device = model.device
+    opt = {}
+    if set(ref_opt) == {"m", "v"}:           # AdamW: mirrors of the params
+        opt = {k: {n: torch.empty(p.shape, dtype=torch.float32,
+                                  device=p.device)
+                   for n, p in params.items()} for k in ("m", "v")}
+        for k in ("m", "v"):
+            _fill(opt[k], _unstacked(model, ref_opt[k]), f"AdamW {k} leaf")
+    elif ref_opt:                            # Adafactor: the reference's leaves
+        leaves = {name: np.asarray(arr, dtype=np.float32)
+                  for name, arr in _leaves(ref_opt)}
+        for name, arr in leaves.items():
+            key, kind = name.rsplit(".", 1)
+            opt.setdefault(key, {})[kind] = torch.empty(
+                arr.shape, dtype=torch.float32, device=device)
+        _fill({f"{key}.{kind}": t for key, leaf in opt.items()
+               for kind, t in leaf.items()}, leaves.items(),
+              "Adafactor leaf")
+    step = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32)
+    return {"params": params, "opt": opt, "step": step}
 
 
 @torch.no_grad()

@@ -81,7 +81,9 @@ class Zamba2(nn.Module):
                 cache: Optional[dict] = None, cache_index: int = 0):
         """batch: {"tokens": (B, S), optional "positions": (B, S)}. Returns
         (logits, new_cache), as ``DenseLM``'s; ``impl`` goes to the shared
-        block's fused attention op."""
+        block's fused attention op. ``remat`` wraps each Mamba2 layer and
+        each group (its layers and the shared block) without a cache, as
+        the reference's ``_remat`` wraps its two bodies."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self.embed.embed(tokens, compute_dtype)
@@ -89,22 +91,29 @@ class Zamba2(nn.Module):
         if positions is None:
             positions = (torch.arange(S, device=tokens.device)
                          + cache_index)[None].expand(B, S)
-        mamba = cache["mamba"] if cache is not None else None
+        mode = remat if cache is None else "none"
         for gi in range(self.groups):
-            for j in range(self.per_group):
-                li = gi * self.per_group + j
-                x = self.layers[li](x, ssm.layer_views(mamba, li),
-                                    compute_dtype)
-            kv = (cache["k"][gi], cache["v"][gi]) if cache is not None \
-                else None
-            x = self.shared(x, positions, compute_dtype, impl, cache_kv=kv,
-                            cache_index=cache_index)
+            x = cm.remat(mode, self._group, gi, x, positions, compute_dtype,
+                         impl, cache, cache_index, mode)
         x = cm.rmsnorm(x, self.final_norm, self.cfg.norm_eps)
         logits = self.embed.lm_head(x, compute_dtype)
         new_cache = None
         if cache is not None:
             new_cache = dict(cache, index=cache["index"] + S)
         return logits, new_cache
+
+    def _group(self, gi: int, x, positions, compute_dtype, impl: str,
+               cache: Optional[dict], cache_index: int, mode: str):
+        """Group gi: its ``attn_every`` Mamba2 layers (each under ``mode``)
+        and the shared block against the group's KV slice."""
+        mamba = cache["mamba"] if cache is not None else None
+        for j in range(self.per_group):
+            li = gi * self.per_group + j
+            x = cm.remat(mode, self.layers[li], x,
+                         ssm.layer_views(mamba, li), compute_dtype)
+        kv = (cache["k"][gi], cache["v"][gi]) if cache is not None else None
+        return self.shared(x, positions, compute_dtype, impl, cache_kv=kv,
+                           cache_index=cache_index)
 
     def decode_step(self, cache: dict, tokens: torch.Tensor, *,
                     compute_dtype=torch.bfloat16):

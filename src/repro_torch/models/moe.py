@@ -155,12 +155,16 @@ class MoE(nn.Module):
         """x2d (T, d) in the compute type → (out (T, d), aux fp32), the
         reference's ``_moe_local`` without ``ep``. A stream longer than
         ``moe_seq_chunk`` that it divides is dispatched a chunk at a time,
-        the aux the mean of the chunks'."""
+        the aux the mean of the chunks'; under autograd each chunk is
+        recomputed in the backward, as the reference checkpoints its chunk
+        body (``cm.remat``). The top-k ids carry no gradient (a sort's
+        indices); the router's weights carry one through the combine
+        weights and the aux."""
         cfg = self.cfg
         T, d = x2d.shape
         chunk = cfg.moe_seq_chunk
         if chunk and T > chunk and T % chunk == 0:
-            outs, auxs = zip(*(self.local(xc, compute_dtype)
+            outs, auxs = zip(*(cm.remat("full", self.local, xc, compute_dtype)
                                for xc in x2d.split(chunk)))
             return torch.cat(outs), torch.mean(torch.stack(auxs))
         E, k = cfg.n_experts, cfg.n_experts_active
@@ -408,7 +412,10 @@ class MoELM(nn.Module):
         ``return_aux`` (logits, new_cache, {"aux_loss": the MoE blocks'
         summed aux (fp32), "mtp_logits": the MTP head's logits, None with a
         cache or without the head}). ``absorbed``: MLA's decode form.
-        ``impl`` goes to the fused attention op (GQA, cache-free)."""
+        ``impl`` goes to the fused attention op (GQA, cache-free).
+        ``remat`` wraps each MoE block without a cache, as the reference's
+        ``_remat`` wraps its MoE body; the dense blocks and the MTP head
+        run unwrapped, as there."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -418,10 +425,12 @@ class MoELM(nn.Module):
             positions = (torch.arange(S, device=tokens.device)
                          + cache_index)[None].expand(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        n_dense = len(self.dense_layers)
         for i, block in enumerate(list(self.dense_layers) + list(self.layers)):
-            x, aux = block(x, positions, compute_dtype, impl,
-                           cache_kv=self._layer_cache(cache, i),
-                           cache_index=cache_index, absorbed=absorbed)
+            mode = remat if cache is None and i >= n_dense else "none"
+            x, aux = cm.remat(mode, block, x, positions, compute_dtype, impl,
+                              cache_kv=self._layer_cache(cache, i),
+                              cache_index=cache_index, absorbed=absorbed)
             if aux is not None:
                 aux_total = aux_total + aux
         new_cache = None

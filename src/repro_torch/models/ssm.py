@@ -10,8 +10,10 @@
   and the xlstm-350m model that interleaves them.
 
 The recurrences step position by position in a Python loop, as the
-reference's ``lax.scan`` does; its chunking and rematerialisation only
-shape a backward pass, which the port does not run. What the reference
+reference's ``lax.scan`` does. Under autograd each chunk of SCAN_CHUNK
+positions (and each SSD chunk) is recomputed in the backward, as the
+reference's ``jax.checkpoint`` on its chunk bodies does, so a backward
+keeps one state a chunk and one chunk's intermediates. What the reference
 rounds, the port rounds in the same place: each mLSTM and sLSTM step's
 output is stored in bf16 whatever the compute dtype, and every ``m``
 stabiliser starts at −1e30. ``ssd_scan`` falls back to one chunk when the
@@ -38,6 +40,10 @@ from repro_torch.models.common import CacheSpec
 
 # the stabilisers' start, the reference's
 M_INIT = -1e30
+# positions a recomputed chunk of the mLSTM and sLSTM recurrences, the
+# reference's ``chunked_scan`` chunk (a length it does not divide runs as
+# one chunk)
+SCAN_CHUNK = 256
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -119,8 +125,8 @@ def ssd_scan(x, dt, A_log, Bm, Cm, h0, chunk: int = 256):
     h, ys = h0, []
     for s in range(0, S, chunk):
         sl = slice(s, s + chunk)
-        y, h = _ssd_chunk(x[:, sl], dt[:, sl], a[:, sl], Bm[:, sl], Cm[:, sl],
-                          h)
+        y, h = cm.remat("full", _ssd_chunk, x[:, sl], dt[:, sl], a[:, sl],
+                        Bm[:, sl], Cm[:, sl], h)
         ys.append(y)
     return torch.cat(ys, dim=1), h
 
@@ -224,16 +230,33 @@ def mamba2_state_specs(cfg: ModelConfig, n_layers: int, batch: int,
 # ---------------------------------------------------------------------------
 
 
+def _chunks(S: int):
+    """The position slices of the recomputed chunks of an S-long scan."""
+    chunk = SCAN_CHUNK if S % SCAN_CHUNK == 0 else S
+    return [slice(s, s + chunk) for s in range(0, S, chunk)]
+
+
 def mlstm_scan(q, k, v, it, ft, C, n, m):
     """The reference's ``_mlstm_step`` over every position. q, k, v (B, S,
     H, dk); it and ft (B, S, H) fp32; the state C (B, H, dk, dk), n (B, H,
-    dk), m (B, H) fp32. Returns ((C, n, m), hs (B, S, H, dk) bf16)."""
+    dk), m (B, H) fp32. Returns ((C, n, m), hs (B, S, H, dk) bf16), a
+    chunk of SCAN_CHUNK positions at a time (``cm.remat``)."""
     dk = q.shape[-1]
     ks = k.to(torch.float32) / math.sqrt(dk)
     qf = q.to(torch.float32)
     vf = v.to(torch.float32)
     hs = []
-    for t in range(q.shape[1]):
+    for sl in _chunks(q.shape[1]):
+        C, n, m, h = cm.remat("full", _mlstm_steps, qf[:, sl], ks[:, sl],
+                              vf[:, sl], it[:, sl], ft[:, sl], C, n, m)
+        hs.append(h)
+    return (C, n, m), torch.cat(hs, dim=1)
+
+
+def _mlstm_steps(qf, ks, vf, it, ft, C, n, m):
+    """``mlstm_scan``'s positions of one chunk: (C, n, m, hs)."""
+    hs = []
+    for t in range(qf.shape[1]):
         i_t, f_t = it[:, t], ft[:, t]
         m_new = torch.maximum(f_t + m, i_t)
         i_p = torch.exp(i_t - m_new)
@@ -248,7 +271,7 @@ def mlstm_scan(q, k, v, it, ft, C, n, m):
                           min=1.0)
         hs.append((num / den[..., None]).to(torch.bfloat16))
         m = m_new
-    return (C, n, m), torch.stack(hs, dim=1)
+    return C, n, m, torch.stack(hs, dim=1)
 
 
 class MLSTMBlock(nn.Module):
@@ -322,12 +345,23 @@ def slstm_scan(wx, rg, c, n, h, m):
     """The reference's ``_slstm_step`` over every position. wx (B, S, 4D)
     fp32, the projected input; rg (H, dh, 4dh) fp32, the recurrent weights;
     the state c, n, h, m (B, H, dh) fp32. Returns ((c, n, h, m), hs (B, S,
-    H, dh) bf16)."""
+    H, dh) bf16), a chunk of SCAN_CHUNK positions at a time
+    (``cm.remat``)."""
     B, S = wx.shape[:2]
     H, dh = rg.shape[0], rg.shape[1]
     g_in = wx.reshape(B, S, H, 4 * dh)
     hs = []
-    for t in range(S):
+    for sl in _chunks(S):
+        c, n, h, m, hc = cm.remat("full", _slstm_steps, g_in[:, sl], rg, c,
+                                  n, h, m)
+        hs.append(hc)
+    return (c, n, h, m), torch.cat(hs, dim=1)
+
+
+def _slstm_steps(g_in, rg, c, n, h, m):
+    """``slstm_scan``'s positions of one chunk: (c, n, h, m, hs)."""
+    hs = []
+    for t in range(g_in.shape[1]):
         g = g_in[:, t] + torch.einsum("bhd,hdk->bhk", h, rg)
         zt, it, ft, ot = torch.chunk(g, 4, dim=-1)
         z = torch.tanh(zt)
@@ -341,7 +375,7 @@ def slstm_scan(wx, rg, c, n, h, m):
         h = o * c / torch.clamp(n, min=1.0)
         m = m_new
         hs.append(h.to(torch.bfloat16))
-    return (c, n, h, m), torch.stack(hs, dim=1)
+    return c, n, h, m, torch.stack(hs, dim=1)
 
 
 class SLSTMBlock(nn.Module):
@@ -466,7 +500,10 @@ class XLSTM(nn.Module):
         """batch: {"tokens": (B, S)}. Returns (logits (B, S, V), new_cache):
         None without a cache; with one, its states written in place and
         ``index`` advanced by S. ``remat`` and ``impl`` are accepted for a
-        common signature and do nothing here (no attention)."""
+        common signature and do nothing here: the reference wraps no
+        xLSTM block in ``_remat`` (its scans recompute by chunk, as
+        ``mlstm_scan`` and ``slstm_scan`` do), and there is no
+        attention."""
         tokens = batch["tokens"]
         x = self.embed.embed(tokens, compute_dtype)
         m_tree = cache["m_state"] if cache is not None else None

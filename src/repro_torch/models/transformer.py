@@ -88,10 +88,11 @@ class DenseLM(nn.Module):
         layout), the S positions from ``cache_index`` (default positions
         ``cache_index + arange(S)``) are written into its tensors in place
         and new_cache is a dict over the same tensors with ``index``
-        advanced by S. ``remat`` is accepted and ignored: it only matters
-        to a backward pass, which the port does not run. ``impl`` picks the
-        fused attention op's implementation under ``attn_impl="pallas"``
-        (the cache-free forward only)."""
+        advanced by S. ``remat`` ("none" | "full" | "dots") wraps each
+        layer as the reference's ``_remat`` does, while autograd records
+        and without a cache (``cm.remat``). ``impl`` picks the fused
+        attention op's implementation under ``attn_impl="pallas"`` (the
+        cache-free forward only)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = self.embed.embed(tokens, compute_dtype)
@@ -99,10 +100,11 @@ class DenseLM(nn.Module):
         if positions is None:
             positions = (torch.arange(S, device=tokens.device)
                          + cache_index)[None].expand(B, S)
+        mode = remat if cache is None else "none"
         for i, layer in enumerate(self.layers):
-            x = layer(x, positions, compute_dtype, impl,
-                      cache_kv=_layer_kv(cache, i, self.cfg.kv_quant),
-                      cache_index=cache_index)
+            x = cm.remat(mode, layer, x, positions, compute_dtype, impl,
+                         cache_kv=_layer_kv(cache, i, self.cfg.kv_quant),
+                         cache_index=cache_index)
         new_cache = None
         if cache is not None:
             new_cache = dict(cache, index=cache["index"] + S)

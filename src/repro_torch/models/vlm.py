@@ -23,17 +23,19 @@ class VLM(DenseLM):
                 cache: Optional[dict] = None, cache_index: int = 0):
         """batch: {"embeds": (B, S, d) float, optional "positions3": (3, B,
         S) int; default every stream at ``cache_index + arange(S)``}.
-        Returns (logits, new_cache), as ``DenseLM``'s."""
+        Returns (logits, new_cache), as ``DenseLM``'s; ``remat`` wraps each
+        layer as there."""
         x = batch["embeds"].to(compute_dtype)
         B, S = x.shape[:2]
         positions3 = batch.get("positions3")
         if positions3 is None:
             p = torch.arange(S, device=x.device) + cache_index
             positions3 = p[None, None].expand(3, B, S)
+        mode = remat if cache is None else "none"
         for i, layer in enumerate(self.layers):
-            x = layer(x, None, compute_dtype, impl,
-                      cache_kv=_layer_kv(cache, i, self.cfg.kv_quant),
-                      cache_index=cache_index, positions3=positions3)
+            x = cm.remat(mode, layer, x, None, compute_dtype, impl,
+                         cache_kv=_layer_kv(cache, i, self.cfg.kv_quant),
+                         cache_index=cache_index, positions3=positions3)
         new_cache = None
         if cache is not None:
             new_cache = dict(cache, index=cache["index"] + S)

@@ -1,5 +1,7 @@
-"""Losses, forward only: the port of ``repro/train/loss.py``. Cross entropy
-is computed in fp32 with a stable logsumexp."""
+"""Losses: the port of ``repro/train/loss.py``. Cross entropy is computed
+in fp32 with a stable logsumexp, a chunk of _ROWS token rows at a time, in
+the forward and (under autograd) in the backward, which recomputes each
+chunk's softmax from the logits instead of keeping its fp32 copy."""
 from __future__ import annotations
 
 import torch
@@ -13,6 +15,43 @@ MTP_WEIGHT = 0.3
 _ROWS = 2048
 
 
+class _TokenNLL(torch.autograd.Function):
+    """Per-row negative log-likelihood of (N, V) logits, a chunk of _ROWS
+    rows at a time: lse − logit[label], the label's term 0 where
+    ``in_range`` is false. The backward recomputes each chunk's softmax
+    from the saved logits and the (N,) fp32 logsumexps, so no (N, V) fp32
+    tensor outlives its chunk; its gradient, (softmax − one-hot)·g, is
+    cast to the logits' type as the reference's cast transposes."""
+
+    @staticmethod
+    def forward(ctx, lf, idx, in_range):
+        nll = torch.empty(idx.shape, dtype=torch.float32, device=lf.device)
+        lse = torch.empty_like(nll)
+        for s in range(0, lf.shape[0], _ROWS):
+            rows = lf[s:s + _ROWS].to(torch.float32)
+            ll = torch.gather(rows, 1, idx[s:s + _ROWS, None])[:, 0]
+            lse[s:s + _ROWS] = torch.logsumexp(rows, dim=-1)
+            nll[s:s + _ROWS] = (lse[s:s + _ROWS]
+                                - torch.where(in_range[s:s + _ROWS], ll, 0.0))
+        ctx.save_for_backward(lf, idx, in_range, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, idx, in_range, lse = ctx.saved_tensors
+        grad = torch.empty_like(lf)
+        hot = in_range.to(torch.float32)
+        for s in range(0, lf.shape[0], _ROWS):
+            sl = slice(s, s + _ROWS)
+            # one fp32 (rows, V) tensor, updated in place
+            p = lf[sl].to(torch.float32, copy=True)
+            p.sub_(lse[sl, None]).exp_()
+            rows = torch.arange(p.shape[0], device=p.device)
+            p[rows, idx[sl]] -= hot[sl]
+            grad[sl] = p.mul_(g[sl, None])
+        return grad, None, None
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -100):
     """logits (B, S, V) any float type; labels (B, S) int. Returns (mean loss
@@ -21,18 +60,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     The reference picks the label's logit with a one-hot contraction, which
     stays sharded with vocab-sharded logits; here one gather does it. The
     value is the same: the one-hot sum adds exact zeros. A label outside
-    [0, V) picks 0, as its all-zero one-hot row does."""
+    [0, V) picks 0, as its all-zero one-hot row does, and so takes no
+    one-hot term in the gradient either."""
     V = logits.shape[-1]
     lf = logits.reshape(-1, V)
     lab = labels.reshape(-1)
     in_range = (lab >= 0) & (lab < V)
     idx = torch.where(in_range, lab, 0).to(torch.int64)
-    nll = torch.empty(lab.shape, dtype=torch.float32, device=logits.device)
-    for s in range(0, lf.shape[0], _ROWS):
-        rows = lf[s:s + _ROWS].to(torch.float32)
-        ll = torch.gather(rows, 1, idx[s:s + _ROWS, None])[:, 0]
-        nll[s:s + _ROWS] = (torch.logsumexp(rows, dim=-1)
-                            - torch.where(in_range[s:s + _ROWS], ll, 0.0))
+    nll = _TokenNLL.apply(lf, idx, in_range)
     mask = (labels != ignore_index).to(torch.float32)
     n = torch.clamp(torch.sum(mask), min=1.0)
     return torch.sum(nll.reshape(labels.shape) * mask) / n, n

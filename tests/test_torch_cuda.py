@@ -21,7 +21,11 @@ bf16 ulp plus 6·2⁻⁸ times each output's own rounding spread, and against
 the plain version with p in fp32 at one ulp plus (2⁻⁸ + 1e-4)·max|v|. The
 LM forward in fp32 at 1e-4, its bf16 loss at 1e-3 relative. The namespace
 fleet on the card: evict → reload bit-identical (a sharded namespace
-included), and an evicted store's device memory released."""
+included), and an evicted store's device memory released. Training: one
+SMOKE train step on the card against the same step on the CPU (fp32, every
+leaf within 1e-4 of its largest entry, grad_norm at 1e-4), and the
+Supervisor's restart
+bit-identical to an uninterrupted run under deterministic algorithms."""
 import gc
 
 import numpy as np
@@ -1398,3 +1402,92 @@ def test_fleet_rebalance_moves_a_sharded_window_across_cards(gen, tmp_path):
     again = fleet.get(moved).store
     assert again.device_offset == 2
     assert again.devices == [torch.device("cuda", 2), torch.device("cuda", 3)]
+
+
+def _smoke_train(device: str, state_from=None):
+    """qwen2.5-14b SMOKE, AdamW at fp32 parameters and compute, grad
+    accumulation 2, from ``state_from``'s parameters (the CPU's draw) with
+    v at 0.01 (a step linear in the gradient): (state, metrics) after one
+    step of 8 × 64 tokens."""
+    import dataclasses
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.train.steps import init_train_state, make_train_step
+    entry = get_arch("qwen2.5-14b")
+    plan = dataclasses.replace(entry.plan, fsdp=False, tp=False, sp=False,
+                               grad_accum=2, compute_dtype="float32")
+    tcfg = TrainConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    model = build_model(entry.smoke, device=device, rng=0)
+    state = init_train_state(model, plan, tcfg, 0)
+    with torch.no_grad():
+        if state_from is not None:
+            for n, p in state["params"].items():
+                p.copy_(state_from[n])
+        for v in state["opt"]["v"].values():
+            v.fill_(0.01)
+    start = {n: p.detach().clone() for n, p in state["params"].items()}
+    batch = ShardedLoader(entry.smoke.vocab_size, 8, 64, seed=0,
+                          device=device).get(0)
+    state, metrics = make_train_step(model, plan, tcfg)(state, batch)
+    return state, metrics, start
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One SMOKE step from the same parameters: loss and lr at 1e-5
+    relative, grad_norm at 1e-4 (its sum of squares runs in another order
+    on each side), every parameter and AdamW leaf within 1e-4 of its
+    largest entry (TF32 off: the card's fp32 matmuls are fp32)."""
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, wmet, start = _smoke_train("cpu")
+        got, gmet, _ = _smoke_train("cuda", start)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+    for k, rtol in (("loss", 1e-5), ("grad_norm", 1e-4), ("lr", 1e-7)):
+        np.testing.assert_allclose(float(gmet[k]), float(wmet[k]),
+                                   rtol=rtol)
+    pairs = [(got["params"][n], want["params"][n]) for n in want["params"]]
+    pairs += [(got["opt"][k][n], want["opt"][k][n]) for k in ("m", "v")
+              for n in want["opt"][k]]
+    for g, w in pairs:
+        w = w.detach().float()
+        np.testing.assert_allclose(g.detach().float().cpu().numpy(),
+                                   w.numpy(), rtol=0.0,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+def test_supervisor_restart_is_bit_identical_on_the_card(gen, tmp_path):
+    """The training CLI at ``--smoke`` on the card, uninterrupted and with
+    a failure at step 5 after the step-2 checkpoint, in a process of its
+    own that sets ``CUBLAS_WORKSPACE_CONFIG`` before any CUDA work and runs
+    under ``torch.use_deterministic_algorithms(True)``: the final
+    checkpoints hold the same bits."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from repro_torch.checkpoint import load_arrays
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "8", "--batch",
+            "4", "--seq", "64", "--ckpt-every", "3", "--log-every", "100"]
+    code = (
+        "import json, torch\n"
+        "torch.use_deterministic_algorithms(True)\n"
+        "from repro_torch.launch import train\n"
+        f"a = train.main({args!r} + ['--ckpt-dir', {str(tmp_path / 'a')!r}])\n"
+        f"b = train.main({args!r} + ['--ckpt-dir', {str(tmp_path / 'b')!r}, "
+        "'--fail-at', '5'])\n"
+        "print(json.dumps([a, b]))\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=600)
+    assert run.returncode == 0, run.stderr[-2000:]
+    clean, faulty = json.loads(run.stdout.strip().splitlines()[-1])
+    assert clean["loss"] == faulty["loss"] and clean["step"] == 8
+    a = load_arrays(str(tmp_path / "a" / "step_00000007"))
+    b = load_arrays(str(tmp_path / "b" / "step_00000007"))
+    assert set(a) == set(b)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
