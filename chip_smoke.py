@@ -226,6 +226,24 @@ Run from the root of a checkout. In order it:
    training CLI at ``--smoke`` twice in a process of its own under
    deterministic algorithms, uninterrupted and with ``--fail-at`` after a
    checkpoint, the final states bit for bit (see ``train_phase``).
+12. plans: the multi-device plans with their ranks as processes on
+   ``cuda:0`` (``repro_torch.dist.spawn``; the group a
+   ``repro_torch.dist.StagedGroup``, every collective through pinned host
+   memory), each against one rank on the card: four ranks take a
+   qwen2.5-14b step under fsdp + tp + sp on 2 × 2 in fp32 and one in bf16
+   (1 layer, 4 × 1,024 tokens; against one rank's step in the same type:
+   the loss, the gradients' norm and, in fp32, AdamW's m on sampled
+   entries, each gradient limit below a control's reading, the parameters
+   bit for bit), ``compressed_psum`` of 64 M elements bit-equal
+   to ``compressed_mean``, and an xlstm-350m checkpoint; then two ranks
+   serve qwen2.5-14b under tp on 1 × 2 (4 layers, 4 × 512 prompts, 16
+   decode steps; every layer held teacher-forced at 1e-2), run its
+   cache-free forward through ``flash_attention``'s tensor-core kernel on
+   each rank's heads, dbrx-132b's MoE layer under ep (routing and kept
+   masks equal, outputs at 1e-3), 2 pipeline stages against sequential, and
+   resume the checkpoint bit for bit; the collective probe (through the
+   ranks' group, and through gloo's and NCCL's own groups on CUDA
+   tensors) and the staged bytes are printed (see ``plans_phase``).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -243,6 +261,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -6022,6 +6041,1090 @@ def train_phase(seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. plans: the multi-device plans as ranks of a torch.distributed group
+# ---------------------------------------------------------------------------
+
+PLANS_ARCH = "qwen2.5-14b"
+# serve: batch, prompt length, teacher-forced decode steps; layers kept
+PLANS_SERVE = (4, 512, 16)
+PLANS_SERVE_LAYERS = 4
+# the cache-free tp forward through flash_attention: batch, length, and
+# the layers kept (one: the random-weight model's depth amplifies bf16
+# rounding of the row-parallel partial sums, as the serve check shows)
+PLANS_FLASH = (2, 512)
+PLANS_FLASH_LAYERS = 1
+# train: layers kept (1, a cut from 2, and grad accumulation 1, a cut from
+# 2, to keep the phase near 120 s: each layer and each microbatch gathers
+# the FSDP-split fp32 weights again, forward and recomputed, through host
+# memory), batch × length, sampled entries
+PLANS_TRAIN_LAYERS = 1
+PLANS_TRAIN_SHAPE = (4, 1024)
+PLANS_TRAIN_GA = 1
+# the step's compute types, each held against one rank's step in the same
+# type: fp32, where the orders of the sharded sums are all that differ, and
+# the published bf16 (see plans_phase)
+PLANS_TRAIN_COMPUTES = ("float32", "bfloat16")
+# each step's limits against one rank's step in its type. On an H100 80GB
+# HBM3 at 700 W (PERF.md): fp32 loss 9.5e-7 apart, grad_norm 1.8e-6
+# relative, m 3.3e-4 relative L2, where the control (half the batch) is at
+# 0.35 and 0.75; bf16 loss 3.6e-5, grad_norm 8.1e-3, m 0.52, while one
+# rank's bf16 step is itself 0.74 from its fp32 step in m (bf16 rounding of
+# the step's gradients, beyond the control's reach): m is held in fp32 only
+PLANS_TRAIN_LIMITS = {
+    "float32": {"loss_abs": 1e-4, "grad_norm_rel": 1e-4, "m_rel_l2": 1e-2,
+                "params_max_abs_err": 0.0},
+    "bfloat16": {"loss_abs": 1e-3, "grad_norm_rel": 5e-2,
+                 "params_max_abs_err": 0.0}}
+PLANS_SAMPLES = 65_536
+# EP: dbrx-132b's first MoE layer, tokens (batch × length)
+PLANS_EP_TOKENS = (4, 512)
+# pipeline: stages × layers a stage, microbatches of (1, length)
+PLANS_PIPE = (2, 2, 4, 512)
+# compress: gradient elements; elastic: xlstm-350m cut to layers, tokens
+PLANS_COMPRESS = 1 << 26
+PLANS_ELASTIC = ("xlstm-350m", 2, (2, 32))
+# the direct probe: pairs of ranks on cuda:0, each pair a backend's own
+# group (no staging) and the collectives it tries, in order; a collective
+# that kills its rank ends its pair's list, so the two that have killed
+# one on an H100 with PyTorch 2.11 (gloo's send of a CUDA tensor; a bf16
+# all-gather inside DTensor) each come last in a pair (PERF.md)
+PLANS_DIRECT = (
+    ("gloo", ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single", "broadcast", "all_gather_bf16_large")),
+    ("gloo", ("send_recv",)),
+    ("nccl", ("all_reduce",)))
+
+
+def plans_cfg(arch: str, layers: int, smoke: bool, **kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    entry = get_arch(arch)
+    base = entry.smoke if smoke else entry.config
+    return dataclasses.replace(base, n_layers=layers, **kw)
+
+
+def plans_free(cuda: bool) -> None:
+    """Drop what this process's allocator holds on the card."""
+    import torch
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+
+def plans_sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def plans_serve_run(model, tokens, prompt: int, plan=None, mesh=None,
+                    compute=None):
+    """Prefill of ``prompt`` tokens, teacher-forced decode of the rest:
+    (the (B, steps, V) fp32 logits on the host, prefill s, decode ms a
+    step). ``compute``: the serving steps' type, and the cache's (default
+    bf16)."""
+    import torch
+    import repro_torch.serve.steps as steps
+    compute = compute or torch.bfloat16
+    was, steps.COMPUTE_DTYPE = steps.COMPUTE_DTYPE, compute
+    try:
+        return _plans_serve_run(model, tokens, prompt, plan, mesh, compute)
+    finally:
+        steps.COMPUTE_DTYPE = was
+
+
+def _plans_serve_run(model, tokens, prompt, plan, mesh, compute):
+    import torch
+    from repro_torch.serve.steps import (init_cache, make_decode_step,
+                                         make_prefill_step)
+    B, S = tokens.shape
+    device = tokens.device
+    cache = init_cache(model, B, S + 1, dtype=compute, device=device,
+                       mesh=mesh, plan=plan)
+    pre = make_prefill_step(model, plan, mesh)
+    dec = make_decode_step(model, plan, mesh)
+    plans_sync(device)
+    t = time.perf_counter()
+    logits, cache = pre({"tokens": tokens[:, :prompt]}, cache)
+    plans_sync(device)
+    prefill_s = time.perf_counter() - t
+    out = [logits.float().cpu()]
+    t = time.perf_counter()
+    for i in range(prompt, S):
+        _, logits, cache = dec(cache, tokens[:, i:i + 1])
+        out.append(logits.float().cpu())
+    plans_sync(device)
+    decode_ms = (time.perf_counter() - t) * 1e3 / max(S - prompt, 1)
+    return torch.cat(out, dim=1), prefill_s, decode_ms
+
+
+def plans_tokens(cfg, shape, seed: int, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, shape, generator=g).to(device)
+
+
+def plans_samples(params: dict, seed: int) -> dict:
+    """{leaf: (flat indices, values, L2 norm)}: PLANS_SAMPLES entries of each
+    leaf drawn from ``seed`` (every entry of a smaller leaf), on the host:
+    what the ranks hold their gathered leaves to, without moving the
+    one-rank state between processes."""
+    import torch
+    out = {}
+    for i, (n, p) in enumerate(sorted(params.items())):
+        flat = p.detach().reshape(-1)
+        if flat.numel() <= PLANS_SAMPLES:
+            idx = torch.arange(flat.numel(), device=flat.device)
+        else:
+            g = torch.Generator(device="cpu").manual_seed(seed + i)
+            idx = torch.randint(0, flat.numel(), (PLANS_SAMPLES,),
+                                generator=g).to(flat.device)
+        out[n] = (idx.cpu(), flat[idx].float().cpu(),
+                  float(torch.linalg.vector_norm(flat.float())))
+    return out
+
+
+def plans_local_samples(t, flat_idx):
+    """(the entries of DTensor ``t`` at the flat global indices
+    ``flat_idx`` that lie in this rank's shard, fp32 on the host; the mask
+    of those indices), with no collective."""
+    import torch
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        t.shape, t.device_mesh, t.placements)
+    coords = torch.stack(torch.unravel_index(flat_idx, tuple(t.shape)))
+    off = torch.tensor(offset)[:, None]
+    size = torch.tensor(shape)[:, None]
+    local = coords - off
+    keep = ((local >= 0) & (local < size)).all(dim=0)
+    loc = t.to_local()
+    got = loc[tuple(local[:, keep].to(loc.device))] if keep.any() else \
+        loc.new_zeros((0,))
+    return got.float().cpu(), keep
+
+
+def plans_train_plan(compute: str):
+    """qwen2.5-14b's published plan at PLANS_TRAIN_GA, computing in
+    ``compute``."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(PLANS_ARCH).plan,
+                               grad_accum=PLANS_TRAIN_GA,
+                               compute_dtype=compute)
+
+
+def plans_train_batch(cfg, seed: int, device):
+    from repro_torch.data.loader import ShardedLoader
+    return ShardedLoader(cfg.vocab_size, *PLANS_TRAIN_SHAPE, seed=seed,
+                         device=device).get(0)
+
+
+def plans_ranks_two(rank, world, seed, smoke, serve_tokens, flash_tokens,
+                    ep_x, ckpt_dir):
+    """Two ranks on one device: tp serving and the tp cache-free forward
+    through flash_attention (1 × 2), dbrx's EP layer (1 × 2), the GPipe
+    schedule (2 stages), the collective probe, and the elastic run's
+    second half (the four ranks' checkpoint resumed on 1 × 2)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import dist as rdist
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attn import flash_attention_cuda
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.sharding import context as sctx
+    from repro_torch.sharding.place import draw_sharded
+    from repro_torch.sharding.spec import param_pspecs, rules_for
+    device = rdist.rank_device()
+    out = {"probe": plans_probe(device)}
+    plans_note("probe")
+    mesh = make_host_mesh(1, 2)
+    plan = get_arch(PLANS_ARCH).plan
+    rules = rules_for(plan, mesh)
+    cfg = plans_cfg(PLANS_ARCH, PLANS_SERVE_LAYERS, smoke,
+                    attn_impl="pallas")
+    model = build_model(cfg, param_dtype=torch.bfloat16, device="meta")
+    draw_sharded(model, seed, param_pspecs(model, rules), mesh)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    logits, pre_s, dec_ms = plans_serve_run(
+        model, serve_tokens.to(device), PLANS_SERVE[1], plan, mesh)
+    out["serve"] = {"logits": logits, "prefill_s": pre_s,
+                    "decode_ms_a_step": dec_ms}
+    # again, each layer's input and output recorded (whole) for the
+    # teacher-forced replay on one rank
+    calls = []
+
+    def record(module, args, kwargs, output):
+        calls.append((layer_ids[id(module)], plans_whole(args[0]),
+                      plans_whole(output)))
+
+    layer_ids = {id(m): i for i, m in enumerate(model.layers)}
+    hooks = [m.register_forward_hook(record, with_kwargs=True)
+             for m in model.layers]
+    try:
+        plans_serve_run(model, serve_tokens.to(device), PLANS_SERVE[1],
+                        plan, mesh)
+    finally:
+        for h in hooks:
+            h.remove()
+    out["serve"]["calls"] = calls if dist.get_rank() == 0 else None
+    plans_note("serve")
+    del model
+    cfg = plans_cfg(PLANS_ARCH, PLANS_FLASH_LAYERS, smoke,
+                    attn_impl="pallas")
+    model = build_model(cfg, param_dtype=torch.bfloat16, device="meta")
+    draw_sharded(model, seed, param_pspecs(model, rules), mesh)
+    # the cache-free forward under tp: each rank's flash_attention on its
+    # own heads, counted from 0 just before and read just after
+    for attr in ("launches", "launches_tc", "launches_cc"):
+        setattr(flash_attention_cuda, attr, 0)
+    with torch.no_grad(), sctx.activation_sharding(rules, mesh):
+        from repro_torch.train.steps import place_batch
+        lg, _ = model(place_batch({"tokens": flash_tokens.to(device)}, rules,
+                                  mesh), remat="none",
+                      compute_dtype=torch.bfloat16)
+        lg = lg.full_tensor().float().cpu()
+    counts = {"launches": flash_attention_cuda.launches,
+              "tensor_cores": flash_attention_cuda.launches_tc,
+              "cuda_cores": flash_attention_cuda.launches_cc}
+    out["flash"] = {"logits": lg, "launches_by_rank": gather(counts),
+                    "local_heads": (cfg.n_heads // 2, cfg.n_kv_heads // 2)}
+    del model
+    plans_note("tp_forward")
+    out["ep"] = plans_ep_ranks(seed, smoke, ep_x, device)
+    plans_note("ep")
+    out["pipeline"] = plans_pipeline_ranks(seed, smoke, device)
+    plans_note("pipeline")
+    out["peak_gb_by_rank"] = gather(
+        torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda"
+        else 0.0)
+    out["elastic"] = plans_elastic(seed, smoke, ckpt_dir, range(2, 4),
+                                   save=False)
+    out["staged"] = gather(rdist.staged_bytes())
+    return out
+
+
+def plans_whole(t):
+    """A DTensor gathered whole (every rank calls it), on the host."""
+    from repro_torch.sharding import context as sctx
+    return sctx.replicated(t).detach().cpu()
+
+
+def plans_teacher_forced(model, calls, logits, prompt: int) -> dict:
+    """Every call of every layer on the tp ranks' cache path (``calls``: the
+    prefill's, then each decode step's, in order) replayed on one rank on
+    the ranks' own inputs, each layer with its own cache filled by the
+    replay; its output held to the ranks' by relative L2, and the head on
+    the ranks' last layer output to their logits (the serve phase's
+    teacher forcing: free-running bf16 runs of the random-weight model
+    decorrelate in depth, as the whole logits show)."""
+    import torch
+    from repro_torch.models import common as cm
+    from repro_torch.serve.steps import init_cache
+    L = len(model.layers)
+    B = calls[0][1].shape[0]
+    steps = len(calls) // L
+    device = model.device
+    cache = init_cache(model, B, prompt + steps, device=device)
+    layer_gaps, head_gaps = [], []
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm()
+                     / b.float().norm().clamp(min=1e-30))
+
+    with torch.no_grad():
+        for c in range(steps):
+            S = prompt if c == 0 else 1
+            index = 0 if c == 0 else prompt + c - 1
+            positions = (torch.arange(S, device=device) + index)[None].expand(
+                B, S)
+            for li, x_in, x_out in calls[c * L:(c + 1) * L]:
+                got = model.layers[li](
+                    x_in.to(device), positions, torch.bfloat16, "auto",
+                    cache_kv=(cache["k"][li], cache["v"][li]),
+                    cache_index=index)
+                layer_gaps.append(rel(got.cpu(), x_out))
+            h = cm.rmsnorm(x_out.to(device), model.final_norm,
+                           model.cfg.norm_eps)
+            head = model.embed.lm_head(h[:, -1:], torch.bfloat16)
+            head_gaps.append(rel(head.float().cpu()[:, 0], logits[:, c]))
+    return {"layer_rel_l2_max": max(layer_gaps),
+            "layer_rel_l2_prefill": layer_gaps[:L],
+            "layer_rel_l2_decode_max": max(layer_gaps[L:] or [0.0]),
+            "head_rel_l2_max": max(head_gaps), "layers": L,
+            "calls": len(layer_gaps)}
+
+
+def plans_note(what: str) -> None:
+    """A rank's progress on stderr (a rank that dies shows how far it
+    got)."""
+    import torch.distributed as dist
+    print(json.dumps({"plans_rank": dist.get_rank(), "done": what,
+                      "at_s": time.perf_counter() - T0}), file=sys.stderr,
+          flush=True)
+
+
+def gather(obj):
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, obj)
+    return got
+
+
+def plans_collectives(device, w: int, r: int) -> list:
+    """(name, check) for each collective the slice uses, on tensors of
+    ``device`` through the default group of ``w`` ranks (this one ``r``):
+    each check runs its collective and says whether the result is right."""
+    import torch
+    import torch.distributed as dist
+
+    def ar():
+        x = torch.full((1024,), float(r + 1), device=device,
+                       dtype=torch.bfloat16)
+        dist.all_reduce(x)
+        return float(x[0]) == w * (w + 1) / 2
+
+    def ag(n=16, dtype=torch.float32):
+        y = torch.empty(w * n, device=device, dtype=dtype)
+        dist.all_gather_into_tensor(y, torch.full(
+            (n,), float(r), device=device, dtype=dtype))
+        return all(float(y[i * n]) == i for i in range(w))
+
+    def rs():
+        y = torch.empty(16, device=device)
+        dist.reduce_scatter_tensor(y, torch.ones(w * 16, device=device))
+        return float(y[0]) == w
+
+    def a2a():
+        y = torch.empty(w * 4, device=device)
+        dist.all_to_all_single(y, torch.full((w * 4,), float(r),
+                                             device=device))
+        return all(float(y[i * 4]) == i for i in range(w))
+
+    def bc():
+        x = torch.full((16,), float(r), device=device)
+        dist.broadcast(x, 0)
+        return float(x[0]) == 0.0
+
+    def sr():
+        x = torch.full((16,), float(r), device=device)
+        if r == 0:
+            dist.send(x, 1)
+        elif r == 1:
+            dist.recv(x, 0)
+            return float(x[0]) == 0.0
+        return True
+
+    return [("all_reduce", ar), ("all_gather_into_tensor", ag),
+            ("reduce_scatter_tensor", rs), ("all_to_all_single", a2a),
+            ("broadcast", bc),
+            # a sequence-split activation of the tp forward, as DTensor
+            # gathers it (4 × 256 × 5,120 in bf16)
+            ("all_gather_bf16_large",
+             functools.partial(ag, 4 * 256 * 5120, torch.bfloat16)),
+            ("send_recv", sr)]
+
+
+def plans_probe(device) -> dict:
+    """Each collective of ``plans_collectives`` through the ranks' group,
+    checked. On the card that group stages every collective through pinned
+    host memory (``repro_torch.dist.StagedGroup``; ``plans_direct_*`` try
+    the backends' own groups in the same run); on the CPU it is gloo's."""
+    import torch.distributed as dist
+    how = ("staged through pinned host memory" if device.type == "cuda"
+           else "gloo")
+    res = {}
+    for name, fn in plans_collectives(device, dist.get_world_size(),
+                                      dist.get_rank()):
+        try:
+            res[name] = how if fn() else "wrong"
+        except Exception as e:          # reported, and the phase fails
+            res[name] = f"error: {str(e).splitlines()[0][:120]}"
+    return res
+
+
+def plans_direct_rank(rank: int, world: int, store_dir: str, backend: str,
+                      which: tuple) -> None:
+    """A rank of the direct probe on ``cuda:0``: the collectives ``which``
+    of ``plans_collectives`` through ``backend``'s own group, no staging.
+    Each is written to the rank's file as it starts and as it ends, so one
+    that kills the process is still named."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    log = open(os.path.join(store_dir, f"rank{rank}.jsonl"), "a")
+
+    def note(name, what):
+        log.write(json.dumps([name, what]) + "\n")
+        log.flush()
+
+    try:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            backend, store=dist.FileStore(os.path.join(store_dir, "store"),
+                                          world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=10))
+        for name, fn in plans_collectives(dev, world, rank):
+            if name in which:
+                note(name, "started")
+                try:
+                    ok = fn()
+                    torch.cuda.synchronize()
+                    note(name, "ok" if ok else "wrong")
+                except Exception as e:
+                    note(name, f"error: {str(e).splitlines()[0][:120]}")
+    except Exception as e:
+        note("init", f"error: {str(e).splitlines()[0][:120]}")
+    finally:
+        log.close()
+        # no teardown: a failed group's can hang
+        os._exit(0)
+
+
+def plans_direct_start():
+    """The pairs of ``PLANS_DIRECT``, started side by side."""
+    import tempfile
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    runs = []
+    for backend, which in PLANS_DIRECT:
+        d = tempfile.mkdtemp(prefix="plans_direct_")
+        procs = [ctx.Process(target=plans_direct_rank,
+                             args=(r, 2, d, backend, which), daemon=True)
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        runs.append((backend, which, d, procs))
+    return runs, time.perf_counter()
+
+
+def plans_direct_finish(started) -> list:
+    """Each pair's outcomes, [{"backend", collective: outcome}]: "ok",
+    "wrong", the error, "killed the rank" (it started and the process
+    died), "hung" (still running when the budget ran out) or "not
+    reached"; one outcome for both ranks where they agree. The pairs get
+    60 s from their start; no rank outlives the call."""
+    budget_s = 60.0
+    runs, t0 = started
+    out = []
+    for backend, which, d, procs in runs:
+        for p in procs:
+            p.join(timeout=max(0.0, budget_s - (time.perf_counter() - t0)))
+        hung = [p.is_alive() for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        by_rank = []
+        for r in range(len(procs)):
+            path = os.path.join(d, f"rank{r}.jsonl")
+            got = {}
+            if os.path.exists(path):
+                with open(path) as f:
+                    got = dict(json.loads(x) for x in f if x.strip())
+            res = {"init": got["init"]} if "init" in got else {}
+            for name in which:
+                what = got.get(name, "not reached")
+                if what == "started":
+                    what = "hung" if hung[r] else (
+                        f"killed the rank (exit code {procs[r].exitcode})")
+                res[name] = what
+            by_rank.append(res)
+        shutil.rmtree(d, ignore_errors=True)
+        pair = {"backend": backend}
+        for k in by_rank[0]:
+            seen = [res.get(k) for res in by_rank]
+            pair[k] = seen[0] if len(set(seen)) == 1 else {
+                f"rank{r}": v for r, v in enumerate(seen)}
+        out.append(pair)
+    return out
+
+
+def plans_dispatch_spy(seen: list):
+    """A ``dispatch_indices`` that records (expert ids, kept) a call."""
+    from repro_torch.models import moe
+    real = moe.dispatch_indices
+
+    def spy(expert_ids, E, cap):
+        dest, order, keep = real(expert_ids, E, cap)
+        seen.append((expert_ids.cpu(), keep.cpu()))
+        return dest, order, keep
+    return real, spy
+
+
+def plans_ep_ranks(seed, smoke, x, device) -> dict:
+    """dbrx-132b's MoE layer at full width (bf16) under ep on 1 × 2: each
+    rank owns half the experts, the buffer crosses in two all-to-alls."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import context as sctx
+    from repro_torch.sharding.place import draw_sharded
+    from repro_torch.sharding.spec import param_pspecs, rules_for
+    cfg = plans_cfg("dbrx-132b", 1, smoke)
+    mesh = make_host_mesh(1, 2)
+    rules = rules_for(get_arch("dbrx-132b").plan, mesh)
+    layer = moe.MoE(cfg, torch.bfloat16, "meta")
+    draw_sharded(layer, seed, param_pspecs(layer, rules), mesh)
+    seen = []
+    real, spy = plans_dispatch_spy(seen)
+    moe.dispatch_indices = spy
+    try:
+        with torch.no_grad(), sctx.activation_sharding(rules, mesh):
+            plans_sync(device)
+            t = time.perf_counter()
+            y, _ = layer(sctx.shard_act(x.to(device)), torch.bfloat16)
+            y = y.full_tensor()
+            plans_sync(device)
+            s = time.perf_counter() - t
+    finally:
+        moe.dispatch_indices = real
+    return {"out": y.float().cpu(), "seen": seen, "s": s}
+
+
+def plans_pipeline_ranks(seed, smoke, device) -> dict:
+    """qwen2.5-14b's layers at full width (bf16), PLANS_PIPE: stages ×
+    layers a stage, through ``pipeline_apply`` against rank 0's
+    sequential run of all of them; outputs and the gradients of
+    sum(y²) in every layer's weights."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import common as cm
+    from repro_torch.models.transformer import DenseLayer
+    from repro_torch.train.pipeline import pipeline_apply
+    S_, per, n_micro, L = PLANS_PIPE
+    cfg = plans_cfg(PLANS_ARCH, S_ * per, smoke)
+    g = torch.Generator(device=device).manual_seed(seed)
+    layer = DenseLayer(cfg, torch.bfloat16, device)
+    names = [n for n, _ in layer.named_parameters()]
+    stacked = {}
+    for n, p in layer.named_parameters():
+        leaves = []
+        for _ in range(S_ * per):
+            t = torch.empty_like(p)
+            t.init, t.scale, t.by_slice = p.init, p.scale, False
+            cm.init_leaf(t, g)
+            leaves.append(t)
+        stacked[n] = torch.stack(leaves)
+    x = torch.randn((n_micro, 1, L, cfg.d_model), generator=g,
+                    device=device).to(torch.bfloat16)
+    pos = torch.arange(L, device=device)[None]
+
+    def stage_fn(params, xm):
+        for i in range(next(iter(params.values())).shape[0]):
+            xm = functional_call(layer, {n: params[n][i] for n in names},
+                                 (xm, pos, torch.bfloat16, "auto"))
+        return xm
+
+    mesh = make_mesh((S_,), ("stage",))
+    split = {n: t.reshape((S_, per) + tuple(t.shape[1:])).requires_grad_(True)
+             for n, t in stacked.items()}
+    plans_sync(device)
+    t0 = time.perf_counter()
+    y = pipeline_apply(stage_fn, split, x, mesh)
+    torch.sum(y.float() ** 2).backward()
+    plans_sync(device)
+    pipe_s = time.perf_counter() - t0
+    # every rank runs the sequential reference and holds its own stage's
+    # gradients to it (no gradient crosses ranks)
+    r = dist.get_rank()
+    mine = slice(r * per, (r + 1) * per)
+    full = {n: t.clone().requires_grad_(True) for n, t in stacked.items()}
+    plans_sync(device)
+    t0 = time.perf_counter()
+    ys = torch.stack([stage_fn(full, xm) for xm in x])
+    torch.sum(ys.float() ** 2).backward()
+    plans_sync(device)
+    seq_s = time.perf_counter() - t0
+    errs = torch.tensor([
+        float((y.detach().float() - ys.detach().float()).abs().max()),
+        max(float((t.grad.reshape(stacked[n].shape)[mine].float()
+                   - full[n].grad[mine].float()).norm()
+                  / full[n].grad[mine].float().norm().clamp(min=1e-30))
+            for n, t in split.items())])
+    dist.all_reduce(errs, op=dist.ReduceOp.MAX)
+    return {"s": pipe_s, "sequential_s": seq_s,
+            "out_max_abs_err": float(errs[0]),
+            "out_scale": float(ys.detach().float().abs().max()),
+            "grad_rel_err": float(errs[1])}
+
+
+def plans_ranks_four(rank, world, seed, smoke, want, ckpt_dir):
+    """Four ranks on one device: qwen2.5-14b's published plan (fsdp + tp +
+    sp) over 2 × 2, one step in each of PLANS_TRAIN_COMPUTES against the
+    one-rank step's samples; ``compressed_psum`` over the four against
+    ``compressed_mean``; the elastic run's first half (a checkpoint at 2 ×
+    2)."""
+    from repro_torch import dist as rdist
+    device = rdist.rank_device()
+    out = {"train": {c: plans_train_ranks(c, seed, smoke, want[c], device)
+                     for c in PLANS_TRAIN_COMPUTES}}
+    out["compress"] = plans_compress(seed, device,
+                                     1 << 20 if smoke else PLANS_COMPRESS)
+    out["elastic"] = plans_elastic(seed, smoke, ckpt_dir, range(0, 2),
+                                   save=True)
+    out["staged"] = gather(rdist.staged_bytes())
+    return out
+
+
+def plans_train_ranks(compute, seed, smoke, want, device) -> dict:
+    """One step of the published plan over 2 × 2 in ``compute``, held on
+    each rank to the one-rank step's samples (``want``) of the parameters
+    and of AdamW's m, over the sampled entries in the rank's own shards:
+    the worst parameter error, and m's squared error and norm summed over
+    the ranks (its relative L2)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.steps import (DTYPES, init_train_state,
+                                         make_train_step)
+    cfg = plans_cfg(PLANS_ARCH, PLANS_TRAIN_LAYERS, smoke)
+    plan = plans_train_plan(compute)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, seed=seed)
+    mesh = make_host_mesh(2, 2)
+    plans_free(device.type == "cuda")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model(cfg, param_dtype=DTYPES[plan.param_dtype],
+                        device="meta")
+    state = init_train_state(model, plan, tcfg, seed, mesh=mesh)
+    step = make_train_step(model, plan, tcfg, mesh)
+    batch = plans_train_batch(cfg, seed, device)
+    plans_sync(device)
+    init_s = time.perf_counter() - t
+    plans_note(f"train_init_{compute}")
+    # one step, as the reference's sharded test takes: its lr is 0 (the
+    # warm-up), so the parameters come back as they went in, through the
+    # layouts, and the step's gradients are in AdamW's m = (1 - b1)·g
+    plans_sync(device)
+    t = time.perf_counter()
+    state, m = step(state, batch)
+    plans_sync(device)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "s_a_step": time.perf_counter() - t, "init_s": init_s}
+    p_err = 0.0
+    m_num = m_den = 0.0
+    for n, p in sorted(state["params"].items()):
+        idx, vals, _ = want["params"][n]
+        got, keep = plans_local_samples(p, idx)
+        if keep.any():
+            p_err = max(p_err, float((got - vals[keep]).abs().max()))
+        idx, vals, _ = want["m"][n]
+        got, keep = plans_local_samples(state["opt"]["m"][n], idx)
+        m_num += float(((got - vals[keep]) ** 2).sum())
+        m_den += float((vals[keep] ** 2).sum())
+    t_ = torch.tensor(p_err)
+    dist.all_reduce(t_, op=dist.ReduceOp.MAX)
+    out["params_max_abs_err"] = float(t_)
+    t_ = torch.tensor([m_num, m_den], dtype=torch.float64)
+    dist.all_reduce(t_)
+    out["m_rel_l2"] = float((t_[0] / t_[1].clamp(min=1e-300)).sqrt())
+    out["peak_gb_by_rank"] = gather(
+        torch.cuda.max_memory_allocated() / 1e9 if device.type == "cuda"
+        else 0.0)
+    del state, model, step
+    plans_note(f"train_{compute}")
+    return out
+
+
+def plans_compress(seed, device, n: int) -> dict:
+    """``compressed_psum`` of an ``n``-element gradient over every rank
+    against rank 0's ``compressed_mean`` of all of them, bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.optim.compress import compressed_mean, compressed_psum
+    w, r = dist.get_world_size(), dist.get_rank()
+
+    def draw(k, scale):
+        g = torch.Generator(device=device).manual_seed(seed + k)
+        return torch.randn(n, generator=g, device=device) * scale
+
+    plans_sync(device)
+    t = time.perf_counter()
+    mean, new_e = compressed_psum({"g": draw(r, 1.0)}, None,
+                                  {"g": draw(100 + r, 1e-2)})
+    plans_sync(device)
+    s = time.perf_counter() - t
+    if r == 0:
+        want_m, want_e = compressed_mean(
+            {"g": torch.stack([draw(k, 1.0) for k in range(w)])},
+            {"g": torch.stack([draw(100 + k, 1e-2) for k in range(w)])})
+        ok_m = torch.equal(mean["g"], want_m["g"])
+        ok_e = torch.equal(new_e["g"], want_e["g"][0])
+        return {"elements": n, "ranks": w, "mean_bit_equal": ok_m,
+                "error_bit_equal": ok_e, "s": s,
+                "payload": "int32 all-reduce"}
+    return {}
+
+
+def plans_elastic(seed, smoke, ckpt_dir, steps, save: bool) -> dict:
+    """xlstm-350m at full width cut to PLANS_ELASTIC's layers under its
+    plan (tp), AdamW: resume from ``ckpt_dir`` (every leaf gathered and
+    held to the checkpoint's arrays bit for bit), run ``steps``, and with
+    ``save`` write a checkpoint (gathered whole, rank 0 writes)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import dist as rdist
+    from repro_torch.checkpoint import CheckpointManager, load_arrays
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.runtime.elastic import (make_elastic_mesh,
+                                             restore_sharded, save_sharded)
+    from repro_torch.sharding.place import full_tree
+    from repro_torch.train.steps import init_train_state, make_train_step
+    arch, layers, shape = PLANS_ELASTIC
+    entry = get_arch(arch)
+    cfg = plans_cfg(arch, layers, smoke)
+    plan = dataclasses.replace(entry.plan, grad_accum=1)
+    tcfg = TrainConfig(total_steps=8, warmup_steps=1, seed=seed)
+    device = rdist.rank_device()
+    mesh = make_elastic_mesh(prefer_model=2)
+    model = build_model(cfg, device="meta")
+    state = init_train_state(model, plan, tcfg, seed, mesh=mesh)
+    ckpt = CheckpointManager(ckpt_dir, keep=2, async_save=False)
+    t = time.perf_counter()
+    restored, meta = restore_sharded(ckpt, model, plan, mesh, state)
+    out = {"mesh": list(mesh.mesh.shape), "restore_s": time.perf_counter() - t}
+    if restored is not None:
+        state = restored
+        arrays = load_arrays(ckpt._step_dir(int(meta["step"])))
+        full = full_tree({"params": dict(state["params"]),
+                          "opt": state["opt"], "step": state["step"]})
+        from repro_torch.checkpoint.manager import _flatten, _host
+        mismatched = [k for k, v in _flatten(full).items()
+                      if not np.array_equal(_host(v), arrays[k])]
+        out.update(leaves=len(arrays), mismatched=mismatched,
+                   bit_for_bit=not mismatched)
+    step = make_train_step(model, plan, tcfg, mesh)
+    loader = ShardedLoader(cfg.vocab_size, *shape, seed=seed, device=device)
+    losses = []
+    for s_ in steps:
+        state, m = step(state, loader.get(s_))
+        losses.append(float(m["loss"]))
+    out["losses"] = losses
+    if save:
+        t = time.perf_counter()
+        save_sharded(ckpt, steps[-1], state)
+        out["save_s"] = time.perf_counter() - t
+    return out
+
+
+def plans_m_rel_l2(got: dict, want: dict) -> float:
+    """The relative L2 of one step's sampled AdamW m against another's,
+    over every leaf's samples together (``plans_samples``' trees)."""
+    num = den = 0.0
+    for n, (_, vals, _) in want.items():
+        num += float(((got[n][1] - vals) ** 2).sum())
+        den += float((vals ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def plans_train_check(one: dict, want: dict, ranks: dict) -> dict:
+    """The sharded steps held to the one-rank steps in the same type
+    (``PLANS_TRAIN_LIMITS``): the loss, the gradients' global norm and
+    AdamW's m (the step's gradients), and the parameters bit for bit (lr
+    is 0). Each gradient limit must sit below its control, the one-rank
+    fp32 step on half the batch against the whole (what a rank holds when
+    the data ranks' reduction is missing), or the check could not see that
+    fault. bf16 rounding moves a one-rank step too; its reading (bf16
+    against fp32 on one rank) is printed beside the bf16 step's."""
+    lim = PLANS_TRAIN_LIMITS
+    full, half = one["float32"], one["float32_half_batch"]
+    control = {"grad_norm_rel": abs(half["grad_norm"] - full["grad_norm"])
+               / full["grad_norm"],
+               "m_rel_l2": plans_m_rel_l2(want["float32_half_batch"]["m"],
+                                          want["float32"]["m"])}
+    witness = {"loss_abs": abs(one["bfloat16"]["loss"] - full["loss"]),
+               "grad_norm_rel": abs(one["bfloat16"]["grad_norm"]
+                                    - full["grad_norm"]) / full["grad_norm"],
+               "m_rel_l2": plans_m_rel_l2(want["bfloat16"]["m"],
+                                          want["float32"]["m"])}
+    out = {"arch": PLANS_ARCH, "layers": PLANS_TRAIN_LAYERS, "mesh": [2, 2],
+           "plan": f"fsdp+tp+sp, AdamW fp32, ga {PLANS_TRAIN_GA}",
+           "tokens": list(PLANS_TRAIN_SHAPE),
+           "sampled_entries_a_leaf": PLANS_SAMPLES,
+           "control_half_batch": control,
+           "bf16_against_fp32_one_rank": witness, "limits": lim}
+    bad = [f"{c} {k}: control under the limit" for c in PLANS_TRAIN_COMPUTES
+           for k in control if k in lim[c] and not control[k] > lim[c][k]]
+    for c in PLANS_TRAIN_COMPUTES:
+        r, o = ranks[c], one[c]
+        got = {"loss_abs": abs(r["loss"] - o["loss"]),
+               "grad_norm_rel": abs(r["grad_norm"] - o["grad_norm"])
+               / o["grad_norm"],
+               "m_rel_l2": r["m_rel_l2"],
+               "params_max_abs_err": r["params_max_abs_err"]}
+        out[c] = {"one_rank": o, "four_ranks": r, **got}
+        bad += [f"{c} {k}" for k, v in lim[c].items() if not got[k] <= v]
+    out["failed"] = bad
+    emit({"plans_check": "train", **out})
+    if bad:
+        raise AssertionError(f"plans train: {bad}: {out}")
+    return out
+
+
+def plans_phase(seed: int, device: str = "cuda", smoke: bool = False,
+                staged=None) -> dict:
+    """The multi-device plans on one card, their ranks S processes on
+    ``cuda:0`` joined by gloo (see the module docstring, item 12). The
+    one-rank baselines run here first; every check raises on a miss.
+    ``staged``: the ranks' group (``repro_torch.dist.init_rank``; on the
+    card the staged one), to rehearse the card's group on the CPU."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch import dist as rdist
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import build_model, moe
+    from repro_torch.train.steps import (DTYPES, init_train_state,
+                                         make_train_step)
+    t_phase = time.perf_counter()
+    cuda = device != "cpu"
+    out = {"phase": "plans"}
+    # the CPU rehearsal at SMOKE width (d 64) rounds more, relatively:
+    # held at 0.1 there, at TEACHER_FORCED_L2 on the card
+    limit = TEACHER_FORCED_L2 if not smoke else 0.1
+    # one rank: serving, the cache-free forward, the train step, EP
+    cfg = plans_cfg(PLANS_ARCH, PLANS_SERVE_LAYERS, smoke, attn_impl="pallas")
+    model = build_model(cfg, param_dtype=torch.bfloat16, device=device,
+                        rng=seed)
+    B, P, steps = PLANS_SERVE
+    serve_tokens = plans_tokens(cfg, (B, P + steps), seed, device)
+    flash_tokens = plans_tokens(cfg, PLANS_FLASH, seed + 1, device)
+    want_serve, pre_s, dec_ms = plans_serve_run(model, serve_tokens, P)
+    del model
+    fcfg = plans_cfg(PLANS_ARCH, PLANS_FLASH_LAYERS, smoke,
+                     attn_impl="pallas")
+    model = build_model(fcfg, param_dtype=torch.bfloat16, device=device,
+                        rng=seed)
+    with torch.no_grad():
+        want_flash = model({"tokens": flash_tokens}, remat="none",
+                           compute_dtype=torch.bfloat16)[0].float().cpu()
+    del model
+    torch.cuda.empty_cache() if cuda else None
+    # the one-rank steps: in each compute type the ranks' reference, and
+    # in fp32 on half the batch the control (a rank's gradient with the
+    # data ranks' reduction missing)
+    tcfg_ = plans_cfg(PLANS_ARCH, PLANS_TRAIN_LAYERS, smoke)
+    tcfg = TrainConfig(total_steps=4, warmup_steps=1, seed=seed)
+    model = build_model(tcfg_, device=device, rng=seed,
+                        param_dtype=DTYPES[plans_train_plan("float32")
+                                           .param_dtype])
+    batch = plans_train_batch(tcfg_, seed, device)
+    half = {k: v[:v.shape[0] // 2] for k, v in batch.items()}
+    one_train, want_train = {}, {}
+    for name, compute, b in (("float32", "float32", batch),
+                             ("bfloat16", "bfloat16", batch),
+                             ("float32_half_batch", "float32", half)):
+        one = dataclasses.replace(plans_train_plan(compute), fsdp=False,
+                                  tp=False, sp=False)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(model, one, tcfg, seed)
+        step = make_train_step(model, one, tcfg)
+        plans_sync(device)
+        t = time.perf_counter()
+        state, m = step(state, b)
+        plans_sync(device)
+        one_train[name] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "s_a_step": time.perf_counter() - t,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9
+            if cuda else 0.0}
+        want_train[name] = {"params": plans_samples(state["params"], seed),
+                            "m": plans_samples(state["opt"]["m"], seed)}
+        del state, step
+    del model
+    gc.collect()
+    torch.cuda.empty_cache() if cuda else None
+    ecfg = plans_cfg("dbrx-132b", 1, smoke)
+    layer = moe.MoE(ecfg, torch.bfloat16, device)
+    from repro_torch.models import common as cm
+    cm.draw_params(layer, seed, device)
+    g = torch.Generator(device="cpu").manual_seed(seed + 2)
+    ep_x = torch.randn(PLANS_EP_TOKENS + (ecfg.d_model,), generator=g
+                       ).to(torch.bfloat16)
+    seen = []
+    real, spy = plans_dispatch_spy(seen)
+    moe.dispatch_indices = spy
+    try:
+        with torch.no_grad():
+            want_ep = layer(ep_x.to(device), torch.bfloat16)[0].float().cpu()
+    finally:
+        moe.dispatch_indices = real
+    del layer
+    gc.collect()
+    torch.cuda.empty_cache() if cuda else None
+    out["baselines_s"] = time.perf_counter() - t_phase
+
+    # four ranks (the train step, compress, a checkpoint), then two (the
+    # rest, and the checkpoint resumed); the parent keeps no device memory
+    # while they run (they share its card)
+    rdist.reset_staged()
+    ckpt = tempfile.mkdtemp(prefix="plans_ckpt_")
+    plans_free(cuda)
+    out["parent_reserved_gb_before_four"] = (
+        torch.cuda.memory_reserved() / 1e9 if cuda else 0.0)
+    t = time.perf_counter()
+    # the direct probe's pairs run beside the four ranks, which spend their
+    # first seconds reaching the card
+    direct = plans_direct_start() if cuda else None
+    try:
+        four = rdist.spawn(plans_ranks_four, 4,
+                           (seed, smoke, {c: want_train[c]
+                                          for c in PLANS_TRAIN_COMPUTES},
+                            ckpt),
+                           device=device, timeout=600, staged=staged)
+    finally:
+        direct = (plans_direct_finish(direct) if direct is not None else
+                  "not run: the CPU ranks use gloo's own group")
+    out["four_ranks_s"] = time.perf_counter() - t
+    emit({"plans_group": "four", "s": out["four_ranks_s"],
+          "init_s": {c: four["train"][c]["init_s"]
+                     for c in PLANS_TRAIN_COMPUTES}})
+    t = time.perf_counter()
+    two = rdist.spawn(plans_ranks_two, 2, (seed, smoke, serve_tokens.cpu(),
+                                           flash_tokens.cpu(), ep_x, ckpt),
+                      device=device, timeout=600, staged=staged)
+    out["two_ranks_s"] = time.perf_counter() - t
+    emit({"plans_group": "two", "s": out["two_ranks_s"],
+          "baselines_s": out["baselines_s"]})
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["probe"] = {"ranks_group": two["probe"], "direct": direct}
+    emit({"plans_probe": two["probe"],
+          "group": "StagedGroup over gloo" if cuda else "gloo",
+          "ranks_on": "cuda:0" if cuda else "cpu",
+          "direct_on_cuda_tensors": direct})
+    bad = [k for k, v in two["probe"].items() if v not in (
+        "gloo", "staged through pinned host memory")]
+    if bad:
+        raise AssertionError(f"plans: collectives {bad} failed: "
+                             f"{two['probe']}")
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+    got = two["serve"]["logits"]
+    per_step = [rel_l2(got[:, i], want_serve[:, i])
+                for i in range(got.shape[1])]
+    # held teacher-forced, layer by layer (the serve phase's check): the
+    # free-running logits of the random-weight model decorrelate in depth,
+    # so they are reported, not held
+    model = build_model(cfg, param_dtype=torch.bfloat16, device=device,
+                        rng=seed)
+    forced = plans_teacher_forced(model, two["serve"]["calls"], got, P)
+    del model
+    out["serve"] = {"arch": PLANS_ARCH, "layers": PLANS_SERVE_LAYERS,
+                    "mesh": [1, 2], "shape": list(PLANS_SERVE),
+                    "teacher_forced": forced,
+                    "free_running_logits_rel_l2": per_step,
+                    "argmax_agree": float(
+                        (got.argmax(-1) == want_serve.argmax(-1)).float()
+                        .mean()),
+                    "limit": limit,
+                    "prefill_s": {"one_rank": pre_s,
+                                  "tp2": two["serve"]["prefill_s"]},
+                    "decode_ms_a_step": {
+                        "one_rank": dec_ms,
+                        "tp2": two["serve"]["decode_ms_a_step"]}}
+    emit({"plans_check": "serve", **out["serve"]})
+    if not (forced["layer_rel_l2_max"] <= limit
+            and forced["head_rel_l2_max"] <= limit):
+        raise AssertionError(f"plans serve: {forced}")
+    fl = two["flash"]
+    launches = [c["tensor_cores"] for c in fl["launches_by_rank"]]
+    out["flash"] = {"shape": list(PLANS_FLASH),
+                    "layers": PLANS_FLASH_LAYERS,
+                    "local_heads_q_kv": list(fl["local_heads"]),
+                    "launches_by_rank": fl["launches_by_rank"],
+                    "logits_rel_l2": rel_l2(fl["logits"], want_flash),
+                    "limit": limit}
+    emit({"plans_check": "tp_forward_flash", **out["flash"]})
+    if cuda and (min(launches) < PLANS_FLASH_LAYERS):
+        raise AssertionError(f"plans: flash_attention's tensor-core kernel "
+                             f"launched {launches} times under tp")
+    if not out["flash"]["logits_rel_l2"] <= limit:
+        raise AssertionError(f"plans tp forward: {out['flash']}")
+    out["launches"] = {"flash_attention": sum(
+        c["launches"] for c in fl["launches_by_rank"])}
+    out["launches_by_variant"] = {
+        "tensor_cores": sum(c["tensor_cores"] for c in fl["launches_by_rank"]),
+        "cuda_cores": sum(c["cuda_cores"] for c in fl["launches_by_rank"])}
+    # EP: both ranks route the same tokens as the one-rank layer (1 × 2:
+    # every rank's tokens are all of them, so the capacity is the same)
+    ep = two["ep"]
+    keep_one = torch.cat([k for _, k in seen])
+    same = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+               for a, b in zip(ep["seen"], seen)) and len(ep["seen"]) == len(
+                   seen)
+    err = (ep["out"] - want_ep).abs().max() / want_ep.abs().max()
+    out["ep"] = {"arch": "dbrx-132b", "experts": ecfg.n_experts,
+                 "top_k": ecfg.n_experts_active, "mesh": [1, 2],
+                 "tokens": list(PLANS_EP_TOKENS),
+                 "routing_and_kept_equal": same,
+                 "kept_share": float(keep_one.float().mean()),
+                 "kept_share_limit": 0.95,
+                 "max_abs_err_over_scale": float(err), "limit": 1e-3,
+                 "s": ep["s"]}
+    emit({"plans_check": "ep", **out["ep"]})
+    if not (same and out["ep"]["kept_share"] > 0.95 and err <= 1e-3):
+        raise AssertionError(f"plans ep: {out['ep']}")
+    pp = two["pipeline"]
+    out["pipeline"] = {"stages": PLANS_PIPE[0], "layers_a_stage": PLANS_PIPE[1],
+                       "microbatches": PLANS_PIPE[2], **pp,
+                       "limits": {"out_rel": 1e-2, "grad_rel_l2": 1e-2}}
+    emit({"plans_check": "pipeline", **out["pipeline"]})
+    if not (pp["out_max_abs_err"] <= 1e-2 * pp["out_scale"]
+            and pp["grad_rel_err"] <= 1e-2):
+        raise AssertionError(f"plans pipeline: {out['pipeline']}")
+    out["peak_gb_two_ranks"] = two["peak_gb_by_rank"]
+
+    out["train"] = plans_train_check(one_train, want_train, four["train"])
+    out["compress"] = four["compress"]
+    emit({"plans_check": "compress", **out["compress"]})
+    if not (four["compress"]["mean_bit_equal"]
+            and four["compress"]["error_bit_equal"]):
+        raise AssertionError(f"plans compress: {four['compress']}")
+    el = two["elastic"]
+    out["elastic"] = {"arch": PLANS_ELASTIC[0], "layers": PLANS_ELASTIC[1],
+                      "tokens": list(PLANS_ELASTIC[2]),
+                      "written_on": four["elastic"]["mesh"],
+                      "resumed_on": el["mesh"],
+                      "leaves": el.get("leaves"),
+                      "bit_for_bit": el.get("bit_for_bit"),
+                      "losses": four["elastic"]["losses"] + el["losses"],
+                      "save_s": four["elastic"]["save_s"],
+                      "restore_s": el["restore_s"]}
+    emit({"plans_check": "elastic", **out["elastic"]})
+    if not (el.get("bit_for_bit") and all(math.isfinite(v) for v in
+                                          out["elastic"]["losses"])):
+        raise AssertionError(f"plans elastic: {el}")
+    out["staged"] = {"bytes_by_rank": {
+        "two": [g["bytes"] for g in two["staged"]],
+        "four": [g["bytes"] for g in four["staged"]]},
+        "what": "every collective's tensors, to pinned host memory and back"
+                if cuda else "none: the CPU ranks use gloo as it is"}
+    emit({"plans_staged": out["staged"]})
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
@@ -6039,7 +7142,7 @@ KERNELS = (
      ("oracle", "plane", "paper", "fleet", "sparse", "sharded", "kmeans")),
     ("flash_attention", "src/repro_torch/csrc/flash_attn_sm90.cu",
      "src/repro/kernels/flash_attn.py:69", ("lm_forward", "serve",
-                                            "families")),
+                                            "families", "plans")),
 )
 # the other variant of a kernel with two: flash_attention's on the CUDA
 # cores (fp32, and bf16 at other head widths: the families phase's 64, 80
@@ -6133,6 +7236,12 @@ def main() -> int:
                  "shapes its 4-layer cut needs about 62 GB of bf16 "
                  "parameters and gradients, before the plain sdpa's MLA "
                  "scores at 4,096 positions (arithmetic, not measured)"})
+    emit({"cut": f"plans: {PLANS_ARCH} at full width, serving cut to "
+                 f"{PLANS_SERVE_LAYERS} layers, the tp forward through "
+                 f"flash_attention to {PLANS_FLASH_LAYERS}, the train step "
+                 f"to {PLANS_TRAIN_LAYERS} layer at ga {PLANS_TRAIN_GA} "
+                 "(published: ga 8); the elastic run's "
+                 f"{PLANS_ELASTIC[0]} to {PLANS_ELASTIC[1]} layers"})
     emit({"cut": "families: the MoE archs serve at capacity factor E/k "
                  "(dropless), so the cache path and its cache-free reruns "
                  "route the same tokens; their loss keeps the published "
@@ -6234,6 +7343,12 @@ def main() -> int:
     report["train"] = train_phase(args.seed)
     emit({k: v for k, v in report["train"].items()
           if k not in ("runs", "ga_check", "smoke_check", "cli")})
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["plans"] = plans_phase(args.seed)
+    emit({k: report["plans"][k] for k in (
+        "phase", "seconds", "baselines_s", "four_ranks_s", "two_ranks_s",
+        "launches", "launches_by_variant")})
     report["profiler_misses"] = PROFILER_MISSES
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -6260,6 +7375,8 @@ def main() -> int:
             # instantiation among them)
             summary[-1]["families_launches_by_variant"] = \
                 report["families"]["launches_by_variant"]
+            summary[-1]["plans_launches_by_variant"] = \
+                report["plans"]["launches_by_variant"]
             summary[-1]["families_path_checks"] = [
                 {k: c[k] for k in ("arch", "variant", "shape", "causal",
                                    "max_abs_err")}

@@ -3,8 +3,10 @@
 Every batch is a pure function of (seed, step), the reference's
 ``lm_batch`` (``data/synthetic.py``, bit for bit), so after a restart from
 a checkpoint at step s the loader resumes at step s with the same data.
-The reference places the batch on a mesh; the port runs on one device and
-moves it there.
+Over a mesh every rank reads the same global batch and the train step
+keeps each rank's rows (``train.steps.place_batch``), so the global batch
+is the same at any data-parallel width, as the reference's elastic
+restore needs.
 """
 from __future__ import annotations
 

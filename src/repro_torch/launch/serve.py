@@ -26,8 +26,14 @@ serving device. ``--fleet-root DIR`` serves retrieval from a namespace
 fleet (``repro_torch.fleet``): the index is the fleet's ``default``
 namespace, created on the first launch and recovered from ``fleet.json``
 afterwards, the engine shares the fleet's request plane, and the fleet is
-flushed on exit; ``--max-resident`` is its residency budget. Not ported
-yet: ``--data`` or ``--model > 1`` (ROADMAP.md Queue 1 item 9).
+flushed on exit; ``--max-resident`` is its residency budget.
+``--data`` or ``--model`` above 1 serves the reference CLI's plan (tp
+over the model axis when ``--model`` is above 1) over a (data, model)
+mesh of ranks (``ServeEngine(mesh=)``): under ``torchrun``
+each process is a rank, otherwise the CLI spawns data × model rank
+processes on ``--device`` (on one card they share it); every rank runs
+the same generation and rank 0's result comes back. The retrieval index
+stays on each rank's device, unsharded.
 """
 from __future__ import annotations
 
@@ -122,14 +128,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write the raw trace-event dump here on exit")
     return ap.parse_args(argv)
-
-
-def check_ported(args: argparse.Namespace) -> None:
-    """Raise for the flags whose machinery is not ported yet."""
-    if args.data > 1 or args.model > 1:
-        raise NotImplementedError(
-            f"--data {args.data} --model {args.model}: the port serves on one "
-            "device; sharding is not ported yet (ROADMAP.md Queue 1 item 9)")
 
 
 def open_index(args, knn_cfg: KNNLMConfig, keys, next_ids, device):
@@ -258,8 +256,33 @@ def main(argv=None) -> dict:
     ops, the seconds ``generate`` took, the audit summary, the engine's
     stats and, with ``--fleet-root``, the fleet's stats."""
     args = parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    world = args.data * args.model
+    if world > 1:
+        from repro_torch.dist import CLI_TIMEOUT_S, init_rank, spawn
+        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+            if int(os.environ["WORLD_SIZE"]) != world:
+                raise ValueError(f"--data {args.data} --model {args.model} "
+                                 f"takes {world} ranks; torchrun started "
+                                 f"{os.environ['WORLD_SIZE']}")
+            init_rank(int(os.environ["RANK"]), world, None,
+                      args.device or "cuda")
+            return serve_rank(int(os.environ["RANK"]), world, args)
+        return spawn(serve_rank, world, (args,), device=args.device or "cuda",
+                     timeout=CLI_TIMEOUT_S)
+    return serve(args, resolve_device(args.device))
+
+
+def serve_rank(rank: int, world: int, args) -> dict:
+    """One rank of ``--data`` × ``--model``: ``serve`` over the mesh."""
+    from repro_torch.dist import rank_device
+    from repro_torch.launch.mesh import make_host_mesh
+    return serve(args, rank_device(), make_host_mesh(args.data, args.model))
+
+
+def serve(args, device, mesh=None) -> dict:
+    """The CLI's serving run on ``device``, over ``mesh`` when given. As
+    the reference's CLI, the plan is the arch's with fsdp, sp and ep
+    cleared and tp on when ``--model`` is above 1."""
     entry = get_arch(args.arch)
     cfg = entry.smoke if args.smoke else entry.config
     if cfg.family not in TOKEN_FAMILIES:
@@ -270,9 +293,12 @@ def main(argv=None) -> dict:
         raise ValueError("the kNN-LM hook needs a hidden-state-exposing "
                          "DenseLM")
     plan = dataclasses.replace(entry.plan, fsdp=False, sp=False, ep=False,
-                               tp=False)
+                               tp=args.model > 1)
     model = build_model(cfg, param_dtype=torch.bfloat16, device=device,
                         rng=0)
+    if mesh is not None:
+        from repro_torch.serve.steps import place_model
+        place_model(model, plan, mesh)
     max_seq = args.max_seq or (args.prompt_len + args.new_tokens + 8)
 
     knn_cfg = index = fleet = fleet_plane = None
@@ -299,7 +325,7 @@ def main(argv=None) -> dict:
                          knn_lm=knn_cfg, index=index,
                          index_append=args.index_append, plane=fleet_plane,
                          plane_namespace="default" if fleet_plane else None,
-                         device=device)
+                         device=device, mesh=mesh)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
     t0 = time.time()

@@ -15,6 +15,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding.context import shard_act
 from repro_torch.models.common import CacheSpec
 from repro_torch.models.transformer import DenseLayer
 
@@ -30,8 +31,7 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.cfg = cfg
-        ones = lambda: cm.new_param((cfg.d_model,), torch.float32, device,
-                                    "ones")
+        ones = lambda: cm.norm_param(cfg.d_model, device)
         self.ln1 = ones()
         self.self_attn = cm.GQAAttention(cfg, dtype, device)
         self.ln_x = ones()
@@ -55,7 +55,7 @@ class DecoderLayer(nn.Module):
         h = cm.rmsnorm(x, self.ln1, cfg.norm_eps)
         a, _ = self.self_attn(h, positions, compute_dtype=cd, impl=impl,
                               cache_kv=cache_kv, cache_index=cache_index)
-        x = x + a
+        x = x + shard_act(a)
         h = cm.rmsnorm(x, self.ln_x, cfg.norm_eps)
         ca = self.cross_attn
         q = (h.to(cd) @ ca.wq.to(cd).reshape(d, -1)).view(
@@ -63,9 +63,9 @@ class DecoderLayer(nn.Module):
         attn = cm.sdpa(q, cross_k.to(cd), cross_v.to(cd), causal=False,
                        chunk=cfg.attn_chunk if S > cfg.attn_chunk else 0)
         xo = attn.to(cd).reshape(B, S, -1) @ ca.wo.to(cd).reshape(-1, d)
-        x = x + xo.to(x.dtype)
+        x = x + shard_act(xo.to(x.dtype))
         h = cm.rmsnorm(x, self.ln2, cfg.norm_eps)
-        return x + self.mlp(h, cd)
+        return x + shard_act(self.mlp(h, cd))
 
 
 class Whisper(nn.Module):
@@ -87,13 +87,13 @@ class Whisper(nn.Module):
         d = cfg.d_model
         self.embed = cm.Embed(cfg, param_dtype, device)
         self.dec_pos = cm.new_param((DEC_POSITIONS, d), param_dtype, device,
-                                    "embed")
+                                    "embed", axes=(None, "embed"))
         self.enc_layers = nn.ModuleList(DenseLayer(cfg, param_dtype, device)
                                         for _ in range(cfg.enc_layers))
         self.dec_layers = nn.ModuleList(DecoderLayer(cfg, param_dtype, device)
                                         for _ in range(cfg.dec_layers))
-        self.enc_norm = cm.new_param((d,), torch.float32, device, "ones")
-        self.dec_norm = cm.new_param((d,), torch.float32, device, "ones")
+        self.enc_norm = cm.norm_param(d, device)
+        self.dec_norm = cm.norm_param(d, device)
         cm.draw_params(self, rng, device)
 
     @property
@@ -112,7 +112,7 @@ class Whisper(nn.Module):
         B, S, d = frames.shape
         pos = torch.from_numpy(cm.sinusoidal_embedding(S, d)).to(
             device=frames.device, dtype=compute_dtype)
-        x = frames.to(compute_dtype) + pos[None]
+        x = shard_act(frames.to(compute_dtype) + pos[None])
         positions = torch.arange(S, device=frames.device)[None].expand(B, S)
         for layer in self.enc_layers:
             x = cm.remat(remat, layer, x, positions, compute_dtype, impl,
@@ -181,7 +181,7 @@ class Whisper(nn.Module):
         dec_len = max(max_seq // cfg.dec_seq_div, 8)
         kv = lambda s: CacheSpec((cfg.dec_layers, batch_size, s,
                                   cfg.n_kv_heads, cfg.head_dim_), dtype,
-                                 "zeros")
+                                 "zeros", axes=cm.KV_AXES)
         return {"k": kv(dec_len), "v": kv(dec_len), "cross_k": kv(max_seq),
                 "cross_v": kv(max_seq),
                 "index": CacheSpec((), torch.int32, "zeros")}

@@ -37,6 +37,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import make_generator
 from repro_torch.kernels import ops
+from repro_torch.sharding import context as sctx
+from repro_torch.sharding.spec import placements
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -45,24 +47,39 @@ from repro_torch.kernels import ops
 
 def new_param(shape, dtype: torch.dtype, device, init: str,
               scale: Optional[float] = None,
-              by_slice: bool = False) -> nn.Parameter:
+              by_slice: bool = False, *, axes: tuple) -> nn.Parameter:
     """An uninitialised parameter tagged with its reference init rule
-    ("fanin" | "embed" | "normal" | "ones" | "zeros" | "scalar") and the
-    rule's ``scale``; ``init_leaf`` fills it, one slice along the first
+    ("fanin" | "embed" | "normal" | "ones" | "zeros" | "scalar"), the
+    rule's ``scale`` and its logical axes (``axes``, one name or None a
+    dim: the reference's ``ParamSpec.axes`` without the leading
+    ``"layers"`` of a stacked leaf, which the sharding rules map from,
+    ``sharding.spec``); ``init_leaf`` fills it, one slice along the first
     axis at a time under ``by_slice`` (an MoE's stacked experts). It asks
     for no gradient: training turns gradients on for one model at a time
     (``grads_on``)."""
+    if len(axes) != len(shape):
+        raise ValueError(f"axes {axes} rank != shape {tuple(shape)} rank")
     p = nn.Parameter(torch.empty(tuple(shape), dtype=dtype, device=device),
                      requires_grad=False)
     p.init = init
     p.scale = scale
     p.by_slice = by_slice
+    p.axes = tuple(axes)
     return p
+
+
+def norm_param(d: int, device) -> nn.Parameter:
+    """An RMSNorm weight: (d,) fp32 ones, logical axis "act_embed" (the
+    reference's ``rmsnorm_spec``)."""
+    return new_param((d,), torch.float32, device, "ones", axes=("act_embed",))
 
 
 def draw_params(model: nn.Module, rng, device) -> None:
     """Every parameter of ``model`` drawn by its init rule from ``rng`` (a
-    seed or a ``torch.Generator``) on ``device``."""
+    seed or a ``torch.Generator``) on ``device``; nothing on ``meta``,
+    where a model is built for its shapes and axes alone."""
+    if torch.device(device).type == "meta":
+        return
     g = make_generator(rng, device)
     for p in model.parameters():
         init_leaf(p, g)
@@ -137,12 +154,18 @@ def remat(mode: str, fn, *args, **kwargs):
 
 class CacheSpec(NamedTuple):
     """One cache leaf: shape, dtype, the rule it starts by ("zeros", "ones"
-    or "scalar") and the scalar's value, the reference's ``ParamSpec``
-    fields that a cache uses."""
+    or "scalar"), the scalar's value and the logical axes, the reference's
+    ``ParamSpec`` fields that a cache uses (its stacked leaves keep their
+    leading ``"layers"``: the port's cache is stacked too)."""
     shape: tuple
     dtype: torch.dtype
     init: str
     scale: float = 0.0
+    axes: tuple = ()
+
+
+# the logical axes of a stacked KV cache leaf (n_layers, B, S, KV, hd)
+KV_AXES = ("layers", "batch", "kv_len", "kv_heads", "head_dim")
 
 
 @torch.no_grad()
@@ -181,6 +204,14 @@ def init_leaf(p: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """x · rsqrt(mean(x²) + eps) · w in fp32, cast back. Every projection
+    reads a norm's output, so under sequence parallelism (a DTensor x
+    split along its sequence) the norm's output is gathered whole along
+    the sequence first, as Megatron's sequence parallelism gathers before
+    its column-parallel products; the residual stream stays split
+    (``sharding.context.shard_act`` at each residual add)."""
+    if sctx.is_dtensor(x):
+        x = sctx.whole_sequence(x)
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
@@ -399,14 +430,21 @@ class GQAAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-        self.wq = new_param((d, h, hd), dtype, device, "fanin")
-        self.wk = new_param((d, kv, hd), dtype, device, "fanin")
-        self.wv = new_param((d, kv, hd), dtype, device, "fanin")
-        self.wo = new_param((h, hd, d), dtype, device, "fanin")
+        self.wq = new_param((d, h, hd), dtype, device, "fanin",
+                            axes=("embed", "heads", "head_dim"))
+        self.wk = new_param((d, kv, hd), dtype, device, "fanin",
+                            axes=("embed", "kv_heads", "head_dim"))
+        self.wv = new_param((d, kv, hd), dtype, device, "fanin",
+                            axes=("embed", "kv_heads", "head_dim"))
+        self.wo = new_param((h, hd, d), dtype, device, "fanin",
+                            axes=("heads", "head_dim", "embed"))
         if cfg.qkv_bias:
-            self.bq = new_param((h, hd), dtype, device, "zeros")
-            self.bk = new_param((kv, hd), dtype, device, "zeros")
-            self.bv = new_param((kv, hd), dtype, device, "zeros")
+            self.bq = new_param((h, hd), dtype, device, "zeros",
+                                axes=("heads", "head_dim"))
+            self.bk = new_param((kv, hd), dtype, device, "zeros",
+                                axes=("kv_heads", "head_dim"))
+            self.bv = new_param((kv, hd), dtype, device, "zeros",
+                                axes=("kv_heads", "head_dim"))
 
     def qkv(self, x: torch.Tensor, positions: Optional[torch.Tensor],
             compute_dtype=torch.bfloat16, positions3=None):
@@ -457,26 +495,32 @@ class GQAAttention(nn.Module):
                 (ckq, cks), (cvq, cvs) = cache_kv
                 for cq, cs, t in ((ckq, cks, k), (cvq, cvs, v)):
                     tq, ts = quantize_kv(t)
-                    cq[:, cache_index:end] = tq
-                    cs[:, cache_index:end] = ts
+                    sctx.cache_write(cq, tq, cache_index)
+                    sctx.cache_write(cs, ts, cache_index)
                 ck = dequantize_kv(ckq, cks, compute_dtype)
                 cv = dequantize_kv(cvq, cvs, compute_dtype)
             else:
                 ck, cv = cache_kv
-                ck[:, cache_index:end] = k.to(ck.dtype)
-                cv[:, cache_index:end] = v.to(cv.dtype)
+                sctx.cache_write(ck, k.to(ck.dtype), cache_index)
+                sctx.cache_write(cv, v.to(cv.dtype), cache_index)
             new_kv = cache_kv
-            out = sdpa(q, ck.to(compute_dtype), cv.to(compute_dtype),
-                       causal=causal, q_offset=cache_index, kv_valid_len=end,
-                       chunk=chunk)
-        elif cfg.attn_impl == "pallas":
-            # the fused kernel reads the KV heads unrepeated: query head h
-            # reads KV head h // G, as the reference's jnp.repeat arranges
-            out = ops.flash_attention(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                causal=causal, q_offset=0, impl=impl).transpose(1, 2)
-        else:
-            out = sdpa(q, k, v, causal=causal, q_offset=0, chunk=chunk)
+            k, v = ck.to(compute_dtype), cv.to(compute_dtype)
+
+        def attend(q, k, v):
+            if cache_kv is not None:
+                return sdpa(q, k, v, causal=causal, q_offset=cache_index,
+                            kv_valid_len=cache_index + S, chunk=chunk)
+            if cfg.attn_impl == "pallas":
+                # the fused kernel reads the KV heads unrepeated: query
+                # head h reads KV head h // G, as the reference's
+                # jnp.repeat arranges
+                return ops.flash_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=causal, q_offset=0, impl=impl).transpose(1, 2)
+            return sdpa(q, k, v, causal=causal, q_offset=0, chunk=chunk)
+
+        out = (attend(q, k, v) if not sctx.is_dtensor(q)
+               else sctx.heads_local(attend, q, k, v))
         proj_out = out.to(compute_dtype).reshape(B, S, -1) @ \
             self.wo.to(compute_dtype).reshape(-1, d)
         return proj_out.to(x.dtype), new_kv
@@ -500,11 +544,15 @@ class MLP(nn.Module):
         self.act = cfg.mlp_act
         d, f = cfg.d_model, d_ff if d_ff is not None else cfg.d_ff
         if self.act == "swiglu":
-            self.wi_gate = new_param((d, f), dtype, device, "fanin")
-            self.wi_up = new_param((d, f), dtype, device, "fanin")
+            self.wi_gate = new_param((d, f), dtype, device, "fanin",
+                                     axes=("embed", "mlp"))
+            self.wi_up = new_param((d, f), dtype, device, "fanin",
+                                   axes=("embed", "mlp"))
         else:
-            self.wi = new_param((d, f), dtype, device, "fanin")
-        self.wo = new_param((f, d), dtype, device, "fanin")
+            self.wi = new_param((d, f), dtype, device, "fanin",
+                                axes=("embed", "mlp"))
+        self.wo = new_param((f, d), dtype, device, "fanin",
+                            axes=("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16):
         xc = x.to(compute_dtype)
@@ -526,6 +574,35 @@ class MLP(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _sharded_lookup(tok, tokens):
+    """tok[tokens] for a table laid out on a mesh: the table split over the
+    vocabulary as the rules split it (gathered along its other dims), each
+    rank looks up the tokens in its rows and zeros the rest, and the
+    partial sums over the vocabulary's ranks are the rows (one nonzero
+    term each). Returns a DTensor, rows laid out as the batch."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    rules, mesh = sctx.current()
+    want = placements(rules.pspec(("vocab", None), tuple(tok.shape)), mesh)
+    ids_pl = placements(rules.pspec(("batch",) + (None,) * (tokens.dim() - 1),
+                                    tuple(tokens.shape)), mesh)
+    vdim = next((i for i, p in enumerate(want) if p == Shard(0)), None)
+    out_pl = [Partial() if i == vdim else p for i, p in enumerate(ids_pl)]
+
+    def lookup(table, ids):
+        if vdim is None:
+            return table[ids]
+        v0 = mesh.get_local_rank(vdim) * table.shape[0]
+        mine = (ids >= v0) & (ids < v0 + table.shape[0])
+        rows = table[torch.where(mine, ids - v0, 0)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    # each data shard looks up its own tokens: a partial gradient there
+    grad_pl = [Partial() if p == Replicate() and i != Replicate() else p
+               for p, i in zip(want, ids_pl)]
+    return sctx.local_call(lookup, (tok, tokens), (want, ids_pl), out_pl,
+                           mesh, grad_placements=[grad_pl, None])
+
+
 class Embed(nn.Module):
     """Token embedding ``tok`` (V, d) and, unless tied, the LM head ``head``
     (d, V)."""
@@ -533,12 +610,14 @@ class Embed(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.tok = new_param((cfg.vocab_size, cfg.d_model), dtype, device,
-                             "embed")
+                             "embed", axes=("vocab", "embed"))
         if not cfg.tie_embeddings:
             self.head = new_param((cfg.d_model, cfg.vocab_size), dtype, device,
-                                  "fanin")
+                                  "fanin", axes=("embed", "vocab"))
 
     def embed(self, tokens: torch.Tensor, compute_dtype=torch.bfloat16):
+        if sctx.is_dtensor(self.tok):
+            return _sharded_lookup(self.tok, tokens).to(compute_dtype)
         return self.tok[tokens].to(compute_dtype)
 
     def lm_head(self, x: torch.Tensor, compute_dtype=torch.bfloat16):

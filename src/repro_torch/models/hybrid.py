@@ -12,6 +12,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding.context import shard_act
 from repro_torch.models import ssm
 from repro_torch.models.common import CacheSpec
 from repro_torch.models.transformer import DenseLayer
@@ -23,13 +24,13 @@ class MambaLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.eps = cfg.norm_eps
-        self.ln = cm.new_param((cfg.d_model,), torch.float32, device, "ones")
+        self.ln = cm.norm_param(cfg.d_model, device)
         self.mamba = ssm.Mamba2(cfg, dtype, device)
 
     def forward(self, x, state, compute_dtype):
         out, _ = self.mamba(cm.rmsnorm(x, self.ln, self.eps), state,
                             compute_dtype)
-        return x + out
+        return x + shard_act(out)
 
 
 class Zamba2(nn.Module):
@@ -57,8 +58,7 @@ class Zamba2(nn.Module):
         self.layers = nn.ModuleList(MambaLayer(cfg, param_dtype, device)
                                     for _ in range(cfg.n_layers))
         self.shared = DenseLayer(cfg, param_dtype, device)
-        self.final_norm = cm.new_param((cfg.d_model,), torch.float32, device,
-                                       "ones")
+        self.final_norm = cm.norm_param(cfg.d_model, device)
         cm.draw_params(self, rng, device)
 
     @property
@@ -72,8 +72,8 @@ class Zamba2(nn.Module):
                     cfg.head_dim_)
         return {"mamba": ssm.mamba2_state_specs(cfg, cfg.n_layers, batch_size,
                                                 dtype),
-                "k": CacheSpec(kv_shape, dtype, "zeros"),
-                "v": CacheSpec(kv_shape, dtype, "zeros"),
+                "k": CacheSpec(kv_shape, dtype, "zeros", axes=cm.KV_AXES),
+                "v": CacheSpec(kv_shape, dtype, "zeros", axes=cm.KV_AXES),
                 "index": CacheSpec((), torch.int32, "zeros")}
 
     def forward(self, batch: dict, *, remat: str = "full",
@@ -86,7 +86,7 @@ class Zamba2(nn.Module):
         the reference's ``_remat`` wraps its two bodies."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self.embed.embed(tokens, compute_dtype)
+        x = shard_act(self.embed.embed(tokens, compute_dtype))
         positions = batch.get("positions")
         if positions is None:
             positions = (torch.arange(S, device=tokens.device)

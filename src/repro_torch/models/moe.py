@@ -1,14 +1,14 @@
 """Mixture-of-Experts LMs, dbrx-132b (GQA, 16 experts top-4) and
 deepseek-v3-671b (MLA, one shared and 256 routed experts top-8, a
-multi-token-prediction head): the port of ``repro/models/moe.py`` on one
-device.
+multi-token-prediction head): the port of ``repro/models/moe.py``.
 
 The MoE FFN keeps the reference's sort-based capacity dispatch: router
 top-k → a stable sort of the (token, choice) pairs by expert → a fixed
 (E, capacity, d) buffer (pairs past an expert's capacity are dropped) →
-batched expert matmuls → the weighted combine. The reference's expert
-parallelism (``ep``: two all_to_alls over a mesh) is not ported;
-``serve.steps.check_single_device`` refuses a plan that asks for it.
+batched expert matmuls → the weighted combine. Over a mesh the layer
+runs the reference's expert parallelism (``ep``: two all-to-alls over the
+``model`` axis, ``MoE.sharded``), or without ``ep`` the one-device
+dispatch over the whole batch.
 
 Three choices keep the port's routing and sums those of the reference on
 the CPU and on the card alike:
@@ -41,6 +41,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding import context as sctx
+from repro_torch.sharding.context import shard_act
 from repro_torch.models.common import CacheSpec
 
 # ---------------------------------------------------------------------------
@@ -127,21 +129,27 @@ class MoE(nn.Module):
         self.cfg = cfg
         d, E, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
         self.router = cm.new_param((d, E), dtype, device, "normal",
-                                   scale=0.006)
+                                   scale=0.006, axes=("embed", None))
         self.wi_gate = cm.new_param((E, d, f), dtype, device, "fanin",
-                                    by_slice=True)
+                                    by_slice=True,
+                                    axes=("experts", "embed", "expert_mlp"))
         self.wi_up = cm.new_param((E, d, f), dtype, device, "fanin",
-                                  by_slice=True)
+                                  by_slice=True,
+                                  axes=("experts", "embed", "expert_mlp"))
         self.wo = cm.new_param((E, f, d), dtype, device, "fanin",
-                               by_slice=True)
+                               by_slice=True,
+                               axes=("experts", "expert_mlp", "embed"))
         if cfg.n_shared_experts > 0:
             self.shared = cm.MLP(cfg, dtype, device,
                                  d_ff=cfg.moe_d_ff * cfg.n_shared_experts)
 
-    def router_logits(self, x2d: torch.Tensor, compute_dtype) -> torch.Tensor:
-        """(T, E) fp32: the router's product in the compute type, cast up."""
+    def router_logits(self, x2d: torch.Tensor, compute_dtype,
+                      router=None) -> torch.Tensor:
+        """(T, E) fp32: the router's product in the compute type, cast up
+        (``router``: the weight to use, default the layer's)."""
+        router = self.router if router is None else router
         return (x2d.to(compute_dtype)
-                @ self.router.to(compute_dtype)).to(torch.float32)
+                @ router.to(compute_dtype)).to(torch.float32)
 
     def expert_ffn(self, buf: torch.Tensor, compute_dtype) -> torch.Tensor:
         """buf (E, C, d) → (E, C, d) through each expert's swiglu, the
@@ -151,7 +159,7 @@ class MoE(nn.Module):
         h = F.silu(g.to(torch.float32)).to(compute_dtype) * u
         return torch.bmm(h, self.wo.to(compute_dtype))
 
-    def local(self, x2d: torch.Tensor, compute_dtype):
+    def local(self, x2d: torch.Tensor, compute_dtype, ffn=None):
         """x2d (T, d) in the compute type → (out (T, d), aux fp32), the
         reference's ``_moe_local`` without ``ep``. A stream longer than
         ``moe_seq_chunk`` that it divides is dispatched a chunk at a time,
@@ -164,11 +172,13 @@ class MoE(nn.Module):
         T, d = x2d.shape
         chunk = cfg.moe_seq_chunk
         if chunk and T > chunk and T % chunk == 0:
-            outs, auxs = zip(*(cm.remat("full", self.local, xc, compute_dtype)
+            outs, auxs = zip(*(cm.remat("full", self.local, xc, compute_dtype,
+                                        ffn)
                                for xc in x2d.split(chunk)))
             return torch.cat(outs), torch.mean(torch.stack(auxs))
         E, k = cfg.n_experts, cfg.n_experts_active
-        logits = self.router_logits(x2d, compute_dtype)
+        logits = self.router_logits(x2d, compute_dtype,
+                                    None if ffn is None else ffn.router)
         top_w, top_i = route(cfg, logits)
         aux = switch_aux(logits, top_i)
 
@@ -181,8 +191,10 @@ class MoE(nn.Module):
                               device=x2d.device)
         slot_tok[dest] = torch.where(keep, order // k, T)
         buf = torch.cat([x2d, zero])[slot_tok[:-1]].view(E, cap, d)
-        flat_out = torch.cat([self.expert_ffn(buf, compute_dtype).reshape(
-            E * cap, d), zero.to(compute_dtype)])
+        out_buf = (self.expert_ffn(buf, compute_dtype) if ffn is None
+                   else ffn(buf))
+        flat_out = torch.cat([out_buf.reshape(E * cap, d),
+                              zero.to(compute_dtype)])
 
         # the combine: each token's k outputs in ascending expert id
         w = (keep * top_w.reshape(-1)[order]).to(flat_out.dtype)
@@ -198,13 +210,121 @@ class MoE(nn.Module):
         return out.to(x2d.dtype), aux
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.bfloat16):
-        """x (B, S, d) → (out (B, S, d), aux scalar fp32)."""
+        """x (B, S, d) → (out (B, S, d), aux scalar fp32). Laid out on a
+        mesh (x a DTensor), ``sharded``."""
         B, S, d = x.shape
-        out, aux = self.local(x.reshape(B * S, d), compute_dtype)
-        out = out.reshape(B, S, d)
+        if sctx.is_dtensor(x):
+            out, aux = self.sharded(x, compute_dtype)
+        else:
+            out, aux = self.local(x.reshape(B * S, d), compute_dtype)
+            out = out.reshape(B, S, d)
         if self.cfg.n_shared_experts > 0:
             out = out + self.shared(x, compute_dtype)
         return out, aux
+
+
+    def sharded(self, x, compute_dtype):
+        """The MoE FFN of DTensor x (B, S, d) under the installed rules.
+
+        With experts on ``model`` (``ep``), the reference's ``shard_map``
+        program: each rank routes its data shard's tokens (replicated over
+        ``model``) with capacity from its own token count, the (E, cap, d)
+        buffer goes to the experts' owners in one all-to-all over
+        ``model`` (each rank holding E/m experts), their outputs come back
+        in a second, and the combine is the one-device one. Every
+        ``model`` rank sends its identical buffer, so an owner sees each
+        slot m times: the experts' gradient is taken from one copy
+        (scaled by 1/m on the way back). The aux is the mean over the data
+        shards. Without ``ep`` the layer runs as on one device over the
+        whole batch, its tokens and experts gathered, so capacity and drops
+        are the one-device ones."""
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from repro_torch.dist import all_to_all
+        from repro_torch.sharding.spec import placements
+        cfg = self.cfg
+        rules, mesh = sctx.current()
+        B, S, d = x.shape
+        E = cfg.n_experts
+        ep = "model" in mesh.mesh_dim_names and \
+            rules.mesh_axes("experts") == "model"
+        full = [Replicate()] * mesh.ndim
+        weights = (self.router, self.wi_gate, self.wi_up, self.wo)
+        if not ep:
+            def whole(xl, router, wg, wu, wo):
+                out, aux = self.local(xl.reshape(B * S, d), compute_dtype,
+                                      _Experts(router, wg, wu, wo,
+                                               compute_dtype))
+                return out.reshape(B, S, d), aux
+            return sctx.local_call(whole, (x,) + weights, [full] * 5,
+                                   (full, full), mesh)
+        mdim = mesh.mesh_dim_names.index("model")
+        m = mesh.mesh.shape[mdim]
+        if E % m:
+            raise ValueError(f"{E} experts do not split over model = {m}")
+        group = mesh.get_group(mdim)
+        x_pl = placements(rules.pspec(("batch", None, None), tuple(x.shape)),
+                          mesh)
+        ex_pl = [Shard(0) if i == mdim else Replicate()
+                 for i in range(mesh.ndim)]
+        # gradients of what each data shard computes from its own tokens
+        part = [Replicate() if (i == mdim or x_pl[i] == Replicate())
+                else Partial() for i in range(mesh.ndim)]
+        ex_grad = [Shard(0) if i == mdim else part[i]
+                   for i in range(mesh.ndim)]
+
+        def ep_body(xl, router, wg, wu, wo):
+            Bl = xl.shape[0]
+            wg, wu, wo = (_GradScale.apply(w, 1.0 / m) for w in (wg, wu, wo))
+            local_ffn = _Experts(router, wg, wu, wo, compute_dtype)
+
+            def exchange(buf):
+                e_loc, cap = E // m, buf.shape[1]
+                b = all_to_all(buf.reshape(m, e_loc, cap, d), group)
+                b = b.transpose(0, 1).reshape(e_loc, m * cap, d)
+                ob = local_ffn(b)
+                ob = ob.reshape(e_loc, m, cap, d).transpose(0, 1)
+                return all_to_all(ob, group).reshape(E, cap, d)
+
+            exchange.router = router
+            out, aux = self.local(xl.reshape(Bl * S, d), compute_dtype,
+                                  exchange)
+            return out.reshape(Bl, S, d), aux
+
+        aux_pl = [Partial("avg") if p == Partial() else Replicate()
+                  for p in part]
+        return sctx.local_call(
+            ep_body, (x,) + weights, [x_pl, full, ex_pl, ex_pl, ex_pl],
+            (x_pl, aux_pl), mesh,
+            grad_placements=[None, part, ex_grad, ex_grad, ex_grad])
+
+
+class _Experts:
+    """The expert FFN over given weights (local shards, or gathered), the
+    router beside it for ``MoE.local``."""
+
+    def __init__(self, router, wg, wu, wo, compute_dtype):
+        self.router, self.wg, self.wu, self.wo = router, wg, wu, wo
+        self.cd = compute_dtype
+
+    def __call__(self, buf):
+        cd = self.cd
+        g = torch.bmm(buf, self.wg.to(cd))
+        u = torch.bmm(buf, self.wu.to(cd))
+        h = F.silu(g.to(torch.float32)).to(cd) * u
+        return torch.bmm(h, self.wo.to(cd))
+
+
+class _GradScale(torch.autograd.Function):
+    """The identity, its gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s: float):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 # ---------------------------------------------------------------------------
@@ -225,14 +345,21 @@ class MLAttention(nn.Module):
         d, H = cfg.d_model, cfg.n_heads
         qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
         nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        self.wq_a = cm.new_param((d, qr), dtype, device, "fanin")
-        self.q_norm = cm.new_param((qr,), torch.float32, device, "ones")
-        self.wq_b = cm.new_param((qr, H, nd + rd), dtype, device, "fanin")
-        self.wkv_a = cm.new_param((d, kvr + rd), dtype, device, "fanin")
-        self.kv_norm = cm.new_param((kvr,), torch.float32, device, "ones")
-        self.wk_b = cm.new_param((kvr, H, nd), dtype, device, "fanin")
-        self.wv_b = cm.new_param((kvr, H, vd), dtype, device, "fanin")
-        self.wo = cm.new_param((H, vd, d), dtype, device, "fanin")
+        p = cm.new_param
+        self.wq_a = p((d, qr), dtype, device, "fanin",
+                      axes=("embed", "qk_rank"))
+        self.q_norm = cm.norm_param(qr, device)
+        self.wq_b = p((qr, H, nd + rd), dtype, device, "fanin",
+                      axes=("qk_rank", "heads", "head_dim"))
+        self.wkv_a = p((d, kvr + rd), dtype, device, "fanin",
+                       axes=("embed", "kv_rank"))
+        self.kv_norm = cm.norm_param(kvr, device)
+        self.wk_b = p((kvr, H, nd), dtype, device, "fanin",
+                      axes=("kv_rank", "heads", "head_dim"))
+        self.wv_b = p((kvr, H, vd), dtype, device, "fanin",
+                      axes=("kv_rank", "heads", "head_dim"))
+        self.wo = p((H, vd, d), dtype, device, "fanin",
+                    axes=("heads", "head_dim", "embed"))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, *,
                 compute_dtype=torch.bfloat16, cache=None,
@@ -322,10 +449,10 @@ class MoEBlock(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.use_mla = cfg.use_mla
-        self.ln1 = cm.new_param((cfg.d_model,), torch.float32, device, "ones")
+        self.ln1 = cm.norm_param(cfg.d_model, device)
         self.attn = (MLAttention(cfg, dtype, device) if cfg.use_mla
                      else cm.GQAAttention(cfg, dtype, device))
-        self.ln2 = cm.new_param((cfg.d_model,), torch.float32, device, "ones")
+        self.ln2 = cm.norm_param(cfg.d_model, device)
         if moe:
             self.moe = MoE(cfg, dtype, device)
         else:
@@ -346,12 +473,12 @@ class MoEBlock(nn.Module):
             a, _ = self.attn(h, positions, compute_dtype=compute_dtype,
                              impl=impl, cache_kv=cache_kv,
                              cache_index=cache_index)
-        x = x + a
+        x = x + shard_act(a)
         h = cm.rmsnorm(x, self.ln2, self.eps)
         if hasattr(self, "moe"):
             out, aux = self.moe(h, compute_dtype)
-            return x + out, aux
-        return x + self.mlp(h, compute_dtype), None
+            return x + shard_act(out), aux
+        return x + shard_act(self.mlp(h, compute_dtype)), None
 
 
 class MTP(nn.Module):
@@ -362,8 +489,9 @@ class MTP(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         d = cfg.d_model
-        self.proj = cm.new_param((2 * d, d), dtype, device, "fanin")
-        self.ln = cm.new_param((d,), torch.float32, device, "ones")
+        self.proj = cm.new_param((2 * d, d), dtype, device, "fanin",
+                                 axes=("embed", None))
+        self.ln = cm.norm_param(d, device)
         self.layer = MoEBlock(cfg, dtype, device, moe=False,
                               d_ff=cfg.moe_d_ff * 4 if cfg.moe_d_ff
                               else cfg.d_ff)
@@ -393,8 +521,7 @@ class MoELM(nn.Module):
         self.layers = nn.ModuleList(
             MoEBlock(cfg, param_dtype, device, moe=True)
             for _ in range(cfg.n_layers - cfg.first_dense_layers))
-        self.final_norm = cm.new_param((cfg.d_model,), torch.float32, device,
-                                       "ones")
+        self.final_norm = cm.norm_param(cfg.d_model, device)
         if cfg.mtp_depth > 0:
             self.mtp = MTP(cfg, param_dtype, device)
         cm.draw_params(self, rng, device)
@@ -419,7 +546,7 @@ class MoELM(nn.Module):
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self.embed.embed(tokens, compute_dtype)
+        x = shard_act(self.embed.embed(tokens, compute_dtype))
         positions: Optional[torch.Tensor] = batch.get("positions")
         if positions is None:
             positions = (torch.arange(S, device=tokens.device)
@@ -480,14 +607,17 @@ class MoELM(nn.Module):
         cfg = self.cfg
         L = cfg.n_layers
         if cfg.use_mla:
-            kv = {"c_kv": CacheSpec((L, batch_size, max_seq,
-                                     cfg.kv_lora_rank), dtype, "zeros"),
-                  "k_rope": CacheSpec((L, batch_size, max_seq, 1,
-                                       cfg.qk_rope_dim), dtype, "zeros")}
+            kv = {"c_kv": CacheSpec(
+                      (L, batch_size, max_seq, cfg.kv_lora_rank), dtype,
+                      "zeros", axes=("layers", "batch", "kv_len", "kv_rank")),
+                  "k_rope": CacheSpec(
+                      (L, batch_size, max_seq, 1, cfg.qk_rope_dim), dtype,
+                      "zeros",
+                      axes=("layers", "batch", "kv_len", None, "head_dim"))}
         else:
             shape = (L, batch_size, max_seq, cfg.n_kv_heads, cfg.head_dim_)
-            kv = {"k": CacheSpec(shape, dtype, "zeros"),
-                  "v": CacheSpec(shape, dtype, "zeros")}
+            kv = {"k": CacheSpec(shape, dtype, "zeros", axes=cm.KV_AXES),
+                  "v": CacheSpec(shape, dtype, "zeros", axes=cm.KV_AXES)}
         return {"kv": kv, "index": CacheSpec((), torch.int32, "zeros")}
 
     def decode_step(self, cache: dict, tokens: torch.Tensor, *,

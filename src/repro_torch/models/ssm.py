@@ -36,6 +36,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding import context as sctx
+from repro_torch.sharding.context import shard_act
 from repro_torch.models.common import CacheSpec
 
 # the stabilisers' start, the reference's
@@ -51,11 +53,16 @@ SCAN_CHUNK = 256
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
-                  state: Optional[torch.Tensor] = None):
+                  state: Optional[torch.Tensor] = None, axis: str = "mlp"):
     """Depthwise causal convolution. x (B, S, C), w (k, C); ``state`` (B,
     k−1, C) holds the previous inputs (zeros without one). Returns (y, new
     state): y[t] = Σᵢ w[i]·x[t − (k−1) + i], summed in x's type from i = 0
-    up, as the reference's Python ``sum``."""
+    up, as the reference's Python ``sum``. Laid out on a mesh, each rank
+    convolves its batch rows and channels (logical axis ``axis``)."""
+    if sctx.is_dtensor(x):
+        ax = ("batch", None, axis)
+        return sctx.by_axes(causal_conv1d, (x, w, state),
+                            (ax, ("conv", axis), ax), (ax, ax))
     k = w.shape[0]
     S = x.shape[1]
     if state is None:
@@ -142,19 +149,28 @@ class Mamba2(nn.Module):
         H = din // cfg.ssm_head_dim
         ds, k = cfg.ssm_state, cfg.ssm_conv
         p = cm.new_param
-        self.wz = p((D, din), dtype, device, "fanin")
-        self.wx = p((D, din), dtype, device, "fanin")
-        self.wB = p((D, ds), dtype, device, "fanin")
-        self.wC = p((D, ds), dtype, device, "fanin")
-        self.wdt = p((D, H), dtype, device, "fanin")
-        self.conv_x = p((k, din), dtype, device, "fanin")
-        self.conv_B = p((k, ds), dtype, device, "fanin")
-        self.conv_C = p((k, ds), dtype, device, "fanin")
-        self.A_log = p((H,), torch.float32, device, "scalar", 0.0)
-        self.D_skip = p((H,), torch.float32, device, "ones")
-        self.dt_bias = p((H,), torch.float32, device, "zeros")
-        self.gnorm = p((din,), torch.float32, device, "ones")
-        self.wo = p((din, D), dtype, device, "fanin")
+        self.wz = p((D, din), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.wx = p((D, din), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.wB = p((D, ds), dtype, device, "fanin",
+                    axes=("embed", "ssm_state"))
+        self.wC = p((D, ds), dtype, device, "fanin",
+                    axes=("embed", "ssm_state"))
+        self.wdt = p((D, H), dtype, device, "fanin",
+                     axes=("embed", "ssm_heads"))
+        self.conv_x = p((k, din), dtype, device, "fanin",
+                        axes=("conv", "mlp"))
+        self.conv_B = p((k, ds), dtype, device, "fanin",
+                        axes=("conv", "ssm_state"))
+        self.conv_C = p((k, ds), dtype, device, "fanin",
+                        axes=("conv", "ssm_state"))
+        self.A_log = p((H,), torch.float32, device, "scalar", 0.0,
+                       axes=("ssm_heads",))
+        self.D_skip = p((H,), torch.float32, device, "ones",
+                        axes=("ssm_heads",))
+        self.dt_bias = p((H,), torch.float32, device, "zeros",
+                         axes=("ssm_heads",))
+        self.gnorm = cm.norm_param(din, device)
+        self.wo = p((din, D), dtype, device, "fanin", axes=("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[dict] = None,
                 compute_dtype=torch.bfloat16):
@@ -178,8 +194,10 @@ class Mamba2(nn.Module):
 
         st = state or {}
         u, cs_x = causal_conv1d(u, self.conv_x.to(cd), st.get("conv_x"))
-        Bm, cs_B = causal_conv1d(Bm, self.conv_B.to(cd), st.get("conv_B"))
-        Cm, cs_C = causal_conv1d(Cm, self.conv_C.to(cd), st.get("conv_C"))
+        Bm, cs_B = causal_conv1d(Bm, self.conv_B.to(cd), st.get("conv_B"),
+                                 "ssm_state")
+        Cm, cs_C = causal_conv1d(Cm, self.conv_C.to(cd), st.get("conv_C"),
+                                 "ssm_state")
         u = F.silu(u.to(torch.float32)).to(cd)
         Bm = F.silu(Bm.to(torch.float32)).to(cd)
         Cm = F.silu(Cm.to(torch.float32)).to(cd)
@@ -197,7 +215,14 @@ class Mamba2(nn.Module):
             y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].to(torch.float32),
                              h_final)[:, None]
         else:
-            y, h_final = ssd_scan(uh, dt, self.A_log, Bm, Cm, h0)
+            y, h_final = sctx.by_axes(
+                ssd_scan, (uh, dt, self.A_log, Bm, Cm, h0),
+                (("batch", None, "ssm_heads", None),
+                 ("batch", None, "ssm_heads"), ("ssm_heads",),
+                 ("batch", None, None), ("batch", None, None),
+                 ("batch", "ssm_heads", None, None)),
+                (("batch", None, "ssm_heads", None),
+                 ("batch", "ssm_heads", None, None)))
         y = y + uh.to(torch.float32) * self.D_skip[None, None, :, None]
         y = y.reshape(B, S, din).to(cd)
         y = cm.rmsnorm(y * F.silu(z.to(torch.float32)).to(cd), self.gnorm,
@@ -217,11 +242,16 @@ def mamba2_state_specs(cfg: ModelConfig, n_layers: int, batch: int,
     H = din // cfg.ssm_head_dim
     k, L = cfg.ssm_conv, n_layers
     return {
-        "conv_x": CacheSpec((L, batch, k - 1, din), dtype, "zeros"),
-        "conv_B": CacheSpec((L, batch, k - 1, cfg.ssm_state), dtype, "zeros"),
-        "conv_C": CacheSpec((L, batch, k - 1, cfg.ssm_state), dtype, "zeros"),
+        "conv_x": CacheSpec((L, batch, k - 1, din), dtype, "zeros",
+                            axes=("layers", "batch", "conv", "mlp")),
+        "conv_B": CacheSpec((L, batch, k - 1, cfg.ssm_state), dtype, "zeros",
+                            axes=("layers", "batch", "conv", "ssm_state")),
+        "conv_C": CacheSpec((L, batch, k - 1, cfg.ssm_state), dtype, "zeros",
+                            axes=("layers", "batch", "conv", "ssm_state")),
         "h": CacheSpec((L, batch, H, cfg.ssm_head_dim, cfg.ssm_state),
-                       torch.float32, "zeros"),
+                       torch.float32, "zeros",
+                       axes=("layers", "batch", "ssm_heads", "head_dim",
+                             "ssm_state")),
     }
 
 
@@ -283,19 +313,22 @@ class MLSTMBlock(nn.Module):
         D = cfg.d_model
         din, H, k = 2 * D, cfg.n_heads, cfg.ssm_conv
         p = cm.new_param
-        self.ln = p((D,), torch.float32, device, "ones")
-        self.wu = p((D, din), dtype, device, "fanin")
-        self.wzg = p((D, din), dtype, device, "fanin")
-        self.conv = p((k, din), dtype, device, "fanin")
-        self.wq = p((din, din), dtype, device, "fanin")
-        self.wk = p((din, din), dtype, device, "fanin")
-        self.wv = p((din, din), dtype, device, "fanin")
-        self.wi = p((din, H), dtype, device, "fanin")
-        self.wf = p((din, H), dtype, device, "fanin")
-        self.bi = p((H,), torch.float32, device, "zeros")
-        self.bf = p((H,), torch.float32, device, "scalar", 3.0)
-        self.gnorm = p((din,), torch.float32, device, "ones")
-        self.wo = p((din, D), dtype, device, "fanin")
+        self.ln = cm.norm_param(D, device)
+        self.wu = p((D, din), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.wzg = p((D, din), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.conv = p((k, din), dtype, device, "fanin", axes=("conv", "mlp"))
+        self.wq = p((din, din), dtype, device, "fanin", axes=("mlp", None))
+        self.wk = p((din, din), dtype, device, "fanin", axes=("mlp", None))
+        self.wv = p((din, din), dtype, device, "fanin", axes=("mlp", None))
+        self.wi = p((din, H), dtype, device, "fanin",
+                    axes=("mlp", "ssm_heads"))
+        self.wf = p((din, H), dtype, device, "fanin",
+                    axes=("mlp", "ssm_heads"))
+        self.bi = p((H,), torch.float32, device, "zeros", axes=("ssm_heads",))
+        self.bf = p((H,), torch.float32, device, "scalar", 3.0,
+                    axes=("ssm_heads",))
+        self.gnorm = cm.norm_param(din, device)
+        self.wo = p((din, D), dtype, device, "fanin", axes=("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[dict] = None,
                 compute_dtype=torch.bfloat16):
@@ -315,20 +348,30 @@ class MLSTMBlock(nn.Module):
         q = (uc @ self.wq.to(cd)).reshape(B, S, H, dk)
         k = (uc @ self.wk.to(cd)).reshape(B, S, H, dk)
         v = (u @ self.wv.to(cd)).reshape(B, S, H, dk)
-        it = (uc @ self.wi.to(cd)).to(torch.float32) + self.bi
-        ft = _log_sigmoid((uc @ self.wf.to(cd)).to(torch.float32) + self.bf)
+        # over a mesh the gate products' partial sums (their contraction
+        # is split) are reduced into the heads' layout before the biases,
+        # which are split over the heads
+        bsh = ("batch", None, "ssm_heads")
+        it = shard_act((uc @ self.wi.to(cd)).to(torch.float32), bsh) + self.bi
+        ft = _log_sigmoid(shard_act(
+            (uc @ self.wf.to(cd)).to(torch.float32), bsh) + self.bf)
         f32 = dict(dtype=torch.float32, device=x.device)
         C0 = st.get("C", torch.zeros((B, H, dk, dk), **f32))
         n0 = st.get("n", torch.zeros((B, H, dk), **f32))
         m0 = st.get("m", torch.full((B, H), M_INIT, **f32))
-        (Cf, nf, mf), hs = mlstm_scan(q, k, v, it, ft, C0, n0, m0)
+        bsh, bh = ("batch", None, "ssm_heads"), ("batch", "ssm_heads")
+        (Cf, nf, mf), hs = sctx.by_axes(
+            mlstm_scan, (q, k, v, it, ft, C0, n0, m0),
+            (bsh + (None,),) * 3 + (bsh, bsh, bh + (None, None),
+                                    bh + (None,), bh),
+            ((bh + (None, None), bh + (None,), bh), bsh + (None,)))
         h = hs.reshape(B, S, din).to(cd)
         h = cm.rmsnorm(h, self.gnorm, cfg.norm_eps)
         h = h * F.silu(zg.to(torch.float32)).to(cd)
         out = h @ self.wo.to(cd)
         new_state = {"conv": conv_state, "C": Cf, "n": nf, "m": mf}
         _write_state(state, new_state)
-        return x + out.to(x.dtype), new_state
+        return x + shard_act(out.to(x.dtype)), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -388,13 +431,15 @@ class SLSTMBlock(nn.Module):
         dh = D // H
         f_up = slstm_up_width(D)
         p = cm.new_param
-        self.ln = p((D,), torch.float32, device, "ones")
-        self.wg = p((D, 4 * D), dtype, device, "fanin")
-        self.rg = p((H, dh, 4 * dh), dtype, device, "fanin")
-        self.bg = p((4 * D,), torch.float32, device, "zeros")
-        self.gnorm = p((D,), torch.float32, device, "ones")
-        self.up = p((D, f_up), dtype, device, "fanin")
-        self.down = p((f_up, D), dtype, device, "fanin")
+        self.ln = cm.norm_param(D, device)
+        self.wg = p((D, 4 * D), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.rg = p((H, dh, 4 * dh), dtype, device, "fanin",
+                    axes=("ssm_heads", "head_dim", None))
+        self.bg = p((4 * D,), torch.float32, device, "zeros", axes=("mlp",))
+        self.gnorm = cm.norm_param(D, device)
+        self.up = p((D, f_up), dtype, device, "fanin", axes=("embed", "mlp"))
+        self.down = p((f_up, D), dtype, device, "fanin",
+                      axes=("mlp", "embed"))
 
     def forward(self, x: torch.Tensor, state: Optional[dict] = None,
                 compute_dtype=torch.bfloat16):
@@ -413,8 +458,13 @@ class SLSTMBlock(nn.Module):
         n0 = st.get("n", torch.zeros((B, H, dh), **f32))
         h0 = st.get("h", torch.zeros((B, H, dh), **f32))
         m0 = st.get("m", torch.full((B, H, dh), M_INIT, **f32))
-        (cf, nf, hf, mf), hs = slstm_scan(wx, self.rg.to(torch.float32),
-                                          c0, n0, h0, m0)
+        bhd = ("batch", "ssm_heads", None)
+        (cf, nf, hf, mf), hs = sctx.by_axes(
+            slstm_scan, (wx.reshape(B, S, H, 4 * dh),
+                         self.rg.to(torch.float32), c0, n0, h0, m0),
+            (("batch", None, "ssm_heads", None), ("ssm_heads", None, None))
+            + (bhd,) * 4,
+            ((bhd,) * 4, ("batch", None, "ssm_heads", None)))
         h = hs.reshape(B, S, D).to(cd)
         h = cm.rmsnorm(h, self.gnorm, cfg.norm_eps)
         up = F.gelu((h @ self.up.to(cd)).to(torch.float32),
@@ -422,7 +472,7 @@ class SLSTMBlock(nn.Module):
         out = up @ self.down.to(cd)
         new_state = {"c": cf, "n": nf, "h": hf, "m": mf}
         _write_state(state, new_state)
-        return x + out.to(x.dtype), new_state
+        return x + shard_act(out.to(x.dtype)), new_state
 
 
 # ---------------------------------------------------------------------------
@@ -462,8 +512,7 @@ class XLSTM(nn.Module):
                                    for _ in range(self.n_mlstm))
         self.slstm = nn.ModuleList(SLSTMBlock(cfg, param_dtype, device)
                                    for _ in range(self.n_slstm))
-        self.final_norm = cm.new_param((cfg.d_model,), torch.float32, device,
-                                       "ones")
+        self.final_norm = cm.norm_param(cfg.d_model, device)
         cm.draw_params(self, rng, device)
 
     @property
@@ -480,18 +529,24 @@ class XLSTM(nn.Module):
         dk, dh = din // H, cfg.d_model // H
         L, B, f32 = self.n_mlstm, batch_size, torch.float32
         spec = {"m_state": {
-            "conv": CacheSpec((L, B, cfg.ssm_conv - 1, din), f32, "zeros"),
-            "C": CacheSpec((L, B, H, dk, dk), f32, "zeros"),
-            "n": CacheSpec((L, B, H, dk), f32, "zeros"),
-            "m": CacheSpec((L, B, H), f32, "scalar", M_INIT)},
+            "conv": CacheSpec((L, B, cfg.ssm_conv - 1, din), f32, "zeros",
+                              axes=("layers", "batch", "conv", "mlp")),
+            "C": CacheSpec((L, B, H, dk, dk), f32, "zeros",
+                           axes=("layers", "batch", "ssm_heads", "head_dim",
+                                 None)),
+            "n": CacheSpec((L, B, H, dk), f32, "zeros",
+                           axes=("layers", "batch", "ssm_heads", "head_dim")),
+            "m": CacheSpec((L, B, H), f32, "scalar", M_INIT,
+                           ("layers", "batch", "ssm_heads"))},
             "index": CacheSpec((), torch.int32, "zeros")}
         if self.n_slstm:
             shape = (self.n_slstm, B, H, dh)
+            ax = ("layers", "batch", "ssm_heads", "head_dim")
             spec["s_state"] = {
-                "c": CacheSpec(shape, f32, "zeros"),
-                "n": CacheSpec(shape, f32, "zeros"),
-                "h": CacheSpec(shape, f32, "zeros"),
-                "m": CacheSpec(shape, f32, "scalar", M_INIT)}
+                "c": CacheSpec(shape, f32, "zeros", axes=ax),
+                "n": CacheSpec(shape, f32, "zeros", axes=ax),
+                "h": CacheSpec(shape, f32, "zeros", axes=ax),
+                "m": CacheSpec(shape, f32, "scalar", M_INIT, ax)}
         return spec
 
     def forward(self, batch: dict, *, remat: str = "full",
@@ -505,7 +560,7 @@ class XLSTM(nn.Module):
         ``mlstm_scan`` and ``slstm_scan`` do), and there is no
         attention."""
         tokens = batch["tokens"]
-        x = self.embed.embed(tokens, compute_dtype)
+        x = shard_act(self.embed.embed(tokens, compute_dtype))
         m_tree = cache["m_state"] if cache is not None else None
         s_tree = cache.get("s_state") if cache is not None else None
         for gi in range(self.groups):

@@ -19,6 +19,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding.context import shard_act
 from repro_torch.models.common import CacheSpec
 
 
@@ -29,9 +30,9 @@ class DenseLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device):
         super().__init__()
         self.eps = cfg.norm_eps
-        self.ln1 = cm.new_param((cfg.d_model,), torch.float32, device, "ones")
+        self.ln1 = cm.norm_param(cfg.d_model, device)
         self.attn = cm.GQAAttention(cfg, dtype, device)
-        self.ln2 = cm.new_param((cfg.d_model,), torch.float32, device, "ones")
+        self.ln2 = cm.norm_param(cfg.d_model, device)
         self.mlp = cm.MLP(cfg, dtype, device)
 
     def forward(self, x, positions, compute_dtype, impl: str, cache_kv=None,
@@ -43,9 +44,9 @@ class DenseLayer(nn.Module):
                                 impl=impl, cache_kv=cache_kv,
                                 cache_index=cache_index, causal=causal,
                                 positions3=positions3)
-        x = x + attn_out
+        x = x + shard_act(attn_out)
         h = cm.rmsnorm(x, self.ln2, self.eps)
-        return x + self.mlp(h, compute_dtype)
+        return x + shard_act(self.mlp(h, compute_dtype))
 
 
 class DenseLM(nn.Module):
@@ -68,8 +69,7 @@ class DenseLM(nn.Module):
         self.embed = cm.Embed(cfg, param_dtype, device)
         self.layers = nn.ModuleList(DenseLayer(cfg, param_dtype, device)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = cm.new_param((cfg.d_model,), torch.float32, device,
-                                       "ones")
+        self.final_norm = cm.norm_param(cfg.d_model, device)
         cm.draw_params(self, rng, device)
 
     @property
@@ -95,7 +95,7 @@ class DenseLM(nn.Module):
         cache-free forward only)."""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        x = self.embed.embed(tokens, compute_dtype)
+        x = shard_act(self.embed.embed(tokens, compute_dtype))
         positions: Optional[torch.Tensor] = batch.get("positions")
         if positions is None:
             positions = (torch.arange(S, device=tokens.device)
@@ -128,13 +128,17 @@ class DenseLM(nn.Module):
         index = CacheSpec((), torch.int32, "zeros")
         if cfg.kv_quant:
             s_shape = kv_shape[:-1]
-            return {"k_q": CacheSpec(kv_shape, torch.int8, "zeros"),
-                    "k_s": CacheSpec(s_shape, torch.bfloat16, "ones"),
-                    "v_q": CacheSpec(kv_shape, torch.int8, "zeros"),
-                    "v_s": CacheSpec(s_shape, torch.bfloat16, "ones"),
+            ax, s_ax = cm.KV_AXES, cm.KV_AXES[:-1]
+            return {"k_q": CacheSpec(kv_shape, torch.int8, "zeros", axes=ax),
+                    "k_s": CacheSpec(s_shape, torch.bfloat16, "ones",
+                                     1.0, s_ax),
+                    "v_q": CacheSpec(kv_shape, torch.int8, "zeros", axes=ax),
+                    "v_s": CacheSpec(s_shape, torch.bfloat16, "ones",
+                                     1.0, s_ax),
                     "index": index}
-        return {"k": CacheSpec(kv_shape, dtype, "zeros"),
-                "v": CacheSpec(kv_shape, dtype, "zeros"), "index": index}
+        return {"k": CacheSpec(kv_shape, dtype, "zeros", axes=cm.KV_AXES),
+                "v": CacheSpec(kv_shape, dtype, "zeros", axes=cm.KV_AXES),
+                "index": index}
 
     def decode_step(self, cache: dict, tokens: torch.Tensor, *,
                     compute_dtype=torch.bfloat16,

@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import common as cm
+from repro_torch.sharding.context import shard_act
 from repro_torch.models.transformer import DenseLM, _layer_kv
 
 
@@ -25,7 +26,7 @@ class VLM(DenseLM):
         S) int; default every stream at ``cache_index + arange(S)``}.
         Returns (logits, new_cache), as ``DenseLM``'s; ``remat`` wraps each
         layer as there."""
-        x = batch["embeds"].to(compute_dtype)
+        x = shard_act(batch["embeds"].to(compute_dtype))
         B, S = x.shape[:2]
         positions3 = batch.get("positions3")
         if positions3 is None:

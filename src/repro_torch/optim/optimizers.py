@@ -25,6 +25,8 @@ from typing import Callable, Dict, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.context import is_dtensor
+
 # elements a slice of a leaf, at most (a whole leaf when it is smaller)
 SLICE_ELEMS = 1 << 25
 
@@ -41,12 +43,19 @@ def _f32(x) -> np.float32:
     return np.float32(x)
 
 
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank (a view: writes reach the DTensor);
+    a plain tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def row_slices(t: torch.Tensor):
     """Slices along t's first axis covering it, each at most SLICE_ELEMS
     elements (at least one row); the whole tensor for a vector or one that
-    fits."""
+    fits, and for a DTensor, whose slices along a sharded dim would gather
+    it (each rank's shard is a part of the leaf already)."""
     max_elems = SLICE_ELEMS
-    if t.dim() < 2 or t.numel() <= max_elems:
+    if t.dim() < 2 or t.numel() <= max_elems or is_dtensor(t):
         return [...]
     per = max(1, max_elems // max(t[0].numel(), 1))
     return [slice(s, s + per) for s in range(0, t.shape[0], per)]
@@ -59,8 +68,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     to the normalised step."""
 
     def init(params: Dict[str, torch.Tensor]) -> dict:
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device)
+        # zeros_like: a DTensor parameter's state is a DTensor of its layout
+        zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
         return {"m": {n: zeros(p) for n, p in params.items()},
                 "v": {n: zeros(p) for n, p in params.items()}}
 
@@ -71,7 +80,9 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c2 = float(np.float32(1.0) - np.float32(b2) ** t)
         lr = float(_f32(lr))
         for name, p in params.items():
-            g, m, v = grads[name], state["m"][name], state["v"][name]
+            # elementwise: each rank updates its own shards
+            p, g, m, v = (local(t) for t in (p, grads[name], state["m"][name],
+                                             state["v"][name]))
             for sl in row_slices(p):
                 gs = g[sl].to(torch.float32)
                 ms, vs = m[sl], v[sl]
@@ -201,7 +212,7 @@ def adafactor(eps: float = 1e-30, clip_rms: float = 1.0,
             g2 = g2_of(g)
             r.copy_(beta2 * r + omb2 * torch.mean(g2, dim=-1))
             if matrix:
-                col_sum += torch.sum(g2, dim=0)
+                col_sum = col_sum + torch.sum(g2, dim=0)
                 rows += g2.shape[0]
             else:
                 c.copy_(beta2 * c + omb2 * torch.mean(g2, dim=-2))
@@ -217,13 +228,23 @@ def adafactor(eps: float = 1e-30, clip_rms: float = 1.0,
         sumsq = torch.zeros((), dtype=torch.float32, device=s["r"].device)
         for _, g, r, c in parts:                  # pass 2: the leaf's RMS
             u = u_of(g, r, c)
-            sumsq += torch.sum(u * u)
+            sumsq = sumsq + torch.sum(u * u)
         div = clip_div(sumsq, n)
         for p, g, r, c in parts:                  # pass 3: the update
             apply(p, u_of(g, r, c) / div, lr)
 
     @torch.no_grad()
     def update(grads, state, params, step, lr):
+        if any(is_dtensor(p) for p in params.values()):
+            # laid out on a mesh: the same passes in DTensor ops, whose
+            # means and sums over a sharded dim reduce across its ranks
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                return _update(grads, state, params, step, lr)
+        return _update(grads, state, params, step, lr)
+
+    def _update(grads, state, params, step, lr):
         t = _f32(step) + np.float32(1.0)
         beta2 = np.float32(1.0) - t ** np.float32(-decay_pow)
         omb2 = float(np.float32(1.0) - beta2)
@@ -252,9 +273,10 @@ def sgd() -> Optimizer:
     def update(grads, state, params, step, lr):
         lr = float(_f32(lr))
         for name, p in params.items():
+            p, g = local(p), local(grads[name])
             for sl in row_slices(p):
                 p[sl] = (p[sl].to(torch.float32)
-                         - lr * grads[name][sl].to(torch.float32))
+                         - lr * g[sl].to(torch.float32))
         return params, state
 
     return Optimizer(init, update)

@@ -79,6 +79,13 @@ class Supervisor:
     ckpt_every: int = 50
     max_failures: int = 8
     injector: Optional[FailureInjector] = None
+    # (ckpt, live state) -> (state, the checkpoint's step or None): how the
+    # latest checkpoint comes back (default: into the live state in place;
+    # over a mesh ``runtime.elastic.restore_sharded`` into each rank's shards)
+    restore: Optional[Callable] = None
+    # (ckpt, step, state): how a checkpoint is written (default
+    # ``ckpt.save``; over a mesh ``runtime.elastic.save_sharded``)
+    save: Optional[Callable] = None
 
     def _start(self, state: Optional[dict]):
         """(state, first step): the latest checkpoint restored into the live
@@ -86,7 +93,10 @@ class Supervisor:
         fresh state from step 0."""
         if state is None or self.ckpt.latest_step() is None:
             state = self.init_state()
-        step = restore_in_place(self.ckpt, state)
+        if self.restore is None:
+            step = restore_in_place(self.ckpt, state)
+        else:
+            state, step = self.restore(self.ckpt, state)
         if step is None:
             log.info("fresh start")
             return state, 0
@@ -111,7 +121,10 @@ class Supervisor:
                     watchdog.stop(step)
                     if ((step + 1) % self.ckpt_every == 0
                             or step == total_steps - 1):
-                        self.ckpt.save(step, state)
+                        if self.save is None:
+                            self.ckpt.save(step, state)
+                        else:
+                            self.save(self.ckpt, step, state)
                 self.ckpt.wait()
                 return state
             except KeyboardInterrupt:

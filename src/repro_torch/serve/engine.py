@@ -17,8 +17,10 @@ With ``index_append=True`` each step's (hidden, next-token) pairs are
 inserted back into the index, and the handle's ``CompactionPolicy``
 amortises the tombstone debt.
 
-The model is an ``nn.Module`` holding its weights (no parameter tree, no
-mesh); the engine runs on one device, and a sharded index
+The model is an ``nn.Module`` holding its weights (no parameter tree);
+the engine runs on one device, or under a plan over a mesh of ranks
+(``mesh=``: the model and cache laid out, every rank generating the same
+tokens), and a sharded index
 (``index_shards > 1``) puts its shards on that device. On a fleet's shared
 plane (``Fleet.serve()``) the retrieval tickets carry ``plane_namespace``,
 and the payload lookups and appends go to that namespace's live handle,
@@ -39,6 +41,10 @@ from repro_torch.device import resolve_device
 from repro_torch.serve.plane import PlaneConfig, RequestPlane
 from repro_torch.serve.steps import (COMPUTE_DTYPE, init_cache,
                                      make_prefill_step)
+from repro_torch.sharding import context as sctx
+from repro_torch.sharding.place import place
+from repro_torch.sharding.spec import rules_for
+from repro_torch.train.steps import batch_pspecs
 
 __all__ = ["KNNLMConfig", "QueryCache", "ServeEngine", "TOKEN_FAMILIES"]
 
@@ -104,7 +110,8 @@ class ServeEngine:
                  knn_lm: Optional[KNNLMConfig] = None,
                  datastore=None, index=None, index_append: bool = False,
                  plane: Optional[RequestPlane] = None,
-                 plane_namespace: Optional[str] = None, device=None):
+                 plane_namespace: Optional[str] = None, device=None,
+                 mesh=None):
         """``model``: a model of a token family (``TOKEN_FAMILIES``) on
         ``device`` (default: the GPU; raises without one); the kNN-LM hook
         reads hidden states, which only the dense family exposes. ``datastore``: (keys (N, d), next-token ids (N,)),
@@ -118,7 +125,12 @@ class ServeEngine:
         retrieval tickets carry on a fleet's plane (None on a one-index
         plane). There the engine keeps no handle of its own: ``index``
         (given, if at all, to attach the next-token ids) is read back from
-        the router at each use, so an evicted namespace is not pinned."""
+        the router at each use, so an evicted namespace is not pinned.
+        ``mesh``: serve under ``plan`` over this ``DeviceMesh``, the
+        model's parameters laid out on it (``serve.steps.place_model``),
+        the cache sharded batch × heads, every rank running the same
+        ``generate`` (the reference's ``ServeEngine`` over its mesh); the
+        retrieval index stays where it is, on each rank's device."""
         device = resolve_device(device)
         family = model.cfg.family
         if family not in TOKEN_FAMILIES:
@@ -136,7 +148,10 @@ class ServeEngine:
         self.device = device
         self.batch_size = batch_size
         self.max_seq = max_seq
-        self.prefill_step = make_prefill_step(model, plan)
+        self.mesh = mesh
+        self.rules = rules_for(plan, mesh) if mesh is not None else None
+        self.prefill_step = make_prefill_step(model, plan, mesh,
+                                              rules=self.rules)
         self.knn_lm = knn_lm
         self._index: Optional[Index] = None
         self.index_append = index_append
@@ -180,19 +195,30 @@ class ServeEngine:
         else:
             self.plane = (RequestPlane(self._index, knn_lm.plane)
                           if self._index is not None else None)
-        self.cache = init_cache(model, batch_size, max_seq)
+        self.cache = init_cache(model, batch_size, max_seq, mesh=mesh,
+                                plan=plan, rules=self.rules)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens):
         """(logits, new_cache, last hidden (B, d) in fp32, or None without
-        the kNN-LM hook), in bf16."""
+        the kNN-LM hook), in bf16; over a mesh, the logits and hidden
+        whole on every rank."""
+        if self.mesh is None:
+            return self._decode(cache, tokens, lambda t: t)
+        with sctx.activation_sharding(self.rules, self.mesh):
+            tokens = place(tokens, batch_pspecs(
+                {"tokens": tokens}, self.rules)["tokens"], self.mesh)
+            return self._decode(cache, tokens, sctx.replicated)
+
+    def _decode(self, cache, tokens, whole):
         if self.knn_lm is None:
             logits, new_cache = self.model.decode_step(
                 cache, tokens, compute_dtype=COMPUTE_DTYPE)
-            return logits, new_cache, None
+            return whole(logits), new_cache, None
         logits, new_cache, hidden = self.model.decode_step(
             cache, tokens, compute_dtype=COMPUTE_DTYPE, return_hidden=True)
-        return logits, new_cache, hidden[:, -1].to(torch.float32)
+        return (whole(logits), new_cache,
+                whole(hidden)[:, -1].to(torch.float32))
 
     # -- kNN-LM hook (the paper's technique in the serving path) ------------
 

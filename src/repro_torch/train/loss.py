@@ -52,6 +52,67 @@ class _TokenNLL(torch.autograd.Function):
         return grad, None, None
 
 
+class _ShardedNLL(torch.autograd.Function):
+    """``_TokenNLL`` over a vocabulary split across the ranks of ``group``:
+    lf (N, V/m) holds this rank's columns, from ``v0`` on. The row's max
+    and its sum of exponentials are reduced over the group (the max, then
+    the sum), the label's logit taken by the rank that holds it and summed
+    over the group; the backward's softmax is local. Every rank of the
+    group returns the same (N,) values."""
+
+    @staticmethod
+    def forward(ctx, lf, idx, in_range, v0: int, group):
+        import torch.distributed as dist
+        rows = lf.to(torch.float32)
+        m = torch.amax(rows, dim=-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        se = torch.sum(torch.exp(rows - m[:, None]), dim=-1)
+        dist.all_reduce(se, group=group)
+        lse = m + torch.log(se)
+        mine = in_range & (idx >= v0) & (idx < v0 + lf.shape[-1])
+        loc = torch.where(mine, idx - v0, 0)
+        ll = torch.where(mine, torch.gather(rows, 1, loc[:, None])[:, 0], 0.0)
+        dist.all_reduce(ll, group=group)
+        ctx.save_for_backward(lf, loc, mine, lse)
+        return lse - ll
+
+    @staticmethod
+    def backward(ctx, g):
+        lf, loc, mine, lse = ctx.saved_tensors
+        p = lf.to(torch.float32, copy=True)
+        p.sub_(lse[:, None]).exp_()
+        rows = torch.arange(p.shape[0], device=p.device)
+        p[rows, loc] -= mine.to(torch.float32)
+        return p.mul_(g[:, None]).to(lf.dtype), None, None, None, None
+
+
+def _sharded_nll(logits, in_range, idx):
+    """(B, S) nll of DTensor logits (B, S, V): the rows laid out as the
+    rules lay out the batch, the vocabulary over the axis ``vocab`` maps
+    to where it divides (``_ShardedNLL``), or whole (``_TokenNLL``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.sharding import context as sctx
+    from repro_torch.sharding.spec import placements
+    rules, mesh = sctx.current()
+    want = placements(rules.pspec(("batch", None, "vocab"),
+                                  tuple(logits.shape)), mesh)
+    rows_pl = [Shard(0) if p == Shard(0) else Replicate() for p in want]
+    vocab_dims = [i for i, p in enumerate(want) if p == Shard(2)]
+
+    def local_nll(lf, ix, ok):
+        B, S, Vl = lf.shape
+        lf, ix, ok = lf.reshape(-1, Vl), ix.reshape(-1), ok.reshape(-1)
+        if not vocab_dims:
+            return _TokenNLL.apply(lf, ix, ok).reshape(B, S)
+        dim = vocab_dims[0]
+        v0 = mesh.get_local_rank(dim) * Vl
+        return _ShardedNLL.apply(lf, ix, ok, v0,
+                                 mesh.get_group(dim)).reshape(B, S)
+
+    return sctx.local_call(local_nll, (logits, idx, in_range),
+                           (want, rows_pl, rows_pl), rows_pl, mesh)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore_index: int = -100):
     """logits (B, S, V) any float type; labels (B, S) int. Returns (mean loss
@@ -61,16 +122,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     stays sharded with vocab-sharded logits; here one gather does it. The
     value is the same: the one-hot sum adds exact zeros. A label outside
     [0, V) picks 0, as its all-zero one-hot row does, and so takes no
-    one-hot term in the gradient either."""
+    one-hot term in the gradient either. Logits laid out on a mesh
+    (DTensors, under ``activation_sharding``) with the vocabulary split
+    take the logsumexp as a cross-rank max and sum (``_ShardedNLL``)."""
     V = logits.shape[-1]
-    lf = logits.reshape(-1, V)
-    lab = labels.reshape(-1)
-    in_range = (lab >= 0) & (lab < V)
-    idx = torch.where(in_range, lab, 0).to(torch.int64)
-    nll = _TokenNLL.apply(lf, idx, in_range)
     mask = (labels != ignore_index).to(torch.float32)
     n = torch.clamp(torch.sum(mask), min=1.0)
-    return torch.sum(nll.reshape(labels.shape) * mask) / n, n
+    in_range = (labels >= 0) & (labels < V)
+    idx = torch.where(in_range, labels, 0).to(torch.int64)
+    from repro_torch.sharding import context as sctx
+    if sctx.is_dtensor(logits):
+        nll = _sharded_nll(logits, in_range, idx)
+    else:
+        nll = _TokenNLL.apply(logits.reshape(-1, V), idx.reshape(-1),
+                              in_range.reshape(-1)).reshape(labels.shape)
+    return torch.sum(nll * mask) / n, n
 
 
 def lm_loss(model, batch: dict, *, remat: str = "full",

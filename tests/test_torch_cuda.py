@@ -1491,3 +1491,50 @@ def test_supervisor_restart_is_bit_identical_on_the_card(gen, tmp_path):
     assert set(a) == set(b)
     for k in a:
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device plans: two ranks on cuda:0, joined by gloo
+# ---------------------------------------------------------------------------
+
+def test_plans_tp_serving_on_the_card(gen, monkeypatch):
+    """qwen2.5-14b SMOKE served under its plan (tp) by two ranks on cuda:0,
+    fp32 compute and cache, against one rank on the card: logits at 1e-4."""
+    import test_torch_plan_ranks as ranks
+    from repro_torch import dist as rdist
+    import repro_torch.serve.steps as steps
+    monkeypatch.setattr(steps, "COMPUTE_DTYPE", torch.float32)
+    tokens = np.random.default_rng(2).integers(0, 256, (2, 12))
+    got = rdist.spawn(ranks.serve_tp_rank, 2, ("qwen2.5-14b", tokens, 8,
+                                               "float32"), device="cuda",
+                      timeout=600)
+    want = ranks.serve_logits("qwen2.5-14b", tokens, 8, device="cuda")
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_plans_pipeline_and_compression_on_the_card(gen):
+    """The GPipe schedule over two stage ranks on cuda:0 (its send/recv
+    staged through host memory) against sequential application, and
+    ``compressed_psum`` over two ranks bit for bit."""
+    import test_torch_plan_ranks as ranks
+    from repro_torch import dist as rdist
+    r = np.random.default_rng(5)
+    W = (r.normal(size=(4, 16, 16)) * 0.2).astype(np.float32)
+    x = r.normal(size=(3, 4, 16)).astype(np.float32)
+    y, g = rdist.spawn(ranks.pipeline_rank, 2, (W, x, 2), device="cuda",
+                       timeout=600)
+    Wt = torch.from_numpy(W).requires_grad_(True)
+    want = torch.stack([_tanh_layers(Wt, xm) for xm in torch.from_numpy(x)])
+    torch.sum(want ** 2).backward()
+    torch.testing.assert_close(y, want.detach(), rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(g, Wt.grad, rtol=1e-4, atol=1e-5)
+    gr = r.normal(size=(2, 4096)).astype(np.float32)
+    er = (r.normal(size=(2, 4096)) * 1e-2).astype(np.float32)
+    assert rdist.spawn(ranks.compressed, 2, (gr, er), device="cuda",
+                       timeout=600) == [(True, True)] * 2
+
+
+def _tanh_layers(W, x):
+    for w in W:
+        x = torch.tanh(x @ w)
+    return x

@@ -30,7 +30,7 @@ from repro.sharding.spec import init_params
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ParallelPlan
 from repro_torch.models import build_model, moe
-from repro_torch.serve import make_decode_step, make_prefill_step
+from repro_torch.serve import init_cache, make_decode_step, make_prefill_step
 
 from test_torch_families import (BF16, FP32, DTYPES, as_written, batch_of,
                                  check_init_cache, check_loss,
@@ -396,13 +396,28 @@ def test_model_topk_ids_match_reference(arch, monkeypatch):
     assert min(gaps) > 1e-6, gaps
 
 
-def test_ep_plan_raises():
-    """Expert parallelism is not ported: a step under ``ep=True`` raises,
-    as every multi-device plan does."""
+def test_ep_plan_raises(tmp_path):
+    """Expert parallelism (once refused) runs: under ``ep=True`` over a
+    one-rank mesh the steps give the one-device logits (the two-rank
+    all-to-alls: tests/test_torch_plans.py); a mesh larger than the world
+    raises."""
+    from test_torch_plan_ranks import one_rank_group
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.serve.steps import place_model
     tm = build_model(DBRX, device="cpu")
-    for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="ep=True"):
-            make(tm, ParallelPlan(tp=False, ep=True))
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, DBRX.vocab_size, (2, 6)))
+    want, _ = make_prefill_step(tm)({"tokens": toks}, init_cache(tm, 2, 8))
+    plan = ParallelPlan(tp=False, ep=True)
+    with one_rank_group(str(tmp_path)) as mesh:
+        sm = place_model(build_model(DBRX, device="cpu"), plan, mesh)
+        got, cache = make_prefill_step(sm, plan, mesh)(
+            {"tokens": toks}, init_cache(sm, 2, 8, mesh=mesh, plan=plan))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        nxt, _, _ = make_decode_step(sm, plan, mesh)(cache, toks[:, -1:])
+        assert nxt.shape == (2, 1)
+        with pytest.raises(ValueError, match="takes 2 ranks"):
+            make_host_mesh(2, 1)
 
 
 def test_moe_experts_draw_one_slice_at_a_time():

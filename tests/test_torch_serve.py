@@ -296,9 +296,10 @@ def test_lm_batch_is_the_reference(batch, seq, seed, step, shard, n_shards):
         np.testing.assert_array_equal(got[key], want[key])
 
 
-def test_steps_match_the_reference_steps_in_bf16():
+def test_steps_match_the_reference_steps_in_bf16(tmp_path):
     """``make_prefill_step`` / ``make_decode_step`` (bf16) against the
-    model's own calls, and a plan over more than one device raises."""
+    model's own calls, and under the published plan over a one-rank mesh
+    (tests/test_torch_plans.py runs them over two ranks)."""
     _, _, tm = _models()
     toks = torch.from_numpy(np.random.default_rng(4).integers(
         0, SMOKE.vocab_size, (2, 6)))
@@ -311,10 +312,22 @@ def test_steps_match_the_reference_steps_in_bf16():
     assert torch.equal(nxt[:, 0], torch.argmax(logits2[:, -1].float(), -1)
                        .to(torch.int32))
     assert cache["index"] == 7
+    # the published plan (fsdp + tp + sp) over a one-rank mesh: the steps
+    # run, their model and cache laid out by the rules, to the same values
+    from test_torch_plan_ranks import one_rank_group
+    from repro_torch.serve.steps import place_model
     plan = get_arch("qwen2.5-14b").plan
-    for make in (make_prefill_step, make_decode_step):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            make(tm, plan)
+    with one_rank_group(str(tmp_path)) as mesh:
+        sm = build_model(SMOKE, device="cpu")
+        sm.load_state_dict(tm.state_dict())
+        place_model(sm, plan, mesh)
+        p2, d2 = (make_prefill_step(sm, plan, mesh),
+                  make_decode_step(sm, plan, mesh))
+        l2, c2 = p2({"tokens": toks}, init_cache(sm, 2, 12, mesh=mesh,
+                                                 plan=plan))
+        n2, l3, c2 = d2(c2, toks[:, -1:])
+        assert torch.equal(l2, logits) and torch.equal(n2, nxt)
+        assert torch.equal(l3, logits2) and c2["index"] == 7
 
 
 # ---------------------------------------------------------------------------
@@ -579,9 +592,21 @@ def test_engine_raises_without_a_gpu_and_for_what_is_not_ported(monkeypatch,
     out, ops = on_fleet.generate(np.ones((1, 3), np.int32), 2)
     assert out.shape == (1, 2) and ops > 0
     assert on_fleet.plane.stats.fleet_reloads == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ServeEngine(tm, get_arch("qwen2.5-14b").plan, batch_size=1,
-                    max_seq=8, device="cpu")
+    # the published plan over a one-rank mesh (once refused as Queue 1
+    # item 9) serves the tokens of the one-device engine
+    from test_torch_plan_ranks import one_rank_group
+    from repro_torch.serve.steps import place_model
+    prompts = np.arange(6, dtype=np.int32).reshape(2, 3)
+    want, _ = ServeEngine(tm, batch_size=2, max_seq=8,
+                          device="cpu").generate(prompts, 3)
+    plan = get_arch("qwen2.5-14b").plan
+    with one_rank_group(str(tmp_path / "group")) as mesh:
+        sm = build_model(SMOKE, device="cpu")
+        sm.load_state_dict(tm.state_dict())
+        place_model(sm, plan, mesh)
+        got, _ = ServeEngine(sm, plan, batch_size=2, max_seq=8,
+                             device="cpu", mesh=mesh).generate(prompts, 3)
+    np.testing.assert_array_equal(got, want)
     eng = ServeEngine(tm, batch_size=2, max_seq=16, device="cpu")
     with pytest.raises(ValueError, match="slots"):
         eng.generate(np.zeros((3, 4), np.int32), 2)
@@ -698,8 +723,13 @@ def test_cli_flags_not_ported_raise(flags, item, tmp_path):
         assert run["tokens"].shape == (2, 4) and run["retrieval_ops"] > 0
         assert len(run["stats"]["shard_coord_ops"]) == 2
         return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-        serve_cli.main(CLI + flags)
+    # ported since these cases were refusal pins: two spawned ranks serve
+    # the reference CLI's plan over a (2, 1) or (1, 2) mesh, the retrieval on
+    # each rank, the tokens of one rank
+    one = serve_cli.main(CLI)
+    run = serve_cli.main(CLI + flags)
+    assert run["retrieval_ops"] > 0
+    np.testing.assert_array_equal(run["tokens"], one["tokens"])
 
 
 def test_cli_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch):

@@ -688,10 +688,10 @@ def test_loader_matches_reference_bit_for_bit():
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
 
 
-def test_init_train_state_and_plans():
+def test_init_train_state_and_plans(tmp_path):
     """init_train_state draws in place from the seed (the same seed, the
     same bits), zeroes the optimizer, checks the param type; a sharded
-    plan raises."""
+    plan over a one-rank mesh steps as one device does."""
     model = build_model(QWEN, device="cpu")
     plan = ParallelPlan(**plan_of("qwen2.5-14b"))
     a = init_train_state(model, plan, TrainConfig(), 3)
@@ -704,10 +704,24 @@ def test_init_train_state_and_plans():
     with pytest.raises(ValueError, match="param_dtype"):
         init_train_state(model, dataclasses.replace(
             plan, param_dtype="bfloat16"), TrainConfig(), 0)
-    for bad in (dict(tp=True), dict(fsdp=True), dict(ep=True)):
-        with pytest.raises(NotImplementedError):
-            make_train_step(model, dataclasses.replace(plan, **bad),
-                            TrainConfig())
+    # the sharded plans (once refused) run over a one-rank mesh: the same
+    # state as the one-device step, the leaves laid out by the rules
+    from test_torch_plan_ranks import one_rank_group
+    tcfg = TrainConfig(**TCFG)
+    batch = to_torch(batch_of(QWEN, b=2, s=8))
+    fp32 = dataclasses.replace(plan, compute_dtype="float32", grad_accum=1)
+    st = init_train_state(model, fp32, tcfg, 3)
+    st, met = make_train_step(model, fp32, tcfg)(st, batch)
+    with one_rank_group(str(tmp_path)) as mesh:
+        for kw in (dict(tp=True), dict(fsdp=True), dict(ep=True)):
+            sharded = dataclasses.replace(fp32, **kw)
+            m2 = build_model(QWEN, device="meta")
+            s2 = init_train_state(m2, sharded, tcfg, 3, mesh=mesh)
+            s2, met2 = make_train_step(m2, sharded, tcfg, mesh)(s2, batch)
+            assert float(met2["loss"]) == float(met["loss"]), kw
+            for n, p in s2["params"].items():
+                torch.testing.assert_close(p.full_tensor(), st["params"][n],
+                                           rtol=1e-6, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------
@@ -906,11 +920,25 @@ def test_cli_trains_and_restarts_to_the_same_bits(tmp_path):
 
 
 def test_cli_refusals(tmp_path):
-    base = ["--arch", "qwen2.5-14b", "--smoke", "--ckpt-dir",
-            str(tmp_path / "c"), "--steps", "1"]
-    for extra in (["--data", "2"], ["--model", "2"]):
-        with pytest.raises(NotImplementedError, match="sharding"):
-            train_cli.main(base + ["--device", "cpu"] + extra)
+    """``--data 2`` (once refused, as ``--model 2`` was) spawns two ranks
+    and trains the reference CLI's plan, checkpointing every step;
+    ``--fail-at`` over the mesh (once refused too) restarts every rank
+    from the checkpoint before the failure and ends on the uninterrupted
+    run's bits; without a GPU the default device raises."""
+    base = ["--arch", "qwen2.5-14b", "--smoke", "--steps", "3", "--batch",
+            "2", "--seq", "8"]
+    mesh = base + ["--device", "cpu", "--data", "2", "--ckpt-every", "1"]
+    a = train_cli.main(mesh + ["--ckpt-dir", str(tmp_path / "a")])
+    b = train_cli.main(mesh + ["--ckpt-dir", str(tmp_path / "b"),
+                               "--fail-at", "2"])
+    assert a["step"] == b["step"] == 3 and np.isfinite(a["loss"])
+    assert a["loss"] == b["loss"]
+    fa = load_arrays(str(tmp_path / "a" / "step_00000002"))
+    fb = load_arrays(str(tmp_path / "b" / "step_00000002"))
+    assert set(fa) == set(fb)
+    for k in fa:
+        np.testing.assert_array_equal(fa[k], fb[k], err_msg=k)
+    base += ["--ckpt-dir", str(tmp_path / "c")]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_cli.main(base)
