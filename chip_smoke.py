@@ -244,6 +244,23 @@ Run from the root of a checkout. In order it:
    resume the checkpoint bit for bit; the collective probe (through the
    ranks' group, and through gloo's and NCCL's own groups on CUDA
    tensors) and the staged bytes are printed (see ``plans_phase``).
+13. dryrun: the dry run and the roofline (``repro_torch.launch.dryrun``)
+   in a process of its own, host-only and on one thread, started right
+   after the build and joined after the plans phase, so it runs beside the
+   card phases: qwen2.5-14b × train_4k on the 16 × 16 mesh, dbrx-132b ×
+   decode_32k on 2 × 16 × 16 (EP), xlstm-350m × long_500k and bmo-nn ×
+   knn_100k_12k (``DRYRUN_CELLS``), each over PyTorch's fake process group
+   with every tensor on ``meta``, and every record must end ``ok``; the
+   train phase's own qwen2.5-14b step priced at one chip, printed beside
+   its measured s a step; ``hardware.HBM_BYTES`` held equal to the card's
+   ``total_memory`` (see ``dryrun_finish``).
+14. lint: ``tools/torch_lint.py`` over ``src/repro_torch`` against
+   ``tools/torch_lint_baseline.json`` with this run's ``ptxas -v`` record
+   of every built kernel and the card's record of every launch the kernel
+   phase's torch.profiler traces held (registers, threads, static plus
+   dynamic shared memory at the path's shapes) for the Hopper rule, 0 new
+   findings, the counts printed by rule and by status; it runs right
+   after the kernel phase (see ``lint_phase``).
 
 ``--out`` also writes every detail (build logs, all rows) to a JSON file.
 The line before the last is the kernels' JSON summary; the last line is
@@ -264,6 +281,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -447,6 +465,29 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # device_ms calls whose traces held none of the kernel they were asked
 # for, each timed with CUDA events instead (reported as "profiler_misses")
 PROFILER_MISSES = []
+# what the card recorded of each distinct kernel launch device_ms traced
+# (registers, threads, static + dynamic shared memory:
+# rules_hopper.parse_trace), which the lint phase prices, and the seconds
+# the recording took
+LAUNCHES: dict = {}
+LAUNCH_RECORD_S = [0.0]
+
+
+def record_launches(prof) -> None:
+    """Adds the kernel launches of a finished torch.profiler trace to
+    LAUNCHES."""
+    from repro_torch.analysis.rules_hopper import parse_trace
+    t = time.perf_counter()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            for row in parse_trace(json.load(fh)):
+                LAUNCHES[tuple(sorted(row.items()))] = row
+    finally:
+        os.remove(path)
+        LAUNCH_RECORD_S[0] += time.perf_counter() - t
 
 
 def device_ms(fn, symbol: str, reps: int = 5, expect: bool = True) -> float:
@@ -475,6 +516,8 @@ def device_ms(fn, symbol: str, reps: int = 5, expect: bool = True) -> float:
                  for ev in prof.key_averages()
                  if ev.device_type == torch.autograd.DeviceType.CUDA
                  and symbol in ev.key)
+        if us > 0:
+            record_launches(prof)
         if us > 0 or not expect:
             return us / reps / 1e3
     ms = cuda_ms(fn, reps=reps, warmup=0)
@@ -728,33 +771,11 @@ def sass_check(stem: str) -> dict:
 def ptxas_functions(stem: str) -> dict:
     """What ptxas said (``-v``) about each kernel of ``csrc/<stem>.cu``:
     {mangled name: registers, static shared bytes, stack, spill stores and
-    loads}; empty where the library was built by an earlier run that kept
-    no log."""
-    import re
+    loads}, parsed as the lint's Hopper rule parses it; empty where the
+    library was built by an earlier run that kept no log."""
+    from repro_torch.analysis.rules_hopper import parse_ptxas
     from repro_torch.kernels import _build
-    log = _build.build_log.get(stem, {}).get("log") or ""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            name = m.group(1)
-            out[name] = {"registers": None, "smem_static_bytes": 0}
-            continue
-        if name is None:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            out[name].update(stack_bytes=int(m.group(1)),
-                             spill_store_bytes=int(m.group(2)),
-                             spill_load_bytes=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            out[name]["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            if m:
-                out[name]["smem_static_bytes"] = int(m.group(1))
-    return out
+    return parse_ptxas(_build.build_log.get(stem, {}).get("log") or "")
 
 
 def fwht_kernel_report(d: int, dtype) -> dict:
@@ -7125,6 +7146,193 @@ def plans_phase(seed: int, device: str = "cuda", smoke: bool = False,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. dryrun: the dry run and the roofline, host-only, beside the card
+# ---------------------------------------------------------------------------
+
+# full-width production cells: (arch, shape, mesh)
+DRYRUN_CELLS = (("qwen2.5-14b", "train_4k", "single"),
+                ("dbrx-132b", "decode_32k", "multi"),
+                ("xlstm-350m", "long_500k", "single"),
+                ("bmo-nn", "knn_100k_12k", "single"))
+# the train phase's own qwen2.5-14b step, priced at one chip: its cut,
+# batch and seq (the published plan, ga 8, AdamW, fp32 parameters)
+DRYRUN_TRAIN_STEP = ("qwen2.5-14b", TRAIN_RUNS[0][1], TRAIN_BATCH, TRAIN_SEQ)
+# seconds the child may take after the card phases end
+DRYRUN_JOIN_S = 300
+
+
+def dryrun_start(out_dir: str):
+    """The dryrun phase's child process (``dryrun_child``), started at
+    once: host-only (no card visible), one thread, so it runs beside the
+    card phases. Returns (process, result path, log path)."""
+    out = os.path.join(out_dir, "dryrun.json")
+    log = os.path.join(out_dir, "dryrun.log")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               MKL_NUM_THREADS="1")
+    # at the lowest priority: the card phases' host threads come first
+    code = (f"import os, sys; os.nice(19); sys.path.insert(0, {ROOT!r}); "
+            f"import chip_smoke; chip_smoke.dryrun_child({out!r})")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                stdout=fh, stderr=subprocess.STDOUT,
+                                cwd=ROOT)
+    return proc, out, log
+
+
+def dryrun_child(out: str) -> None:
+    """The body of the dryrun phase, in its own process: each of
+    DRYRUN_CELLS through ``repro_torch.launch.dryrun`` (its fake process
+    group of 256 or 512 ranks, every tensor on ``meta``), and the train
+    phase's qwen2.5-14b step priced at one chip; writes the records to
+    ``out``."""
+    import dataclasses
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    t = time.perf_counter()
+    cells = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        t_cell = time.perf_counter()
+        try:
+            rec = (dryrun.run_bmo_cell(shape, mesh) if arch == "bmo-nn"
+                   else dryrun.run_cell(arch, shape, mesh))
+        except Exception as e:  # noqa: BLE001 - reported, then fails the run
+            rec = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "status": "error", "error": f"{type(e).__name__}: {e}"}
+        rec["wall_s"] = time.perf_counter() - t_cell
+        cells.append(rec)
+    arch, layers, batch, seq = DRYRUN_TRAIN_STEP
+    entry = get_arch(arch)
+    cfg = dataclasses.replace(entry.config, n_layers=layers)
+    # the train phase's plan: the published one on one card
+    plan = dataclasses.replace(entry.plan, fsdp=False, tp=False, sp=False,
+                               ep=False)
+    step = dryrun.price_train_step(cfg, plan, batch, seq,
+                                   name=f"train_phase_{batch}x{seq}")
+    with open(out, "w") as fh:
+        json.dump({"cells": cells, "train_step": step,
+                   "seconds": time.perf_counter() - t}, fh)
+
+
+def dryrun_finish(started, train: dict) -> dict:
+    """Join the dryrun phase's child (at most DRYRUN_JOIN_S more), check
+    every cell ``ok`` and ``hardware.HBM_BYTES`` equal to the card's
+    memory, and put the priced train step beside the train phase's
+    measured s a step."""
+    import torch
+    from repro_torch import hardware
+    proc, out, log = started
+    t = time.perf_counter()
+    try:
+        proc.wait(timeout=DRYRUN_JOIN_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    waited = time.perf_counter() - t
+    if proc.returncode != 0 or not os.path.exists(out):
+        with open(log) as fh:
+            tail = fh.read()[-3000:]
+        raise RuntimeError(f"dryrun: the child exited {proc.returncode}: "
+                           f"{tail}")
+    with open(out) as fh:
+        res = json.load(fh)
+    total = torch.cuda.get_device_properties(0).total_memory
+    keys = ("arch", "shape", "mesh", "chips", "status", "t_compute",
+            "t_memory", "t_collective", "bottleneck", "roofline_fraction",
+            "peak_memory_per_chip", "fits_hbm", "compile_s", "wall_s")
+    cells = [{k: c.get(k) for k in keys + ("error",) if k in c}
+             for c in res["cells"]]
+    for c in cells:
+        emit({"dryrun_cell": c})
+    qwen = next(r for r in train["runs"] if r.get("arch") == "qwen2.5-14b")
+    step = res["train_step"]
+    priced = {k: step[k] for k in ("hlo_flops", "hlo_bytes", "t_compute",
+                                   "t_memory", "t_collective", "t_bound",
+                                   "bottleneck", "peak_memory_per_chip",
+                                   "model_flops", "useful_flops_ratio")}
+    priced.update({"arch": DRYRUN_TRAIN_STEP[0],
+                   "n_layers": qwen["n_layers"],
+                   "measured_s_a_step": qwen["s_a_step"],
+                   "measured_peak_gb": qwen["peak_gb"],
+                   "measured_over_bound": qwen["s_a_step"] / step["t_bound"]})
+    emit({"dryrun_train_step": priced})
+    out_d = {"phase": "dryrun", "child_s": res["seconds"],
+             "joined_after_s": waited, "cells": cells,
+             "train_step": priced, "hbm_bytes": hardware.HBM_BYTES,
+             "total_memory": total}
+    bad = [c for c in cells if c["status"] != "ok"]
+    if bad:
+        raise AssertionError(f"dryrun: cells not ok: {bad}")
+    if hardware.HBM_BYTES != total:
+        raise AssertionError(f"dryrun: hardware.HBM_BYTES "
+                             f"{hardware.HBM_BYTES} != the card's "
+                             f"total_memory {total}")
+    if qwen["n_layers"] != DRYRUN_TRAIN_STEP[1]:
+        raise AssertionError(f"dryrun: the train phase ran qwen2.5-14b at "
+                             f"{qwen['n_layers']} layers, priced at "
+                             f"{DRYRUN_TRAIN_STEP[1]}")
+    return out_d
+
+
+# ---------------------------------------------------------------------------
+# 14. lint: the invariant lint over the port and the kernels' ptxas records
+# ---------------------------------------------------------------------------
+
+
+def lint_phase(out_dir: str) -> dict:
+    """``tools/torch_lint.py`` over ``src/repro_torch`` against the port's
+    baseline with this run's ``ptxas -v`` record of every built kernel and
+    the launches the traces so far recorded (LAUNCHES; the Hopper rule): 0
+    new findings, from the sources' rules and from the Hopper rule.
+    Returns the counts by rule and by status."""
+    from repro_torch.kernels import _build
+    t = time.perf_counter()
+    logs = os.path.join(out_dir, "ptxas")
+    os.makedirs(logs, exist_ok=True)
+    missing = [stem for stem, v in _build.build_log.items()
+               if not v.get("log")]
+    if missing or not _build.build_log:
+        raise AssertionError(f"lint: no ptxas record for {missing}")
+    for stem, v in _build.build_log.items():
+        with open(os.path.join(logs, f"{stem}.log"), "w") as fh:
+            fh.write(v["log"])
+    launches = os.path.join(out_dir, "launches.json")
+    with open(launches, "w") as fh:
+        json.dump(sorted(LAUNCHES.values(), key=lambda r: r["kernel"]), fh)
+    report = os.path.join(out_dir, "lint.json")
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "tools", "torch_lint.py"),
+         "--json", report, "--ptxas-log", logs, "--launches", launches],
+        capture_output=True, text=True, cwd=ROOT, timeout=300)
+    if run.returncode != 0:
+        raise AssertionError(f"lint: exit {run.returncode}: "
+                             f"{run.stdout[-3000:]}{run.stderr[-2000:]}")
+    with open(report) as fh:
+        doc = json.load(fh)
+    by_rule: dict = {}
+    for f in doc["findings"]:
+        row = by_rule.setdefault(f["rule"], {})
+        row[f["status"]] = row.get(f["status"], 0) + 1
+    if doc["counts"]["new"]:
+        raise AssertionError(f"lint: new findings: {doc}")
+    from repro_torch.analysis.rules_hopper import launch_key
+    ours = {launch_key(r["kernel"])[0] for r in LAUNCHES.values()}
+    ours = sorted(n for n in ours if any(
+        n in v["log"] for v in _build.build_log.values()))
+    if not ours:
+        raise AssertionError("lint: the profiler's traces recorded no "
+                             "launch of this repo's kernels")
+    return {"phase": "lint", "counts": doc["counts"], "by_rule": by_rule,
+            "kernels_priced": sorted(_build.build_log),
+            "launch_records": len(LAUNCHES),
+            "kernels_priced_at_launch": ours,
+            "launch_record_s": LAUNCH_RECORD_S[0],
+            "seconds": time.perf_counter() - t}
+
+
 KERNELS = (
     ("fused_epoch_pull", "src/repro_torch/csrc/fused_epoch_pull.cu",
      "src/repro/kernels/fused_race.py:89",
@@ -7255,10 +7463,30 @@ def main() -> int:
     _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "per_source_s": {k: v["seconds"] for k, v in _build.build_log.items()}})
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    dryrun = dryrun_start(work)
+    try:
+        return run_phases(args, t_start, smi, work, dryrun)
+    finally:
+        if dryrun[0].poll() is None:
+            dryrun[0].kill()
+            dryrun[0].wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def run_phases(args, t_start: float, smi: str, work: str, dryrun) -> int:
+    """Every phase after the build, in order (the module docstring); the
+    dryrun phase's child runs beside them from the start."""
+    import torch
+    from repro_torch.configs.bmo_nn import DENSE
+    from repro_torch.data.synthetic import make_knn_benchmark_data
+    from repro_torch.kernels import _build
 
     report = {"nvidia_smi": smi.strip(),
               "build_log": {k: v["log"] for k, v in _build.build_log.items()}}
     report["kernels"] = kernel_phase(args.seed, args.queries, DENSE.n_points)
+    report["lint"] = lint_phase(work)
+    emit(report["lint"])
     report["small_input"] = small_input_phase()
     emit({"phase": "small_input", **report["small_input"]})
 
@@ -7349,6 +7577,9 @@ def main() -> int:
     emit({k: report["plans"][k] for k in (
         "phase", "seconds", "baselines_s", "four_ranks_s", "two_ranks_s",
         "launches", "launches_by_variant")})
+    report["dryrun"] = dryrun_finish(dryrun, report["train"])
+    emit({k: v for k, v in report["dryrun"].items()
+          if k not in ("cells", "train_step")})
     report["profiler_misses"] = PROFILER_MISSES
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,7 +1,7 @@
 """Config dataclasses, field for field the reference's: ``BMOConfig`` (so the
 ``cfg`` dict in an index's metadata loads unchanged in either package),
-``ModelConfig``, ``ParallelPlan`` (so a reference model config does) and
-``TrainConfig``."""
+``ModelConfig``, ``ParallelPlan`` (so a reference model config does),
+``TrainConfig``, and the dry run's ``ShapeConfig`` and ``SHAPES``."""
 from __future__ import annotations
 
 import dataclasses
@@ -102,6 +102,25 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """An input shape of the dry run, the reference's: the sequence length,
+    the global batch and the step it feeds (train | prefill | decode)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,16 @@
 """Meshes over the current process group: the port of
-``repro/launch/mesh.py``. A function, so importing it touches no device.
-The production meshes (16 × 16, 2 × 16 × 16) wait with the dry run
-(ROADMAP.md Queue 1 item 9d)."""
+``repro/launch/mesh.py``. Functions, so importing it touches no device."""
 from __future__ import annotations
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production meshes over the current process group:
+    one pod 16 × 16 = 256 ranks (data, model); two pods 2 × 16 × 16 = 512
+    (pod, data, model). The dry run builds them over PyTorch's ``fake``
+    process group of that many ranks in one process."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def mesh_device_type() -> str:

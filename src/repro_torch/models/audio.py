@@ -173,6 +173,22 @@ class Whisper(nn.Module):
                            compute_dtype=compute_dtype, impl=impl,
                            cache=cache, cache_index=cache_index, remat=remat)
 
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` as ``meta`` tensors, the
+        reference's: bf16 frames (B, S, d) and decoder tokens of
+        max(S // dec_seq_div, 8) (labels to train); one token to decode."""
+        cfg = self.cfg
+        B, S, d = shape.global_batch, shape.seq_len, cfg.d_model
+        dec_len = max(S // cfg.dec_seq_div, 8)
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"tokens": cm.meta_spec((B, 1), i32)}
+        out = {"frames": cm.meta_spec((B, S, d), torch.bfloat16),
+               "tokens": cm.meta_spec((B, dec_len), i32)}
+        if shape.kind == "train":
+            out["labels"] = cm.meta_spec((B, dec_len), i32)
+        return out
+
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> dict:
         """``max_seq`` is the encoder's length; the decoder's cache holds

@@ -101,6 +101,25 @@ def grads_on(model: nn.Module):
             p.requires_grad_(False)
 
 
+def meta_spec(shape, dtype) -> torch.Tensor:
+    """A ``meta`` tensor of ``shape`` and ``dtype``: the counterpart of the
+    reference's ``jax.ShapeDtypeStruct``, nothing allocated."""
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def token_input_specs(shape) -> dict:
+    """The token families' inputs of a ``ShapeConfig``, the reference's
+    ``input_specs``: tokens and labels (B, S) int32 to train, tokens (B, S)
+    to prefill, one new token (B, 1) to decode against a cache of S."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": meta_spec((B, S), torch.int32),
+                "labels": meta_spec((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": meta_spec((B, S), torch.int32)}
+    return {"tokens": meta_spec((B, 1), torch.int32)}
+
+
 REMAT_MODES = ("none", "full", "dots")
 _ATEN = torch.ops.aten
 # what "dots" keeps: the reference's checkpoint_dots_with_no_batch_dims
@@ -398,6 +417,73 @@ def sdpa(q, k, v, *, causal: bool, q_offset: int = 0,
                       for s in range(0, Sq, chunk)], dim=1)
 
 
+def head_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """"bsd,dhk->bshk": ``x`` (B, S, d) by ``w`` (d, h, k). A weight laid
+    out over its last dim (the ``head_dim`` backup, where the model axis
+    does not divide the heads) runs as a column-parallel product on each
+    rank's slice of k, x gathered over that axis: the product's (h·k) dim
+    split over ranks could not be viewed as (h, k)."""
+    B, S, d = x.shape
+    if not (sctx.is_dtensor(w) and any(
+            p.is_shard(2) for p in w.placements)):
+        return (x @ w.reshape(d, -1)).view(B, S, w.shape[1], w.shape[2])
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    # x keeps its batch or sequence split; it is gathered over the axis
+    # that splits k
+    x_pl = [Replicate() if wp.is_shard(2)
+            else (p if p.is_shard(0) or p.is_shard(1) else Replicate())
+            for p, wp in zip(sctx.as_dtensor(x, mesh).placements,
+                             w.placements)]
+    w_pl = [Shard(2) if wp.is_shard(2) else Replicate()
+            for wp in w.placements]
+    out_pl = [Shard(3) if wp.is_shard(2) else xp
+              for xp, wp in zip(x_pl, w_pl)]
+    # each side replicated where the other is split meets a different
+    # part there on each rank: its gradient is partial over that dim
+    x_grad = [Partial() if wp.is_shard(2) else xp
+              for xp, wp in zip(x_pl, w_pl)]
+    w_grad = [Partial() if xp.is_shard() else wp
+              for xp, wp in zip(x_pl, w_pl)]
+
+    def local(xl, wl):
+        return (xl @ wl.reshape(d, -1)).view(
+            xl.shape[0], xl.shape[1], wl.shape[1], wl.shape[2])
+
+    return sctx.local_call(local, (x, w), (x_pl, w_pl), out_pl, mesh,
+                           grad_placements=[x_grad, w_grad])
+
+
+def head_out_proj(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """"bshk,hkd->bsd": the attention's output ``o`` (B, S, h, k) by ``w``
+    (h, k, d). A weight laid out over k (``head_proj``'s case) runs as a
+    row-parallel product on each rank's slice of k, its output a partial
+    sum over that axis, reduced where the caller lays it out."""
+    B, S, h, k = o.shape
+    if not (sctx.is_dtensor(w) and any(
+            p.is_shard(1) for p in w.placements)):
+        return o.reshape(B, S, -1) @ w.reshape(-1, w.shape[-1])
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = w.device_mesh
+    o_pl = [Shard(3) if wp.is_shard(1)
+            else (p if p.is_shard(0) or p.is_shard(1) else Replicate())
+            for p, wp in zip(sctx.as_dtensor(o, mesh).placements,
+                             w.placements)]
+    w_pl = [Shard(1) if wp.is_shard(1) else Replicate()
+            for wp in w.placements]
+    out_pl = [Partial() if wp.is_shard(1) else op
+              for op, wp in zip(o_pl, w_pl)]
+    w_grad = [Partial() if op.is_shard() and not wp.is_shard() else wp
+              for op, wp in zip(o_pl, w_pl)]
+
+    def local(ol, wl):
+        return ol.reshape(ol.shape[0], ol.shape[1], -1) @ wl.reshape(
+            -1, wl.shape[-1])
+
+    return sctx.local_call(local, (o, w), (o_pl, w_pl), out_pl, mesh,
+                           grad_placements=[None, w_grad])
+
+
 def quantize_kv(t: torch.Tensor):
     """(B, S, H, D) → (int8 values, (B, S, H) bf16 scales): each (token,
     head) row scaled by amax/127 in fp32 (1 where the row is all zeros),
@@ -455,8 +541,7 @@ class GQAAttention(nn.Module):
         xc = x.to(compute_dtype)
 
         def proj(w):                       # "bsd,dhk->bshk"
-            return (xc @ w.to(compute_dtype).reshape(d, -1)).view(
-                B, S, w.shape[1], w.shape[2])
+            return head_proj(xc, w.to(compute_dtype))
 
         q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
         if cfg.qkv_bias:
@@ -521,8 +606,8 @@ class GQAAttention(nn.Module):
 
         out = (attend(q, k, v) if not sctx.is_dtensor(q)
                else sctx.heads_local(attend, q, k, v))
-        proj_out = out.to(compute_dtype).reshape(B, S, -1) @ \
-            self.wo.to(compute_dtype).reshape(-1, d)
+        proj_out = head_out_proj(out.to(compute_dtype),
+                                 self.wo.to(compute_dtype))
         return proj_out.to(x.dtype), new_kv
 
 

@@ -65,6 +65,11 @@ class Zamba2(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` as ``meta`` tensors, the
+        reference's ``input_specs``."""
+        return cm.token_input_specs(shape)
+
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> dict:
         cfg = self.cfg

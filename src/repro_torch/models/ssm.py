@@ -266,6 +266,27 @@ def _chunks(S: int):
     return [slice(s, s + chunk) for s in range(0, S, chunk)]
 
 
+#: None, or ``hook(fn, seqs, state, consts, n_chunks)`` run in place of
+#: ``_scan_chunks``' loop over more than one chunk (the dry run installs
+#: one while it counts: ``launch/dryrun.py`` ``_scan_first_chunk``)
+SCAN_HOOK = None
+
+
+def _scan_chunks(fn, seqs: tuple, state: tuple, consts: tuple = ()):
+    """``fn(*chunks of seqs, *consts, *state) -> (*state, out)`` over the
+    ``_chunks`` of the positions (dim 1) in order, each under
+    ``cm.remat("full")``: (state, the outs concatenated along dim 1)."""
+    slices = _chunks(seqs[0].shape[1])
+    if SCAN_HOOK is not None and len(slices) > 1:
+        return SCAN_HOOK(fn, seqs, state, consts, len(slices))
+    outs = []
+    for sl in slices:
+        *state, out = cm.remat("full", fn, *(x[:, sl] for x in seqs),
+                               *consts, *state)
+        outs.append(out)
+    return tuple(state), torch.cat(outs, dim=1)
+
+
 def mlstm_scan(q, k, v, it, ft, C, n, m):
     """The reference's ``_mlstm_step`` over every position. q, k, v (B, S,
     H, dk); it and ft (B, S, H) fp32; the state C (B, H, dk, dk), n (B, H,
@@ -273,14 +294,9 @@ def mlstm_scan(q, k, v, it, ft, C, n, m):
     chunk of SCAN_CHUNK positions at a time (``cm.remat``)."""
     dk = q.shape[-1]
     ks = k.to(torch.float32) / math.sqrt(dk)
-    qf = q.to(torch.float32)
-    vf = v.to(torch.float32)
-    hs = []
-    for sl in _chunks(q.shape[1]):
-        C, n, m, h = cm.remat("full", _mlstm_steps, qf[:, sl], ks[:, sl],
-                              vf[:, sl], it[:, sl], ft[:, sl], C, n, m)
-        hs.append(h)
-    return (C, n, m), torch.cat(hs, dim=1)
+    return _scan_chunks(_mlstm_steps, (q.to(torch.float32), ks,
+                                       v.to(torch.float32), it, ft),
+                        (C, n, m))
 
 
 def _mlstm_steps(qf, ks, vf, it, ft, C, n, m):
@@ -365,7 +381,7 @@ class MLSTMBlock(nn.Module):
             (bsh + (None,),) * 3 + (bsh, bsh, bh + (None, None),
                                     bh + (None,), bh),
             ((bh + (None, None), bh + (None,), bh), bsh + (None,)))
-        h = hs.reshape(B, S, din).to(cd)
+        h = sctx.reshape(hs, B, S, din).to(cd)
         h = cm.rmsnorm(h, self.gnorm, cfg.norm_eps)
         h = h * F.silu(zg.to(torch.float32)).to(cd)
         out = h @ self.wo.to(cd)
@@ -393,12 +409,7 @@ def slstm_scan(wx, rg, c, n, h, m):
     B, S = wx.shape[:2]
     H, dh = rg.shape[0], rg.shape[1]
     g_in = wx.reshape(B, S, H, 4 * dh)
-    hs = []
-    for sl in _chunks(S):
-        c, n, h, m, hc = cm.remat("full", _slstm_steps, g_in[:, sl], rg, c,
-                                  n, h, m)
-        hs.append(hc)
-    return (c, n, h, m), torch.cat(hs, dim=1)
+    return _scan_chunks(_slstm_steps, (g_in,), (c, n, h, m), (rg,))
 
 
 def _slstm_steps(g_in, rg, c, n, h, m):
@@ -460,12 +471,12 @@ class SLSTMBlock(nn.Module):
         m0 = st.get("m", torch.full((B, H, dh), M_INIT, **f32))
         bhd = ("batch", "ssm_heads", None)
         (cf, nf, hf, mf), hs = sctx.by_axes(
-            slstm_scan, (wx.reshape(B, S, H, 4 * dh),
+            slstm_scan, (sctx.reshape(wx, B, S, H, 4 * dh),
                          self.rg.to(torch.float32), c0, n0, h0, m0),
             (("batch", None, "ssm_heads", None), ("ssm_heads", None, None))
             + (bhd,) * 4,
             ((bhd,) * 4, ("batch", None, "ssm_heads", None)))
-        h = hs.reshape(B, S, D).to(cd)
+        h = sctx.reshape(hs, B, S, D).to(cd)
         h = cm.rmsnorm(h, self.gnorm, cfg.norm_eps)
         up = F.gelu((h @ self.up.to(cd)).to(torch.float32),
                     approximate="tanh").to(cd)
@@ -518,6 +529,11 @@ class XLSTM(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.final_norm.device
+
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` as ``meta`` tensors, the
+        reference's ``input_specs``."""
+        return cm.token_input_specs(shape)
 
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> dict:

@@ -116,6 +116,11 @@ class DenseLM(nn.Module):
 
     # -- serving ------------------------------------------------------------
 
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` as ``meta`` tensors, the
+        reference's ``input_specs``."""
+        return cm.token_input_specs(shape)
+
     def cache_specs(self, batch_size: int, max_seq: int,
                     dtype=torch.bfloat16) -> dict:
         """The KV cache's leaves as ``CacheSpec``s, the reference's layout:

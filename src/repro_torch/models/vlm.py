@@ -19,6 +19,20 @@ class VLM(DenseLM):
     """``DenseLM``'s parameters and cache; the forward reads embeddings and
     rotates by ``positions3``."""
 
+    def input_specs(self, shape) -> dict:
+        """The inputs of a ``ShapeConfig`` as ``meta`` tensors, the
+        reference's: bf16 embeddings and the (3, B, S) position streams
+        (labels to train); one embedding (B, 1, d) to decode."""
+        B, S, d = shape.global_batch, shape.seq_len, self.cfg.d_model
+        i32 = torch.int32
+        if shape.kind == "decode":
+            return {"embeds": cm.meta_spec((B, 1, d), torch.bfloat16)}
+        out = {"embeds": cm.meta_spec((B, S, d), torch.bfloat16),
+               "positions3": cm.meta_spec((3, B, S), i32)}
+        if shape.kind == "train":
+            out["labels"] = cm.meta_spec((B, S), i32)
+        return out
+
     def forward(self, batch: dict, *, remat: str = "full",
                 compute_dtype=torch.bfloat16, impl: str = "auto",
                 cache: Optional[dict] = None, cache_index: int = 0):

@@ -39,10 +39,11 @@ def init_cache(model, batch_size: int, max_seq: int, dtype=torch.bfloat16,
     model's), nested as the specs are (an SSM's states), each leaf at its
     start (zeros, ones, or its scalar: the stabilisers' −1e30), its
     ``index`` the host int 0. Over ``mesh``, each leaf laid out by
-    ``cache_pspecs`` under the plan's rules (or ``rules``)."""
+    ``cache_pspecs`` under the plan's rules (or ``rules``), on the rank's
+    device unless ``device`` is given (``meta`` in the dry run)."""
     if mesh is not None:
         from repro_torch.dist import rank_device
-        device = rank_device()
+        device = device if device is not None else rank_device()
         rules = rules or rules_for(plan, mesh)
         specs = cache_pspecs(model, batch_size, max_seq, rules, dtype)
     device = device if device is not None else model.device
@@ -100,7 +101,9 @@ def make_prefill_step(model, plan: Optional[ParallelPlan] = None, mesh=None,
 def make_decode_step(model, plan: Optional[ParallelPlan] = None, mesh=None,
                      *, rules: Optional[Rules] = None):
     """``decode_step(cache, tokens) -> (next_tok (B, 1) int32, logits,
-    new_cache)``, greedy; over ``mesh`` as ``make_prefill_step``."""
+    new_cache)``, greedy; over ``mesh`` as ``make_prefill_step``.
+    ``tokens`` is (B, 1), or the VLM's batch dict (``{"embeds": (B, 1,
+    d)}``), as the reference's decode step takes."""
     if mesh is not None:
         rules = rules or rules_for(plan, mesh)
 
@@ -111,9 +114,13 @@ def make_decode_step(model, plan: Optional[ParallelPlan] = None, mesh=None,
                                                   compute_dtype=COMPUTE_DTYPE)
         else:
             with sctx.activation_sharding(rules, mesh):
-                placed = _placed_inputs({"tokens": tokens}, rules, mesh)
+                if isinstance(tokens, dict):
+                    arg = _placed_inputs(tokens, rules, mesh)
+                else:
+                    arg = _placed_inputs({"tokens": tokens}, rules,
+                                         mesh)["tokens"]
                 logits, new_cache = model.decode_step(
-                    cache, placed["tokens"], compute_dtype=COMPUTE_DTYPE)
+                    cache, arg, compute_dtype=COMPUTE_DTYPE)
                 logits = sctx.replicated(logits)
         next_tok = torch.argmax(logits[:, -1].to(torch.float32), dim=-1)
         return next_tok.to(torch.int32)[:, None], logits, new_cache

@@ -73,13 +73,63 @@ def shard_act(x, axes=("batch", "seq", "act_embed")):
 def to_placements(x, mesh, want):
     """``x`` (a DTensor, or a plain tensor replicated on every rank) as a
     DTensor with placements ``want``."""
-    from torch.distributed.tensor import DTensor, Replicate
-    if not isinstance(x, DTensor):
-        x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
-                               run_check=False)
+    x = as_dtensor(x, mesh)
     if tuple(x.placements) == tuple(want):
         return x
     return x.redistribute(mesh, want)
+
+
+def as_dtensor(x, mesh):
+    """``x`` as a DTensor on ``mesh``: a plain tensor taken as
+    replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def reshape(x, *shape):
+    """``x.reshape(shape)``, its gradient reshaped back the same way: a
+    DTensor split over a dim that the reshape splits unevenly for the mesh
+    (4 heads out of a dim split 16 ways) is first gathered over the mesh
+    dims that split it at or after the first dim the reshape changes,
+    where DTensor cannot carry the layout. A plain tensor is reshaped as
+    it is."""
+    if not is_dtensor(x):
+        return x.reshape(*shape)
+    return _Reshape.apply(x, shape)
+
+
+def _carried_reshape(x, shape):
+    try:
+        return x.reshape(*shape)
+    except RuntimeError as e:
+        # PyTorch 2.13: "Cannot unflatten unevenly sharded tensor ...
+        # Please redistribute"; 2.11: "Attempted to split the sharded
+        # dimension ... without redistribution"
+        if "redistribut" not in str(e):
+            raise
+    from torch.distributed.tensor import Replicate
+    first = next((i for i, (a, b) in enumerate(zip(x.shape, shape))
+                  if a != b), min(x.dim(), len(shape)))
+    want = [Replicate() if p.is_shard() and p.dim >= first else p
+            for p in x.placements]
+    return x.redistribute(x.device_mesh, want).reshape(*shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """``reshape``'s forward and backward: each side through
+    ``_carried_reshape``."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _carried_reshape(x, tuple(shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _carried_reshape(g, ctx.shape), None
 
 
 def whole_sequence(x):

@@ -262,7 +262,9 @@ def make_train_step(model, plan: ParallelPlan, tcfg: TrainConfig,
         (loss / ga if ga > 1 else loss).backward()
         return {k: _scalar(v) for k, v in metrics.items()}
 
-    def compute_grads(params: dict, batch: dict):
+    def accumulate(params: dict, microbatches: list) -> list:
+        """Each microbatch's loss and backward, ``.grad`` summed; their
+        metrics."""
         for p in params.values():
             p.grad = None
         per_mb = []
@@ -270,8 +272,13 @@ def make_train_step(model, plan: ParallelPlan, tcfg: TrainConfig,
         ctx = (sctx.activation_sharding(rules, mesh) if mesh is not None
                else contextlib.nullcontext())
         with cm.grads_on(model), ctx:
-            for mb in split_batch(batch, ga):
+            for mb in microbatches:
                 per_mb.append(backward(mb))
+        return per_mb
+
+    def collect(params: dict, per_mb: list):
+        """The summed gradients in their parameters' layouts, ``.grad``
+        cleared; the metrics' means over the microbatches."""
         grads = {}
         for n, p in params.items():
             g = p.grad if p.grad is not None else torch.zeros_like(p)
@@ -286,8 +293,8 @@ def make_train_step(model, plan: ParallelPlan, tcfg: TrainConfig,
                    for k in per_mb[0]}
         return grads, metrics
 
-    def train_step(state: dict, batch: dict):
-        grads, metrics = compute_grads(state["params"], batch)
+    def update(state: dict, grads: dict, metrics: dict):
+        """The clip, the schedule and the optimizer's update in place."""
         grads, gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
         lr = schedule(state["step"])
         optimizer.update(grads, state["opt"], state["params"], state["step"],
@@ -298,4 +305,14 @@ def make_train_step(model, plan: ParallelPlan, tcfg: TrainConfig,
         state["step"] = state["step"] + 1
         return state, metrics
 
+    def train_step(state: dict, batch: dict):
+        per_mb = accumulate(state["params"], split_batch(batch, ga))
+        grads, metrics = collect(state["params"], per_mb)
+        return update(state, grads, metrics)
+
+    # the step's three parts, for the dry run, which prices one
+    # microbatch's backward apart from the once-a-step reduction and update
+    train_step.accumulate = accumulate
+    train_step.collect = collect
+    train_step.update = update
     return train_step

@@ -47,17 +47,26 @@ FLOPS_PER_ELEMENT = 3.0
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "float16": 2}
 
 
-def launch_seconds(Q: int, B: int, T: int, block: int,
-                   itemsize: int = 4) -> float:
-    """Modelled seconds of one ``fused_epoch_pull`` launch at (Q, B, T):
-    each pulled corpus block and its query block read once, the int32
-    block and arm ids read once, the (Q, B, 2) fp32 output written once,
-    3 flops a pulled element, plus ``LAUNCH_S``."""
+def launch_work(Q: int, B: int, T: int, block: int,
+                itemsize: int = 4) -> Tuple[float, float]:
+    """(flops, bytes) of one ``fused_epoch_pull`` launch at (Q, B, T): each
+    pulled corpus block and its query block read once, the int32 block
+    and arm ids read once, the (Q, B, 2) fp32 output written once, 3
+    flops a pulled element. The dry run prices the ``bmo-nn`` cells'
+    launches with the same arithmetic."""
     elems = float(Q * B * T * block)
     nbytes = (2.0 * elems * itemsize + 4.0 * Q * B * T + 4.0 * Q * B
               + 8.0 * Q * B)
-    return max(nbytes / HBM_BYTES_PER_S,
-               FLOPS_PER_ELEMENT * elems / FP32_FLOPS) + LAUNCH_S
+    return FLOPS_PER_ELEMENT * elems, nbytes
+
+
+def launch_seconds(Q: int, B: int, T: int, block: int,
+                   itemsize: int = 4) -> float:
+    """Modelled seconds of one ``fused_epoch_pull`` launch at (Q, B, T):
+    ``launch_work``'s bytes over the memory rate or its flops over the
+    fp32 rate, whichever is longer, plus ``LAUNCH_S``."""
+    flops, nbytes = launch_work(Q, B, T, block, itemsize)
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) + LAUNCH_S
 
 
 def model_efficiency(cand: TunedConfig, *, Q: int, n: int, d_pad: int,
